@@ -1,0 +1,134 @@
+"""The port's nearest-code search (plain PyTorch path, which is what runs on a
+CPU tensor) against the JAX package's, on the same numpy inputs made from a
+seed.  The JAX side runs both through ``nearest_code_reference`` and through
+the Pallas kernels in interpret mode.
+
+Tolerances: ids bit-equal; ``q`` bit-equal to ``E[idx]``; ``csum`` exact;
+``esum`` rtol 1e-5 (sums of a handful of fp32 rows taken in another order).
+The CUDA kernels cannot run here: ``chip_smoke.py`` holds them against the
+same plain version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vqvae2_tpu.ops import quantize as jq
+from vqvae2_tpu_torch.ops import quantize as tq
+
+# (N, D, K): ragged N, N below one TPU sublane tile, the deep config's width,
+# the main path's width
+SHAPES = [(37, 64, 512), (5, 8, 16), (130, 256, 32), (257, 64, 512), (1, 16, 8)]
+
+
+def _inputs(n, d, k, seed=0, duplicate=False):
+    g = np.random.default_rng(seed)
+    flat = g.normal(size=(n, d)).astype(np.float32)
+    embed = g.normal(size=(k, d)).astype(np.float32)
+    if duplicate:
+        embed[k // 2:] = embed[: k - k // 2]   # every code twice: exact ties
+    return flat, embed
+
+
+def _jax_pallas(launcher, flat, embed):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return launcher(jnp.asarray(flat), jnp.asarray(embed), block_n=128)
+
+
+@pytest.mark.parametrize("n,d,k", SHAPES)
+def test_nearest_code_matches_jax_reference(n, d, k):
+    flat, embed = _inputs(n, d, k)
+    ridx, rq, rcsum, resum = jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))
+    idx, q, csum, esum = tq.nearest_code(torch.from_numpy(flat), torch.from_numpy(embed))
+    assert idx.dtype == torch.int32 and q.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+    np.testing.assert_array_equal(q.numpy(), embed[idx.numpy()])
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(csum.numpy(), np.asarray(rcsum))
+    np.testing.assert_allclose(esum.numpy(), np.asarray(resum), rtol=1e-5, atol=1e-6)
+    # the reference function and the wrapper are the same thing on the CPU
+    for a, b in zip(tq.nearest_code_reference(torch.from_numpy(flat), torch.from_numpy(embed)),
+                    (idx, q, csum, esum)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,d,k", SHAPES)
+def test_nearest_code_matches_pallas_interpret(n, d, k):
+    """Against the three Pallas kernels as the JAX package's own tests run them
+    on the CPU."""
+    flat, embed = _inputs(n, d, k, seed=1)
+    tf, te = torch.from_numpy(flat), torch.from_numpy(embed)
+
+    pidx = _jax_pallas(jq._nearest_code_pallas_ids, flat, embed)
+    np.testing.assert_array_equal(tq.nearest_code_ids(tf, te).numpy(), np.asarray(pidx))
+
+    pidx, pq = _jax_pallas(jq._nearest_code_pallas_nostats, flat, embed)
+    idx, q, csum, esum = tq.nearest_code(tf, te, with_stats=False)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pidx))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
+    assert not csum.any() and not esum.any()
+    assert csum.shape == (k,) and esum.shape == (k, d)
+
+    pidx, pq, pcsum, pesum = _jax_pallas(jq._nearest_code_pallas, flat, embed)
+    idx, q, csum, esum = tq.nearest_code(tf, te, with_stats=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pidx))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
+    np.testing.assert_array_equal(csum.numpy(), np.asarray(pcsum))
+    np.testing.assert_allclose(esum.numpy(), np.asarray(pesum), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d,k", [(64, 16, 32), (37, 64, 512)])
+def test_exact_ties_take_the_lowest_index(n, d, k):
+    flat, embed = _inputs(n, d, k, seed=2, duplicate=True)
+    ridx = np.asarray(jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))[0])
+    pidx = np.asarray(_jax_pallas(jq._nearest_code_pallas_ids, flat, embed))
+    idx = tq.nearest_code_ids(torch.from_numpy(flat), torch.from_numpy(embed)).numpy()
+    assert idx.max() < k // 2          # the duplicate in the upper half never wins
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(idx, pidx)
+
+
+def test_bfloat16_rows():
+    """bf16 rows are widened to fp32 for the search; ``q`` comes back in bf16."""
+    flat, embed = _inputs(50, 16, 32, seed=3)
+    jflat = jnp.asarray(flat).astype(jnp.bfloat16)
+    tflat = torch.from_numpy(flat).to(torch.bfloat16)
+    np.testing.assert_array_equal(tflat.float().numpy(), np.asarray(jflat.astype(jnp.float32)))
+    ridx, rq, _, _ = jq.nearest_code_reference(jflat, jnp.asarray(embed))
+    idx, q, _, _ = tq.nearest_code(tflat, torch.from_numpy(embed), with_stats=False)
+    assert q.dtype == torch.bfloat16
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+    np.testing.assert_array_equal(q.float().numpy(), np.asarray(rq.astype(jnp.float32)))
+
+
+def test_quantize_lookup_matches_jax():
+    g = np.random.default_rng(4)
+    embed = g.normal(size=(32, 8)).astype(np.float32)
+    idx = g.integers(0, 32, size=(4, 5, 6))
+    want = np.asarray(jq.quantize_lookup(jnp.asarray(idx), jnp.asarray(embed)))
+    for dtype in (torch.int32, torch.int64):
+        out = tq.quantize_lookup(torch.from_numpy(idx).to(dtype), torch.from_numpy(embed))
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("fn", [tq.nearest_code, tq.nearest_code_ids])
+def test_bad_shapes_raise_like_jax(fn):
+    with pytest.raises(ValueError, match="bad shapes"):
+        fn(torch.zeros(4, 8), torch.zeros(16, 4))
+    with pytest.raises(ValueError, match="bad shapes"):
+        fn(torch.zeros(4, 8, 1), torch.zeros(16, 8))
+
+
+def test_counters_count_launches_only():
+    """On the CPU the plain version runs: no launch is counted."""
+    tq.reset_counts()
+    flat, embed = (torch.from_numpy(a) for a in _inputs(9, 8, 16))
+    tq.nearest_code_ids(flat, embed)
+    tq.nearest_code(flat, embed, with_stats=False)
+    assert tq.launch_counts == {"nearest_code_ids": 0, "nearest_code_lookup": 0}
+    assert tq.plain_counts == {"nearest_code_ids": 1, "nearest_code_lookup": 1}
+    tq.reset_counts()
+    assert not any(tq.plain_counts.values())

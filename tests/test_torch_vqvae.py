@@ -1,0 +1,213 @@
+"""The port's ``VQVAE`` against the JAX package's, from the same weights (JAX
+variables → numpy → ``vqvae_from_jax``) and the same numpy inputs.
+
+Tolerances: code ids bit-equal; activations and ``diff`` at rtol 1e-4 /
+atol 1e-5 (fp32 convolutions summed in another order).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vqvae2_tpu.models.vqvae import VQVAE as JaxVQVAE
+from vqvae2_tpu_torch.models import VQVAE, Quantize, build_vqvae
+from vqvae2_tpu_torch.utils.jax_import import vqvae_from_jax
+
+RTOL, ATOL = 1e-4, 1e-5
+SIZE = 40          # divisible by 8 and not by 16: odd 5x5 top grid, 10x10 bottom
+
+CONFIGS = {
+    # the tiny config of the JAX package's multi-chip dry run
+    "tiny": dict(channel=16, n_res_block=1, n_res_channel=8, embed_dim=8, n_embed=16),
+    # the reference's proportions (channel : res channel : code dim = 4 : 1 : 2,
+    # two residual blocks), narrowed
+    "narrow": dict(channel=32, n_res_block=2, n_res_channel=8, embed_dim=16, n_embed=64),
+}
+
+
+def to_numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+@functools.lru_cache(maxsize=None)
+def make_pair(name, with_ir_head=False, size=SIZE, batch=2, seed=0):
+    """(jax model, jax variables, port model, numpy input).  The codebooks are
+    drawn at the scale of the encoder's outputs so that many codes are used."""
+    cfg = dict(CONFIGS[name], with_ir_head=with_ir_head)
+    g = np.random.default_rng(seed)
+    x = g.normal(scale=0.5, size=(batch, size, size, 3)).astype(np.float32)
+    jmodel = JaxVQVAE(**cfg)
+    init_method = jmodel.forward_ir if with_ir_head else None
+    variables = jmodel.init(jax.random.PRNGKey(seed), jnp.asarray(x[:1]), method=init_method)
+    variables = jax.tree_util.tree_map(lambda a: a, dict(variables))
+    stats = to_numpy_tree(variables["vq_stats"])
+    for q in ("quantize_t", "quantize_b"):
+        embed = (0.1 * g.normal(size=stats[q]["embed"].shape)).astype(np.float32)
+        stats[q] = {"embed": embed, "embed_avg": embed.copy(),
+                    "cluster_size": g.uniform(size=embed.shape[0]).astype(np.float32)}
+    variables = {"params": variables["params"],
+                 "vq_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
+    model = VQVAE(**cfg).eval()
+    model.load_state_dict(vqvae_from_jax(to_numpy_tree(variables)))
+    return jmodel, variables, model, x
+
+
+def close(got: torch.Tensor, want, what=""):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+
+
+def same_ids(got: torch.Tensor, want, what=""):
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=what)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_all_five_outputs(name):
+    jmodel, variables, model, x = make_pair(name)
+    want = jmodel.apply(variables, jnp.asarray(x), method=jmodel.encode)
+    with torch.no_grad():
+        got = model.encode(torch.from_numpy(x))
+    for g, w, what in zip(got[:3], want[:3], ("quant_t", "quant_b", "diff")):
+        assert tuple(g.shape) == tuple(w.shape)
+        close(g, w, what)
+    same_ids(got[3], want[3], "id_t")
+    same_ids(got[4], want[4], "id_b")
+    # the codes are spread, so equality of ids says something
+    assert len(np.unique(np.asarray(want[4]))) >= 8 and len(np.unique(np.asarray(want[3]))) >= 4
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_forward(name):
+    jmodel, variables, model, x = make_pair(name)
+    want_dec, want_diff = jmodel.apply(variables, jnp.asarray(x))
+    with torch.no_grad():
+        dec, diff = model(torch.from_numpy(x))
+    assert tuple(dec.shape) == x.shape
+    close(dec, want_dec, "dec")
+    close(diff, want_diff, "diff")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_ids(name):
+    jmodel, variables, model, x = make_pair(name)
+    want_t, want_b = jmodel.apply(variables, jnp.asarray(x), method=jmodel.encode_ids)
+    with torch.no_grad():
+        id_t, id_b = model.encode_ids(torch.from_numpy(x))
+        _, _, _, e_t, e_b = model.encode(torch.from_numpy(x))
+    assert tuple(id_t.shape) == (2, 5, 5) and tuple(id_b.shape) == (2, 10, 10)
+    same_ids(id_t, want_t)
+    same_ids(id_b, want_b)
+    assert torch.equal(id_t, e_t) and torch.equal(id_b, e_b)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_decode_and_decode_code(name):
+    jmodel, variables, model, x = make_pair(name)
+    g = np.random.default_rng(5)
+    cfg = CONFIGS[name]
+    quant_t = g.normal(size=(2, 5, 5, cfg["embed_dim"])).astype(np.float32)
+    quant_b = g.normal(size=(2, 10, 10, cfg["embed_dim"])).astype(np.float32)
+    code_t = g.integers(0, cfg["n_embed"], size=(2, 5, 5))
+    code_b = g.integers(0, cfg["n_embed"], size=(2, 10, 10))
+    want = jmodel.apply(variables, jnp.asarray(quant_t), jnp.asarray(quant_b),
+                        method=jmodel.decode)
+    want_code = jmodel.apply(variables, jnp.asarray(code_t), jnp.asarray(code_b),
+                             method=jmodel.decode_code)
+    with torch.no_grad():
+        close(model.decode(torch.from_numpy(quant_t), torch.from_numpy(quant_b)), want)
+        close(model.decode_code(torch.from_numpy(code_t), torch.from_numpy(code_b)), want_code)
+        close(model.decode_code(torch.from_numpy(code_t).int(), torch.from_numpy(code_b).int()),
+              want_code)
+
+
+def test_forward_ir():
+    jmodel, variables, model, x = make_pair("tiny", with_ir_head=True)
+    want = jmodel.apply(variables, jnp.asarray(x), method=jmodel.forward_ir)
+    with torch.no_grad():
+        got = model.forward_ir(torch.from_numpy(x))
+    assert tuple(got[2].shape) == (2, SIZE, SIZE, 1)
+    for g, w, what in zip(got, want, ("dec", "diff", "dec_ir")):
+        close(g, w, what)
+    # the IR head is two residual blocks deeper than the RGB decoder
+    assert len(model.dec_ir.blocks) == len(model.dec.blocks) + 2
+
+
+def test_quantize_module_matches_jax():
+    from vqvae2_tpu.models.vqvae import Quantize as JaxQuantize
+
+    g = np.random.default_rng(6)
+    x = g.normal(size=(2, 4, 4, 8)).astype(np.float32)
+    embed = g.normal(size=(16, 8)).astype(np.float32)
+    stats = {"embed": jnp.asarray(embed), "embed_avg": jnp.asarray(embed),
+             "cluster_size": jnp.zeros((16,))}
+    jq = JaxQuantize(dim=8, n_embed=16)
+    want_q, want_diff, want_idx = jq.apply({"vq_stats": stats}, jnp.asarray(x))
+    q = Quantize(8, 16)
+    assert not list(q.parameters())                       # buffers only
+    assert set(dict(q.named_buffers())) == {"embed", "cluster_size", "embed_avg"}
+    q.embed.copy_(torch.from_numpy(embed))
+    quantized, diff, idx = q(torch.from_numpy(x))
+    same_ids(idx, want_idx)
+    close(quantized, want_q)
+    close(diff, want_diff)
+    same_ids(q.codes(torch.from_numpy(x)), want_idx)
+    close(q.embed_code(idx), jq.apply({"vq_stats": stats}, want_idx, method=jq.embed_code))
+
+
+def test_straight_through_gradient():
+    """d(quantized)/d(x) is the identity, as in the JAX package."""
+    q = Quantize(4, 8)
+    x = torch.randn(1, 2, 2, 4, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    quantized, diff, _ = q(x)
+    (quantized * 3.0).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), 3.0 * np.ones((1, 2, 2, 4)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["encode", "encode_ids", "forward"])
+def test_size_not_divisible_by_8_raises(method):
+    jmodel, variables, model, _ = make_pair("tiny")
+    x = np.zeros((1, 36, 32, 3), np.float32)
+    with pytest.raises(ValueError, match="divisible by 8") as jax_error:
+        jmodel.apply(variables, jnp.asarray(x), method=getattr(jmodel, method, None)
+                     if method != "forward" else None)
+    with pytest.raises(ValueError, match="divisible by 8") as port_error:
+        getattr(model, method)(torch.from_numpy(x))
+    assert str(port_error.value) == str(jax_error.value)
+
+
+def test_train_mode_is_not_ported_yet():
+    model = build_vqvae(device="cpu", **CONFIGS["tiny"])
+    x = torch.zeros(1, 32, 32, 3)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model(x, train=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model.encode(x, train=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model.quantize_t(torch.zeros(1, 4, 4, 8), train=True)
+
+
+def test_build_vqvae_is_seeded_and_leaves_the_global_generator_alone():
+    torch.manual_seed(123)
+    before = torch.get_rng_state()
+    a = build_vqvae(device="cpu", seed=7, **CONFIGS["tiny"])
+    assert torch.equal(torch.get_rng_state(), before)
+    b = build_vqvae(device="cpu", seed=7, **CONFIGS["tiny"])
+    c = build_vqvae(device="cpu", seed=8, **CONFIGS["tiny"])
+    assert not a.training
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+    assert not torch.equal(a.quantize_t.embed, c.quantize_t.embed)
+    assert a.config["channel"] == 16 and a.config["n_embed"] == 16
+
+
+def test_default_config_is_the_reference_width():
+    model = VQVAE()
+    assert model.config == dict(in_channel=3, channel=128, n_res_block=2, n_res_channel=32,
+                                embed_dim=64, n_embed=512, decay=0.99, with_ir_head=False)
+    assert tuple(model.quantize_b.embed.shape) == (512, 64)
+    assert tuple(model.quantize_conv_b.weight.shape) == (64, 192, 1, 1)

@@ -1,0 +1,237 @@
+"""Nearest-codebook search for vector quantization (port of
+``vqvae2_tpu/ops/quantize.py``).
+
+For rows ``flat (N, D)`` and a codebook ``embed (K, D)``::
+
+    score = (2 * flat @ embed.T - |flat|^2) - |embed|^2        # true fp32
+    idx   = argmax(score, 1)                                    # first max wins
+    q     = embed[idx]                                          # in flat's dtype
+
+Layout: rows by channels, ``(N, D)`` contiguous — what a ``(B, H, W, D)``
+feature map gives with ``reshape(-1, D)`` and no copy; the codebook is
+``(K, D)`` as in the JAX package.
+
+On a CUDA tensor the wrappers launch the hand-written kernels of
+``csrc/quantize.cu`` (built at first use) or raise; nothing gives way to the
+plain version.  On a CPU tensor — and only because the tensor lies on the
+CPU — they use the plain PyTorch version below, which is also what the kernels
+are compared with on the card.
+
+Two kernels are ported here:
+
+* ``nearest_code_ids``                 — indices only
+* ``nearest_code(with_stats=False)``   — indices and the looked-up rows
+
+The statistics flavour (``with_stats=True``: per-code counts and sums for the
+EMA update) has no CUDA kernel yet: on a CUDA tensor it raises
+``NotImplementedError``; on the CPU the plain version returns the statistics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from vqvae2_tpu_torch.ops import _build
+
+# Launches of each CUDA kernel, and uses of the plain version by a wrapper.
+# A wrapper adds one where it launches its kernel and nowhere else.
+launch_counts: Dict[str, int] = {"nearest_code_ids": 0, "nearest_code_lookup": 0}
+plain_counts: Dict[str, int] = {"nearest_code_ids": 0, "nearest_code_lookup": 0}
+
+
+def reset_counts() -> None:
+    for counts in (launch_counts, plain_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (CPU path, and the yardstick of the kernels)
+# ---------------------------------------------------------------------------
+
+def nearest_code_scores(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """``(N, K)`` scores, term for term as the JAX package computes them."""
+    flat32 = flat.to(torch.float32)
+    embed32 = embed.to(torch.float32)
+    return (
+        2.0 * torch.matmul(flat32, embed32.t())
+        - torch.sum(flat32 * flat32, dim=1)[:, None]
+        - torch.sum(embed32 * embed32, dim=1)[None, :]
+    )
+
+
+def nearest_code_ids_reference(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Plain version of the indices-only kernel: ``idx (N,) int32``."""
+    return torch.argmax(nearest_code_scores(flat, embed), dim=1).to(torch.int32)
+
+
+def nearest_code_lookup_reference(
+    flat: torch.Tensor, embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the lookup kernel: ``(idx (N,) int32, q (N, D))``."""
+    idx = torch.argmax(nearest_code_scores(flat, embed), dim=1)
+    q = embed.to(torch.float32).index_select(0, idx).to(flat.dtype)
+    return idx.to(torch.int32), q
+
+
+def nearest_code_reference(
+    flat: torch.Tensor, embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain nearest-code search with the EMA statistics.
+
+    Returns ``(indices (N,) int32, quantized (N, D), cluster_sum (K,),
+    embed_sum (K, D))``: the same four quantities as the JAX package's
+    ``nearest_code_reference``."""
+    idx, q = nearest_code_lookup_reference(flat, embed)
+    k, d = embed.shape
+    long_idx = idx.to(torch.int64)
+    cluster_sum = torch.bincount(long_idx, minlength=k).to(torch.float32)
+    embed_sum = torch.zeros((k, d), dtype=torch.float32, device=flat.device)
+    embed_sum.index_add_(0, long_idx, flat.to(torch.float32))
+    return idx, q, cluster_sum, embed_sum
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/quantize.cu)
+# ---------------------------------------------------------------------------
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("quantize")
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.vq_nearest_ids.restype = i32
+        lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.vq_nearest_lookup.restype = i32
+        lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.vq_error_string.restype = ctypes.c_char_p
+        lib.vq_error_string.argtypes = [i32]
+        _lib = lib
+    return _lib
+
+
+def _check_shapes(flat: torch.Tensor, embed: torch.Tensor) -> None:
+    if flat.ndim != 2 or embed.ndim != 2 or flat.shape[1] != embed.shape[1]:
+        raise ValueError(f"bad shapes {tuple(flat.shape)} vs {tuple(embed.shape)}")
+    if flat.device != embed.device:
+        raise ValueError(f"flat on {flat.device} but embed on {embed.device}")
+
+
+def _check_cuda_inputs(flat: torch.Tensor, embed: torch.Tensor) -> None:
+    """Raise on anything the CUDA kernels do not take."""
+    if not (flat.is_cuda and embed.is_cuda):
+        raise ValueError(
+            f"the CUDA kernel needs CUDA tensors, got {flat.device} and {embed.device}")
+    if flat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flat must be float32 or bfloat16, got {flat.dtype}")
+    if embed.dtype != torch.float32:
+        raise TypeError(f"embed must be float32, got {embed.dtype}")
+    n, d = flat.shape
+    if n < 1 or embed.shape[0] < 1:
+        raise ValueError(f"need N >= 1 and K >= 1, got N={n}, K={embed.shape[0]}")
+    if d % 4 != 0:
+        raise ValueError(f"D must be a multiple of 4 (16-byte loads), got {d}")
+    if not (flat.is_contiguous() and embed.is_contiguous()):
+        raise ValueError("flat and embed must be contiguous")
+    if flat.data_ptr() % 16 or embed.data_ptr() % 16:
+        raise ValueError("flat and embed must start on a 16-byte boundary")
+
+
+def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        message = lib.vq_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code} ({message})")
+
+
+def _nearest_code_ids_cuda(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    _check_cuda_inputs(flat, embed)
+    lib = _library()
+    n, d = flat.shape
+    idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.vq_nearest_ids(
+            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), n, d, embed.shape[0],
+            int(flat.dtype == torch.bfloat16), stream)
+    _raise_on_error(lib, code, "vq_nearest_ids")
+    launch_counts["nearest_code_ids"] += 1
+    return idx
+
+
+def _nearest_code_lookup_cuda(
+    flat: torch.Tensor, embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_cuda_inputs(flat, embed)
+    lib = _library()
+    n, d = flat.shape
+    idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
+    q = torch.empty((n, d), dtype=flat.dtype, device=flat.device)
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.vq_nearest_lookup(
+            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), n, d,
+            embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
+    _raise_on_error(lib, code, "vq_nearest_lookup")
+    launch_counts["nearest_code_lookup"] += 1
+    return idx, q
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+
+def _unsupported_device(flat: torch.Tensor):
+    return ValueError(f"nearest-code search takes CPU or CUDA tensors, got {flat.device}")
+
+
+@torch.no_grad()
+def nearest_code_ids(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Indices-only nearest-code search (same argmax as :func:`nearest_code`;
+    no quantized rows, for code extraction)."""
+    _check_shapes(flat, embed)
+    if flat.device.type == "cuda":
+        return _nearest_code_ids_cuda(flat, embed)
+    if flat.device.type != "cpu":
+        raise _unsupported_device(flat)
+    plain_counts["nearest_code_ids"] += 1
+    return nearest_code_ids_reference(flat, embed)
+
+
+@torch.no_grad()
+def nearest_code(
+    flat: torch.Tensor, embed: torch.Tensor, with_stats: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest-code search; same contract as :func:`nearest_code_reference`.
+
+    Not differentiable: callers write the straight-through estimator
+    themselves.  ``with_stats=False`` (inference, extraction) returns zeros in
+    place of the statistics.  ``with_stats=True`` on a CUDA tensor raises:
+    that kernel belongs to the stage-1 training slice of the port."""
+    _check_shapes(flat, embed)
+    k, d = embed.shape
+    if flat.device.type == "cuda":
+        if with_stats:
+            raise NotImplementedError(
+                "nearest_code(with_stats=True) has no CUDA kernel yet: the statistics "
+                "kernel comes with the stage-1 training slice of the port")
+        idx, q = _nearest_code_lookup_cuda(flat, embed)
+    elif flat.device.type == "cpu":
+        if with_stats:
+            return nearest_code_reference(flat, embed)
+        plain_counts["nearest_code_lookup"] += 1
+        idx, q = nearest_code_lookup_reference(flat, embed)
+    else:
+        raise _unsupported_device(flat)
+    return (idx, q, torch.zeros((k,), dtype=torch.float32, device=flat.device),
+            torch.zeros((k, d), dtype=torch.float32, device=flat.device))
+
+
+def quantize_lookup(indices: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Codebook lookup by integer index, any leading shape."""
+    return embed[indices.to(torch.int64)]
