@@ -4,23 +4,34 @@ Hopper card: the quickest proof that the port still builds, starts and is right
 on the GPU.
 
     python3 chip_smoke.py               # needs one card; exits non-zero without
-    python3 chip_smoke.py --breakdown   # also times the stages of encode_ids
+    python3 chip_smoke.py --breakdown   # also times the stages of encode_ids and of the
+                                        # top prior's forward; profiles the sampler
     python3 chip_smoke.py --repeatability   # also counts ids that flip between calls
 
 Phases, each printing one JSON line; the first failure ends the run non-zero:
 
 1. device   — the card, its power limit, the installation, the TF32 flags
-2. build    — first use compiles ``ops/csrc/*.cu`` with nvcc
+2. build    — compiles ``ops/csrc/*.cu`` with nvcc, one compiler a source, all
+              started together
 3. kernels  — each kernel against its plain PyTorch version on the card, at the
-              main path's shapes (on the model's own activations) and at
-              awkward ones
-4. main     — ``VQVAE()`` at full width, 256 px: ``forward`` and ``encode_ids``
-              at batch 128, then ``extract_codes.main`` into a temporary
-              directory, read back and compared with a direct ``encode_ids``;
-              the launch counters must show that the kernels ran and the plain
-              versions did not; a small input is held against the CPU
+              main path's shapes (on the models' own activations) and at
+              awkward ones: the two nearest-code kernels, then the causal
+              flash-attention forward (also with dropout on)
+4. main     — stage 1: ``VQVAE()`` at full width, 256 px: ``forward`` and
+              ``encode_ids`` at batch 128, then ``extract_codes.main`` into a
+              temporary directory, read back and compared with a direct
+              ``encode_ids``.  Stage 2: the two PixelSNAIL priors at full width
+              from checkpoints the run writes: the top prior's forward on a
+              32x32 grid at batch 32, the incremental decoder against the full
+              forward for both priors, and ``train/sample.py main`` by the
+              incremental sampler (256 px, batch 8) and by both samplers at a
+              smaller size, whose top codes must agree.  Each path runs with
+              the launch counters at zero before and read after: the kernels
+              ran, the plain versions did not.  Small inputs are held against
+              the CPU
 5. times    — CUDA-event times of each kernel, its plain version and the
-              nearest library route; ``encode_ids`` in img/s
+              nearest library route; ``encode_ids`` in img/s, the top prior's
+              forward in ms
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -29,6 +40,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import itertools
 import json
 import os
@@ -39,20 +51,46 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from PIL import Image
 
 import vqvae2_tpu_torch as port
 from vqvae2_tpu_torch.data.codestore import CodeStore
 from vqvae2_tpu_torch.data.datasets import SyntheticImages
 from vqvae2_tpu_torch.models import build_vqvae
+from vqvae2_tpu_torch.models.incremental import teacher_forced_logits
 from vqvae2_tpu_torch.ops import _build
+from vqvae2_tpu_torch.ops import flash_attention as fa
 from vqvae2_tpu_torch.ops import quantize as qz
-from vqvae2_tpu_torch.train import extract_codes
+from vqvae2_tpu_torch.train import extract_codes, sample
+from vqvae2_tpu_torch.train.pixelsnail import build_model
 from vqvae2_tpu_torch.utils.checkpoint import CheckpointManager
 
 SIZE = 256
 BATCH = 128            # forward / encode_ids
 EXTRACT_BATCH = 64     # extract_codes.main
 D, K = 64, 512
+
+# stage 2: the two priors of train/pixelsnail.py at full width
+PRIOR_CONFIG = dict(n_class=512, channel=256, n_res_block=4, n_res_channel=256,
+                    n_out_res_block=0, n_cond_res_block=3, dropout=0.1)
+TOP_HW, BOTTOM_HW = SIZE // 8, SIZE // 4      # 32x32 and 64x64 code grids
+PRIOR_BATCH = 32       # the top prior's forward (scoring a batch of code grids)
+SAMPLE_BATCH = 8       # train/sample.py's default
+DECODER_BATCH = 2      # incremental decoder against the full forward
+# image size at which the two samplers are held against each other: the
+# full-forward one takes (128/8)^2 + (128/4)^2 = 1,280 full-width forwards
+COMPARE_SIZE = 128
+N_HEAD, HEAD_DIM = 8, 16
+
+# Tolerances of the attention kernel against its plain version: fp32 as the JAX
+# package holds its own kernel (sums in another order, exp by the fast unit);
+# bf16 outputs may round to the neighbouring bf16 value (2^-8 relative).
+FA_TOL = dict(atol=2e-5, rtol=2e-5)
+FA_TOL_BF16 = dict(atol=1e-2, rtol=1e-2)
+# Full-width logits by two schedules, and card against CPU: what the JAX package
+# holds its incremental decoder to at toy size (fp32 sums in another order).
+LOGITS_TOL = dict(atol=2e-5, rtol=2e-4)
 
 # Published peaks of one H100 SXM at its full 700 W: fp32 outside the tensor
 # cores, and device memory.
@@ -76,7 +114,13 @@ KERNELS = {
         "source": "vqvae2_tpu_torch/ops/csrc/quantize.cu",
         "replaces": "vqvae2_tpu/ops/quantize.py:134",
     },
+    "causal_flash_attention": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "vqvae2_tpu/ops/flash_attention.py:81",
+    },
 }
+SOURCES = ("quantize", "flash_attention")
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,6 +134,18 @@ def check(cond, message: str) -> None:
 
 def run_text(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean time of ``fn`` by the host's clock over ``reps`` calls that end in
+    a synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -184,14 +240,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Every source with its own nvcc, all started together."""
     t0 = time.perf_counter()
-    path = _build.build("quantize")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
     qz._library()
-    info = _build.build_info["quantize"]
-    ptxas = [line.strip() for line in info["log"].splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", library=os.path.relpath(path), nvcc_seconds=info["seconds"],
-         seconds=time.perf_counter() - t0, ptxas=ptxas)
+    fa._library()
+    built = {}
+    for name, path in zip(SOURCES, paths):
+        info = _build.build_info[name]
+        built[name] = {
+            "library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
+            "ptxas": [line.strip() for line in info["log"].splitlines()
+                      if "registers" in line or "spill" in line]}
+    emit("build", seconds=time.perf_counter() - t0, sources=built)
 
 
 def capture_quantizer_inputs(model, x: torch.Tensor):
@@ -346,6 +408,327 @@ def phase_main(model, x: torch.Tensor) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# stage 2: the attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def plain_attention_in_chunks(q, k, v, chunk: int = 32, **kw):
+    """The plain version over ``chunk`` heads at a time: it materialises
+    ``(heads, N, N)`` several times over, 1 GB each at 256 x 1024^2."""
+    outs = [fa.causal_attention_reference_lse(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], **kw)
+            for i in range(0, q.shape[0], chunk)]
+    return torch.cat([o for o, _ in outs]), torch.cat([l for _, l in outs])
+
+
+def compare_attention_with_plain(q, k, v, label: str) -> dict:
+    """The kernel's ``o`` and ``lse`` on ``(BH, N, D)`` against the plain
+    version; row 0 must be bit-zero."""
+    o, lse = fa.causal_flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    bh, n, d = q.shape
+    check(o.shape == q.shape and o.dtype == q.dtype, f"{label}: o shape/dtype")
+    check(lse.shape == (bh, n, 1) and lse.dtype == torch.float32, f"{label}: lse shape/dtype")
+    check(bool((o[:, 0] == 0).all()), f"{label}: row 0 of o is not bit-zero")
+    check(bool((lse[:, 0] == fa.NEG_INF).all()), f"{label}: lse of row 0 is not -1e30")
+    check(bool(torch.isfinite(o.float()).all()), f"{label}: non-finite o")
+    want_o, want_lse = plain_attention_in_chunks(q, k, v)
+    tol = FA_TOL_BF16 if q.dtype == torch.bfloat16 else FA_TOL
+    o_err = float((o.float() - want_o.float()).abs().max())
+    lse_err = float((lse[:, 1:] - want_lse[:, 1:]).abs().max()) if n > 1 else 0.0
+    check(bool(torch.allclose(o.float(), want_o.float(), **tol)),
+          f"{label}: o differs from the plain version by {o_err} (tolerance {tol})")
+    check(bool(torch.allclose(lse[:, 1:], want_lse[:, 1:], **FA_TOL)),
+          f"{label}: lse differs from the plain version by {lse_err}")
+    return {"case": label, "bh": bh, "n": n, "d": d, "dtype": str(q.dtype),
+            "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+            "o_abs_max": float(want_o.float().abs().max())}
+
+
+def strict_causality_on_the_card(gen: torch.Generator) -> dict:
+    """Overwriting k, v at positions >= i leaves rows <= i bit-equal."""
+    q, k, v = (torch.randn(16, 1000, HEAD_DIM, generator=gen, device="cuda") for _ in range(3))
+    o, lse = fa.causal_flash_attention_lse(q, k, v)
+    i = 611
+    k2, v2 = k.clone(), v.clone()
+    k2[:, i:] = 999.0
+    v2[:, i:] = -999.0
+    o2, lse2 = fa.causal_flash_attention_lse(q, k2, v2)
+    check(bool(torch.equal(o[:, :i + 1], o2[:, :i + 1]) and torch.equal(lse[:, :i + 1], lse2[:, :i + 1])),
+          "strict causality: rows <= i changed with keys and values at >= i")
+    check(not bool(torch.allclose(o[:, i + 1:], o2[:, i + 1:])),
+          "strict causality: rows > i did not see the changed keys")
+    return {"case": "strict causality", "n": 1000, "i": i, "rows_le_i_bit_equal": True}
+
+
+def dropout_on_the_card(gen: torch.Generator) -> dict:
+    """Dropout on: the normaliser is untouched, the exported mask is the
+    kernel's own draw (and equals the same Philox draw in plain tensor
+    arithmetic), and o follows the plain version given that mask."""
+    rate, seed, bh, n = 0.3, 0x1234567890ABCDEF, 8, 300     # three query tiles
+    q, k, v = (torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda") for _ in range(3))
+    _, lse0 = fa.causal_flash_attention_lse(q, k, v)
+    o, lse = fa.causal_flash_attention_lse(q, k, v, dropout_rate=rate, seed=seed)
+    check(bool(torch.equal(lse, lse0)), "dropout: lse is not bit-equal to the rate-0 run")
+    keep = fa.dropout_keep_mask(bh, n, rate, seed)
+    check(bool(torch.equal(keep.bool(), fa.dropout_keep_reference(seed, bh, n, rate, device="cuda"))),
+          "dropout: the kernel's mask is not the Philox draw of dropout_keep_reference")
+    kept = float(keep.float().mean())
+    check(abs(kept - (1 - rate)) < 0.005, f"dropout: keep rate {kept}, wanted {1 - rate} +- 0.005")
+    want, _ = fa.causal_attention_reference_lse(q, k, v, keep=keep, dropout_rate=rate)
+    err = float((o - want).abs().max())
+    check(bool(torch.allclose(o, want, **FA_TOL)),
+          f"dropout: o differs from the plain version with the kernel's mask by {err}")
+    again, _ = fa.causal_flash_attention_lse(q, k, v, dropout_rate=rate, seed=seed)
+    other, _ = fa.causal_flash_attention_lse(q, k, v, dropout_rate=rate, seed=seed + 1)
+    check(bool(torch.equal(o, again)), "dropout: two launches with one seed differ")
+    check(not bool(torch.equal(o, other)), "dropout: two seeds gave the same result")
+    # the public wrapper draws its seed from a generator
+    q4, k4, v4 = (t.reshape(1, bh, n, HEAD_DIM) for t in (q, k, v))
+    a = fa.causal_flash_attention(q4, k4, v4, dropout_rate=rate,
+                                  generator=torch.Generator(device="cuda").manual_seed(3))
+    b = fa.causal_flash_attention(q4, k4, v4, dropout_rate=rate,
+                                  generator=torch.Generator(device="cuda").manual_seed(3))
+    check(bool(torch.equal(a, b)) and not bool(torch.equal(a[0], o)),
+          "dropout: the wrapper's draw does not follow its generator")
+    return {"case": "dropout", "rate": rate, "bh": bh, "n": n, "keep_rate": kept,
+            "o_max_abs_err": err, "lse_bit_equal_to_rate_0": True,
+            "mask_equals_philox_reference": True}
+
+
+def capture_attention_inputs(prior, codes: torch.Tensor):
+    """The ``q, k, v (B*H, N, D)`` that the top prior's forward hands the
+    attention kernel in each block."""
+    seen = []
+    hooks = [block.causal_attention.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(
+            t.reshape(-1, t.shape[2], t.shape[3]) for t in mod.qkv(*args))))
+        for block in prior.blocks]
+    prior(codes)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def attention_awkward_cases(gen: torch.Generator):
+    def normal(bh, n, d, dtype=torch.float32, scale=1.0):
+        q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(3))
+        return (q * scale).to(dtype), k.to(dtype), v.to(dtype)
+
+    yield "the full-forward sampler's shape at 128 px", normal(
+        SAMPLE_BATCH * N_HEAD, (COMPARE_SIZE // 8) ** 2, HEAD_DIM)
+    yield "N=1 (all zeros)", normal(8, 1, HEAD_DIM)
+    yield "N=7", normal(8, 7, HEAD_DIM)
+    yield "N=96", normal(8, 96, HEAD_DIM)
+    yield "N=1000 (no multiple of a tile)", normal(16, 1000, HEAD_DIM)
+    yield "D=32", normal(8, 300, 32)
+    yield "D=64", normal(8, 200, 64)
+    yield "D=24 (padded to 32 in registers)", normal(4, 130, 24)
+    yield "bf16 inputs", normal(16, 1000, HEAD_DIM, dtype=torch.bfloat16)
+    yield "large scores (q * 50)", normal(16, 1000, HEAD_DIM, scale=50.0)
+
+
+def phase_attention_kernel(top, codes: torch.Tensor):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seen = capture_attention_inputs(top, codes)
+    bh, n = PRIOR_BATCH * N_HEAD, TOP_HW * TOP_HW
+    check(len(seen) == len(top.blocks) and all(t.shape == (bh, n, HEAD_DIM) for t in seen[0]),
+          f"main-path attention shapes {[tuple(t.shape) for t in seen[0]]}")
+    cases = [compare_attention_with_plain(*qkv, f"main path, block {b}")
+             for b, qkv in enumerate(seen)]
+    cases.append(compare_attention_with_plain(
+        *(torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda") for _ in range(3)),
+        f"normal q, k, v BH={bh} N={n}"))
+    for label, qkv in attention_awkward_cases(gen):
+        cases.append(compare_attention_with_plain(*qkv, label))
+    cases.append(strict_causality_on_the_card(gen))
+    cases.append(dropout_on_the_card(gen))
+    emit("attention_kernel", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16, cases=cases)
+    return seen[0], cases
+
+
+# ---------------------------------------------------------------------------
+# stage 2: the main path
+# ---------------------------------------------------------------------------
+
+def write_checkpoints(vqvae, tmp: str) -> dict:
+    """Three checkpoint directories as ``train/sample.py`` restores them: the
+    stage-1 model of this run, and the two priors at full width with seeded
+    weights (biases moved off zero, so that every bias path shows)."""
+    dirs = {name: os.path.join(tmp, name) for name in ("vqvae", "top", "bottom")}
+    CheckpointManager(dirs["vqvae"], config=vqvae.config).save_last({"model": vqvae.state_dict()})
+    args = argparse.Namespace(**PRIOR_CONFIG)
+    for seed, hier in enumerate(("top", "bottom"), start=1):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            prior = build_model(hier, args, code_hw=(TOP_HW, BOTTOM_HW))
+            for name, p in prior.named_parameters():
+                if name.endswith(".b"):
+                    torch.nn.init.normal_(p, std=0.05)
+        CheckpointManager(dirs[hier], config=PRIOR_CONFIG).save_last(prior.state_dict())
+    return dirs
+
+
+def all_counts() -> dict:
+    return {"launches": {**qz.launch_counts, **fa.launch_counts},
+            "plain_calls": {**qz.plain_counts, **fa.plain_counts}}
+
+
+def reset_all_counts() -> None:
+    qz.reset_counts()
+    fa.reset_counts()
+
+
+def numpy_codes(seed: int, *shape) -> torch.Tensor:
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.integers(0, K, size=shape).astype(np.int32)).cuda()
+
+
+def top_forward(top, codes: torch.Tensor) -> dict:
+    """(a) the top prior's full forward on a batch of code grids, and the
+    causality of the whole model."""
+    before = fa.launch_counts["causal_flash_attention"]
+    logits = top(codes)
+    torch.cuda.synchronize()
+    check(logits.shape == (PRIOR_BATCH, TOP_HW, TOP_HW, K) and bool(torch.isfinite(logits).all()),
+          f"top forward: shape {tuple(logits.shape)} or non-finite logits")
+    check(fa.launch_counts["causal_flash_attention"] - before == len(top.blocks) == 4,
+          f"top forward must launch the attention kernel once a block: {fa.launch_counts}")
+    n = TOP_HW * TOP_HW
+    t = n // 2 + 5
+    changed = codes.clone().view(PRIOR_BATCH, n)
+    changed[:, t:] = (changed[:, t:] + 7) % K
+    logits2 = top(changed.view_as(codes))
+    a, b = logits.view(PRIOR_BATCH, n, K), logits2.view(PRIOR_BATCH, n, K)
+    moved = float((a[:, :t + 1] - b[:, :t + 1]).abs().max())
+    check(moved <= 1e-5, f"top forward: logits at positions <= t moved by {moved} with codes >= t")
+    check(not bool(torch.allclose(a[:, t + 1:], b[:, t + 1:])),
+          "top forward: logits after t did not see the changed codes")
+    return {"logits": list(logits.shape), "logits_abs_max": float(logits.abs().max()),
+            "causality_max_move_le_t": moved}
+
+
+def decoder_against_forward(prior, codes, condition=None) -> dict:
+    """(b) teacher-forced incremental logits against the full forward."""
+    t0 = time.perf_counter()
+    got = teacher_forced_logits(prior, codes, condition=condition)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = prior(codes, condition=condition)
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, **LOGITS_TOL)),
+          f"incremental decoder differs from the full forward by {err} (tolerance {LOGITS_TOL})")
+    steps = codes.shape[1] * codes.shape[2]
+    return {"grid": list(codes.shape), "max_abs_err": err, "logits_abs_max": float(want.abs().max()),
+            "seconds": seconds, "ms_per_step": seconds / steps * 1e3}
+
+
+def run_sample(dirs: dict, tmp: str, size: int, full_forward: bool) -> dict:
+    """(c) ``train/sample.py main`` through its command line; each prior's
+    sampler is timed by a wrapper around the function ``main`` calls."""
+    before = all_counts()
+    name = "sample_prior" if full_forward else "sample_prior_incremental"
+    sampler, seconds = getattr(sample, name), []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    png = os.path.join(tmp, f"sample_{size}_{name}.png")
+    argv = [png, "--vqvae", dirs["vqvae"], "--top", dirs["top"], "--bottom", dirs["bottom"],
+            "--batch", str(SAMPLE_BATCH), "--size", str(size), "--seed", "0"]
+    setattr(sample, name, timed)
+    try:
+        t0 = time.perf_counter()
+        top, bottom = sample.main(argv + (["--full_forward"] if full_forward else []))
+        total = time.perf_counter() - t0
+    finally:
+        setattr(sample, name, sampler)
+    th, bh = size // 8, size // 4
+    check(top.shape == (SAMPLE_BATCH, th, th) and bottom.shape == (SAMPLE_BATCH, bh, bh),
+          f"sample: code shapes {tuple(top.shape)} {tuple(bottom.shape)}")
+    for codes in (top, bottom):
+        check(int(codes.min()) >= 0 and int(codes.max()) < K, "sample: a code outside [0, 512)")
+    with Image.open(png) as img:
+        check(img.size == (SAMPLE_BATCH * (size + 2) + 2, size + 4) and img.mode == "RGB",
+              f"sample: the PNG is {img.size} {img.mode}")
+    after = all_counts()
+    rose = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+    want = {"nearest_code_ids": 0, "nearest_code_lookup": 0,
+            "causal_flash_attention": th * th * 4 if full_forward else 0}
+    check(rose == want, f"sample ({name}, {size} px) launched {rose}, expected {want}")
+    check(after["plain_calls"] == before["plain_calls"],
+          f"sample ran a plain version: {after['plain_calls']}")
+    return {"size": size, "sampler": name, "batch": SAMPLE_BATCH, "seconds": total,
+            "top": {"positions": th * th, "seconds": seconds[0],
+                    "codes_per_s": SAMPLE_BATCH * th * th / seconds[0]},
+            "bottom": {"positions": bh * bh, "seconds": seconds[1],
+                       "codes_per_s": SAMPLE_BATCH * bh * bh / seconds[1]},
+            "codes_used_top": int(top.unique().numel()),
+            "codes_used_bottom": int(bottom.unique().numel()),
+            "attention_launches": rose["causal_flash_attention"], "codes": (top, bottom)}
+
+
+def samplers_agree(a: dict, b: dict) -> dict:
+    """One seed, two samplers: the codes are equal unless a draw fell on a
+    near-tie that the two schedules' rounding split, after which that image's
+    later codes are another, equally valid sample.  At most one image of the
+    batch may part that way; where it did is reported."""
+    out = {}
+    for which, x, y in (("top", a["codes"][0], b["codes"][0]),
+                        ("bottom", a["codes"][1], b["codes"][1])):
+        differ = (x != y).flatten(1)
+        first = [int(row.int().argmax()) if bool(row.any()) else None for row in differ.cpu()]
+        out[which] = {"images_parted": sum(f is not None for f in first), "first_position": first}
+    check(out["top"]["images_parted"] <= 1,
+          f"the two samplers' top codes part in more than one image: {out['top']}")
+    return out
+
+
+def prior_against_cpu(top) -> dict:
+    """(d) full width, small grid: the card's logits against the CPU's (the
+    plain attention)."""
+    cpu = build_model("top", argparse.Namespace(**PRIOR_CONFIG), code_hw=(TOP_HW, BOTTOM_HW)).eval()
+    cpu.load_state_dict(top.state_dict())
+    codes = numpy_codes(5, 2, 8, 8)
+    want = cpu(codes.cpu())
+    got = top(codes).cpu()
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, **LOGITS_TOL)),
+          f"card vs CPU: the top prior's logits differ by {err}")
+    return {"grid": [2, 8, 8], "max_abs_err": err, "logits_abs_max": float(want.abs().max())}
+
+
+def phase_main_stage2(dirs: dict, tmp: str, top, bottom) -> dict:
+    """The stage-2 main path with the counters at zero before and read after."""
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result = {"top_forward": top_forward(top, numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW))}
+    result["decoder_vs_forward"] = {
+        "top": decoder_against_forward(top, numpy_codes(3, DECODER_BATCH, TOP_HW, TOP_HW)),
+        "bottom": decoder_against_forward(
+            bottom, numpy_codes(4, DECODER_BATCH, BOTTOM_HW, BOTTOM_HW),
+            condition=numpy_codes(3, DECODER_BATCH, TOP_HW, TOP_HW))}
+    runs = {"incremental_256": run_sample(dirs, tmp, SIZE, full_forward=False),
+            "incremental": run_sample(dirs, tmp, COMPARE_SIZE, full_forward=False),
+            "full_forward": run_sample(dirs, tmp, COMPARE_SIZE, full_forward=True)}
+    counts = all_counts()                       # read just after the main path
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the stage-2 main path: {counts['plain_calls']}")
+    check(counts["launches"]["causal_flash_attention"] > 0,
+          "the stage-2 main path never launched the attention kernel")
+    result["samplers_agree"] = samplers_agree(runs["incremental"], runs["full_forward"])
+    result["sample"] = {k: {f: v for f, v in r.items() if f != "codes"} for k, r in runs.items()}
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    result.update(counts)
+    result["small_input_vs_cpu"] = prior_against_cpu(top)
+    emit("main_stage2", **result)
+    return counts["launches"]
+
+
 def kernel_work(name: str, n: int, d: int, k: int, itemsize: int) -> dict:
     """Least bytes and operations of one call: each input read once, each
     output written once; the product, the two norms and the two subtractions a
@@ -359,7 +742,57 @@ def kernel_work(name: str, n: int, d: int, k: int, itemsize: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_times(model, x, flat_t, flat_b, launches, cases) -> dict:
+def attention_work(bh: int, n: int, d: int, itemsize: int) -> dict:
+    """Least bytes and operations of one call: q, k, v read once, o and lse
+    written once; the two products over the causal half of the score matrix."""
+    nbytes = 4 * bh * n * d * itemsize + bh * n * 4
+    flops = 4 * bh * n * n * d // 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def library_attention(q, k, v, mask):
+    """One library call for the same function: ``scaled_dot_product_attention``
+    with the strict mask (row 0 may see key 0, or its softmax is NaN) and row 0
+    zeroed.  Timed here, used nowhere in the port."""
+    o = F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)[0]
+    o[:, 0] = 0
+    return o
+
+
+def attention_record(qkv, launches: dict, cases) -> dict:
+    """Times of the attention kernel at the shape the top prior's forward gives
+    it at batch 32, on the prior's own q, k, v."""
+    bh, n, d = qkv[0].shape
+    # rotate over copies larger together than the 50 MB L2
+    copies = [qkv] + [tuple(t.clone() for t in qkv) for _ in range(2)]
+    turn = itertools.count()
+    rotating = lambda fn: (lambda: fn(*copies[next(turn) % len(copies)]))   # noqa: E731
+    mask = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
+    mask[0, 0] = True
+    library = lambda q, k, v: library_attention(q, k, v, mask)             # noqa: E731
+    lib_err = float((library(*qkv)[:32] - fa.causal_attention_reference(
+        *(t[:32] for t in qkv))).abs().max())
+    ms = cuda_ms(rotating(fa.causal_flash_attention_lse), reps=20)
+    work = attention_work(bh, n, d, qkv[0].element_size())
+    case = cases[0]
+    return {
+        "name": "causal_flash_attention", **KERNELS["causal_flash_attention"],
+        "launches": launches["causal_flash_attention"],
+        "max_abs_err": max(case["o_max_abs_err"], case["lse_max_abs_err"]),
+        "shape": {"bh": bh, "n": n, "d": d}, "ms": ms, "kernel_ms": ms,
+        "plain_ms": cuda_ms(rotating(plain_attention_in_chunks), reps=3, warmup=1),
+        "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+        "library_ms": cuda_ms(rotating(library), reps=5),
+        "library": "F.scaled_dot_product_attention with the strict mask, row 0 zeroed",
+        "library_max_abs_err_vs_plain": lib_err,
+        "share_of_bound": work["bound_ms"] / ms, "bytes": work["bytes"], "flops": work["flops"],
+    }
+
+
+def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
+                attention_cases) -> dict:
     calls = {
         "nearest_code_ids": (lambda f, e: qz.nearest_code_ids(f, e),
                              qz.nearest_code_ids_reference,
@@ -408,22 +841,21 @@ def phase_times(model, x, flat_t, flat_b, launches, cases) -> dict:
             "share_of_bound": first["bound_ms"] / first["ms"], "shapes": per_shape,
         })
 
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
+    records.append(attention_record(attention_qkv, launches, attention_cases))
 
     torch.cuda.reset_peak_memory_stats()
     enc_ms = host_ms(lambda: model.encode_ids(x), 5)
     fwd_ms = host_ms(lambda: model(x), 3)
+    stage1_gb = torch.cuda.max_memory_allocated() / 2 ** 30              # of these two
+    torch.cuda.reset_peak_memory_stats()
+    codes = numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW)
+    top_ms = host_ms(lambda: top(codes), 3)
     emit("times", batch=BATCH, size=SIZE, encode_ids_ms=enc_ms,
          encode_ids_img_per_s=BATCH / enc_ms * 1e3, forward_ms=fwd_ms,
-         forward_img_per_s=BATCH / fwd_ms * 1e3,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)   # of these two
+         forward_img_per_s=BATCH / fwd_ms * 1e3, peak_memory_gb=stage1_gb,
+         top_prior_forward={"batch": PRIOR_BATCH, "grid": [TOP_HW, TOP_HW], "ms": top_ms,
+                            "grids_per_s": PRIOR_BATCH / top_ms * 1e3,
+                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return {"kernels": records}
 
 
@@ -465,19 +897,94 @@ def phase_breakdown(model, x) -> None:
     emit("breakdown", batch=BATCH, unit="ms", stages=out, enc_b_layers=inside)
 
 
+def phase_breakdown_stage2(top) -> None:
+    """Optional: where one forward of the top prior at batch 32 spends its
+    time (CUDA events around the sub-modules, summed over the four blocks),
+    and how busy the card is during incremental sampling (``torch.profiler``
+    over 32 steps of the top prior's decoder at batch 8)."""
+    from vqvae2_tpu_torch.models import incremental as inc
+    from vqvae2_tpu_torch.models.sampling import draw_codes
+
+    marks = []
+    pool = [torch.cuda.Event(enable_timing=True) for _ in range(256)]   # made ahead of the run
+
+    def mark(label):
+        ev = pool[len(marks)]
+        ev.record()
+        marks.append((label, ev))
+
+    parts = [("input convolutions", [top.horizontal, top.vertical]),
+             ("causal res blocks (5x5)", [r for b in top.blocks for r in b.res]),
+             ("key and query res blocks (1x1)",
+              [m for b in top.blocks for m in (b.key_resblock, b.query_resblock)]),
+             ("attention: q, k, v layers and the kernel", [b.causal_attention for b in top.blocks]),
+             ("out res blocks (1x1)", [b.out_resblock for b in top.blocks]),
+             ("out convolution", [top.out_conv])]
+    hooks = []
+    for label, modules in parts:
+        for mod in modules:
+            hooks.append(mod.register_forward_pre_hook(lambda m, a, l=label: mark((l, 0))))
+            hooks.append(mod.register_forward_hook(lambda m, a, o, l=label: mark((l, 1))))
+    codes = numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW)
+    top(codes)
+    torch.cuda.synchronize()
+    marks.clear()
+    first, last = pool.pop(), pool.pop()
+    first.record()
+    top(codes)
+    last.record()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    out = {label: 0.0 for label, _ in parts}
+    out["total"] = first.elapsed_time(last)
+    opened = {}
+    for (label, end), ev in marks:
+        if end:
+            out[label] = out.get(label, 0.0) + opened.pop(label).elapsed_time(ev)
+        else:
+            opened[label] = ev
+    out["other (one-hot, shifts, concatenations, gaps)"] = out["total"] - sum(
+        v for k, v in out.items() if k != "total")
+
+    pp = inc.resolve_params(top)
+    caches = inc._make_caches(top, SAMPLE_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps, width = 32, top.shape[1]
+
+    def decode(first):
+        for t in range(first, first + steps):
+            i, j = divmod(t, width)
+            draw = draw_codes(inc._step_logits(top, pp, caches, i, j, t, None), 1.0, gen)
+            inc._write_code(top, caches, i, j, draw)
+
+    decode(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in device_events) / 1e3
+    sampler = {"steps": steps, "batch": SAMPLE_BATCH, "wall_ms_per_step": wall_ms / steps,
+               "profiler": "on (host times include its overhead)"}
+    if device_events and busy_ms > 0:
+        sampler.update(device_kernels_per_step=len(device_events) / steps,
+                       device_busy_ms_per_step=busy_ms / steps,
+                       device_idle_share=1.0 - busy_ms / wall_ms)
+    else:
+        sampler["device_idle_share"] = "not measured: the profiler recorded no device time"
+    emit("breakdown_stage2", top_forward_ms={"batch": PRIOR_BATCH, **out},
+         incremental_top_sampler=sampler)
+
+
 def phase_repeatability(model, x, calls: int = 6) -> None:
     """Optional: how far two calls on the same batch agree, with cuDNN free to
     pick non-deterministic algorithms and with it held to deterministic ones
     (what ``set_reference_precision`` sets), and what each costs."""
-    def host_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     out = {}
     for deterministic in (False, True):
         torch.backends.cudnn.deterministic = deterministic
@@ -492,8 +999,8 @@ def phase_repeatability(model, x, calls: int = 6) -> None:
         out["deterministic" if deterministic else "default"] = {
             "ids_flipped_per_call": flips, "ids": base[3].numel() + base[4].numel(),
             "bottom_rows_max_abs_diff": moved,
-            "encode_ids_ms": host_ms(lambda: model.encode_ids(x)),
-            "forward_ms": host_ms(lambda: model(x))}
+            "encode_ids_ms": host_ms(lambda: model.encode_ids(x), 5),
+            "forward_ms": host_ms(lambda: model(x), 5)}
     check(not any(out["deterministic"]["ids_flipped_per_call"]),
           f"ids are not repeatable under deterministic cuDNN: {out['deterministic']}")
     emit("repeatability", batch=BATCH, **out)
@@ -502,7 +1009,8 @@ def phase_repeatability(model, x, calls: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
-                    help="also time the stages of encode_ids")
+                    help="also time the stages of encode_ids and of the top prior's "
+                         "forward, and profile the incremental sampler")
     ap.add_argument("--repeatability", action="store_true",
                     help="also count the ids that flip between calls, with and without "
                          "deterministic cuDNN")
@@ -510,7 +1018,7 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    with torch.no_grad():
+    with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
         model = build_vqvae(device="cuda", seed=0)
         try:
             x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -518,13 +1026,24 @@ def main(argv=None) -> int:
             seed_codebooks_from_data(model, x)
             flat_t, flat_b, cases = phase_kernels(model, x)
             launches = phase_main(model, x)
+
+            dirs = write_checkpoints(model, tmp)
+            top = sample._restore_prior(dirs["top"], "top", (TOP_HW, BOTTOM_HW), "cuda")
+            bottom = sample._restore_prior(dirs["bottom"], "bottom", (TOP_HW, BOTTOM_HW), "cuda")
+            attention_qkv, attention_cases = phase_attention_kernel(
+                top, numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW))
+            launches.update(
+                {k: v for k, v in phase_main_stage2(dirs, tmp, top, bottom).items()
+                 if k in fa.launch_counts})
         except torch.cuda.OutOfMemoryError as e:
             raise RuntimeError(
-                f"batch {BATCH} at {SIZE} px does not fit this card; the run does not "
-                f"shrink the batch") from e
-        record = phase_times(model, x, flat_t, flat_b, launches, cases)
+                f"batch {BATCH} at {SIZE} px (stage 1) or batch {PRIOR_BATCH} of {TOP_HW}x{TOP_HW} "
+                f"code grids (stage 2) does not fit this card; the run does not shrink them") from e
+        record = phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
+                             attention_cases)
         if args.breakdown:
             phase_breakdown(model, x)
+            phase_breakdown_stage2(top)
         if args.repeatability:
             phase_repeatability(model, x)
     print(json.dumps(record), flush=True)

@@ -1,0 +1,194 @@
+"""The port's strictly-causal attention against the JAX package's: the plain
+version (what the wrapper runs for a CPU tensor, and what the CUDA kernel is
+held against on the card) on the same seeded numpy ``q, k, v`` as
+``causal_attention_reference`` and as the Pallas kernel in interpret mode.
+
+Tolerance: atol = rtol = 2e-5, what the JAX package holds its own kernel to
+(fp32 sums in another order).  Row 0 is bit-zero.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vqvae2_tpu.ops.flash_attention import causal_attention_reference as jax_reference
+from vqvae2_tpu.ops.flash_attention import causal_flash_attention as jax_flash
+from vqvae2_tpu_torch.ops import flash_attention as fa
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+# (B, H, N, D): the JAX package's own cases, its auto-shrink case, and a length
+# that is no multiple of 8 (which only the reference takes there)
+SHAPES = [(2, 2, 128, 16), (1, 4, 256, 32), (2, 1, 64, 64), (1, 1, 96, 16), (1, 2, 50, 16)]
+
+
+def qkv(seed, *shape):
+    g = np.random.default_rng(seed)
+    return tuple(g.normal(size=shape).astype(np.float32) for _ in range(3))
+
+
+def port(fn, *arrays, **kw):
+    return fn(*(torch.from_numpy(a) for a in arrays), **kw)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_plain_version_equals_the_jax_reference(shape):
+    q, k, v = qkv(0, *shape)
+    want = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v))))
+    got = port(fa.causal_attention_reference, q, k, v)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=str)
+def test_plain_version_equals_the_interpreted_pallas_kernel(shape):
+    q, k, v = qkv(1, *shape)
+    want = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), block=64, interpret=True))
+    got = port(fa.causal_attention_reference, q, k, v)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.all(want[:, :, 0] == 0.0) and bool((got[:, :, 0] == 0).all())
+
+
+def test_wrapper_on_a_cpu_tensor_counts_a_plain_call_and_no_launch():
+    q, k, v = qkv(2, 2, 2, 40, 16)
+    fa.reset_counts()
+    got = port(fa.causal_flash_attention, q, k, v)
+    assert fa.plain_counts == {"causal_flash_attention": 1}
+    assert fa.launch_counts == {"causal_flash_attention": 0}
+    want = port(fa.causal_attention_reference, q, k, v)
+    assert torch.equal(got, want)
+    o, lse = port(fa.causal_flash_attention_lse, *(a.reshape(4, 40, 16) for a in (q, k, v)))
+    assert torch.equal(o.reshape(2, 2, 40, 16), want) and lse.shape == (4, 40, 1)
+    assert fa.plain_counts["causal_flash_attention"] == 2
+    fa.reset_counts()
+    assert fa.plain_counts == {"causal_flash_attention": 0}
+
+
+def test_row_zero_is_bit_zero_and_a_single_position_gives_zeros():
+    q, k, v = qkv(3, 2, 2, 128, 16)
+    assert bool((port(fa.causal_flash_attention, q, k, v)[:, :, 0] == 0).all())
+    one = port(fa.causal_flash_attention, *qkv(4, 1, 3, 1, 16))
+    assert one.shape == (1, 3, 1, 16) and bool((one == 0).all())
+
+
+def test_strict_causality():
+    """Row i does not depend on keys and values at j >= i."""
+    q, k, v = qkv(5, 1, 2, 128, 16)
+    out = port(fa.causal_flash_attention, q, k, v)
+    i = 70
+    k2, v2 = k.copy(), v.copy()
+    k2[:, :, i:] = 999.0
+    v2[:, :, i:] = -999.0
+    out2 = port(fa.causal_flash_attention, q, k2, v2)
+    assert torch.equal(out[:, :, : i + 1], out2[:, :, : i + 1])
+    assert not torch.allclose(out[:, :, i + 1:], out2[:, :, i + 1:])
+
+
+def test_lse_is_the_logsumexp_of_the_visible_scores():
+    q, k, v = qkv(6, 1, 2, 33, 16)
+    _, lse = port(fa.causal_attention_reference_lse, q, k, v)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64)) / 4.0
+    want = np.full((1, 2, 33), -1e30)
+    for i in range(1, 33):
+        row = s[:, :, i, :i]
+        want[:, :, i] = np.log(np.exp(row - row.max(-1, keepdims=True)).sum(-1)) + row.max(-1)
+    assert lse.shape == (1, 2, 33, 1) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse[..., 0].numpy()[:, :, 1:], want[:, :, 1:], **TOL)
+    assert bool((lse[:, :, 0] == np.float32(-1e30)).all())
+
+
+def test_large_scores_do_not_overflow():
+    q, k, v = qkv(7, 1, 2, 64, 16)
+    got = port(fa.causal_attention_reference, q * 50.0, k, v)
+    want = np.asarray(jax_reference(*map(jnp.asarray, (q * 50.0, k, v))))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_bf16_inputs_are_widened_and_the_result_is_bf16():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in qkv(8, 1, 2, 64, 16))
+    got = fa.causal_attention_reference(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = fa.causal_attention_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)   # bf16 rounding of o
+
+
+def numpy_dropout_attention(q, k, v, keep, rate):
+    """The kernel's formula, written out: the normaliser takes the undropped
+    probabilities, dropout scales only what multiplies v."""
+    n, d = q.shape[-2:]
+    s = np.einsum("bhqd,bhkd->bhqk", q, k).astype(np.float64) / np.sqrt(d)
+    mask = np.arange(n)[None, :] < np.arange(n)[:, None]
+    e = np.where(mask, np.exp(np.where(mask, s, -np.inf) - np.where(mask, s, -1e30).max(-1, keepdims=True)), 0.0)
+    p = e / np.maximum(e.sum(-1, keepdims=True), 1e-30)
+    return np.einsum("bhqk,bhkd->bhqd", p * keep / (1.0 - rate), v)
+
+
+def test_explicit_keep_dropout_follows_the_kernels_formula():
+    q, k, v = qkv(9, 1, 2, 48, 16)
+    rate = 0.25
+    keep = np.random.default_rng(10).random((1, 2, 48, 48)) >= rate
+    got, lse = port(fa.causal_attention_reference_lse, q, k, v,
+                    keep=torch.from_numpy(keep), dropout_rate=rate)
+    np.testing.assert_allclose(got.numpy(), numpy_dropout_attention(q, k, v, keep, rate), **TOL)
+    _, lse0 = port(fa.causal_attention_reference_lse, q, k, v)
+    assert torch.equal(lse, lse0)           # dropout leaves the normaliser alone
+    with pytest.raises(ValueError, match="keep"):
+        port(fa.causal_attention_reference, q, k, v, dropout_rate=rate)
+
+
+def test_dropout_statistics():
+    """Averaged over seeds, dropout gives back the undropped attention (the JAX
+    package's own statistic), and the mask keeps 1 - rate of the elements."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(11, 1, 2, 64, 16))
+    nodrop = fa.causal_attention_reference(q, k, v)
+    n_seed, acc = 48, torch.zeros_like(nodrop)
+    for s in range(n_seed):
+        acc += fa.causal_flash_attention(q, k, v, dropout_rate=0.5,
+                                         generator=torch.Generator().manual_seed(s))
+    rel = (acc / n_seed - nodrop).abs().mean() / nodrop.abs().mean()
+    assert float(rel) < 0.25                # ~1/sqrt(48) sampling noise
+    for rate in (0.1, 0.5):
+        keep = fa.dropout_keep_reference(1234, 4, 128, rate)
+        assert keep.shape == (4, 128, 128) and keep.dtype == torch.bool
+        assert abs(float(keep.float().mean()) - (1 - rate)) < 0.01
+
+
+def test_the_dropout_draw_is_philox_keyed_on_the_absolute_element():
+    """Known answers of Philox-4x32-10 (Random123's test vectors), and a mask
+    that depends on (seed, bh, i, j) alone: a longer sequence or more heads
+    extend it without changing what was there."""
+    def words(ctr, key):
+        t = [torch.tensor([x], dtype=torch.int64) for x in (*ctr, *key)]
+        return [int(w) for w in fa._philox4x32_10(tuple(t[:4]), tuple(t[4:]))]
+
+    assert words((0, 0, 0, 0), (0, 0)) == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    assert words((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2) == [
+        0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]
+    assert words((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0)) == [
+        0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]
+    small = fa.dropout_keep_reference(77, 2, 10, 0.3)
+    large = fa.dropout_keep_reference(77, 3, 23, 0.3)
+    assert torch.equal(large[:2, :10, :10], small)
+    assert not torch.equal(fa.dropout_keep_reference(78, 2, 10, 0.3), small)
+    assert fa.dropout_threshold(0.0) == 0 and fa.dropout_threshold(0.5) == 2 ** 31
+    assert fa.dropout_threshold(1.0) == 2 ** 32 - 1
+
+
+def test_wrapper_dropout_needs_a_generator_and_is_repeatable():
+    q, k, v = (torch.from_numpy(a) for a in qkv(12, 1, 2, 32, 16))
+    with pytest.raises(ValueError, match="generator"):
+        fa.causal_flash_attention(q, k, v, dropout_rate=0.1)
+    a = fa.causal_flash_attention(q, k, v, dropout_rate=0.3, generator=torch.Generator().manual_seed(5))
+    b = fa.causal_flash_attention(q, k, v, dropout_rate=0.3, generator=torch.Generator().manual_seed(5))
+    c = fa.causal_flash_attention(q, k, v, dropout_rate=0.3, generator=torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        fa.causal_flash_attention_lse(q[0], k[0], v[0], dropout_rate=1.0)
+
+
+def test_the_plain_version_is_differentiable_on_the_cpu():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv(13, 1, 1, 16, 8))
+    fa.causal_flash_attention(q, k, v).sin().sum().backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    assert bool((q.grad[:, :, 0] == 0).all())      # row 0 attends nothing

@@ -39,7 +39,11 @@ def test_the_walk_sees_the_port():
     names = {os.path.relpath(p, REPO) for p in port_files()}
     assert {"chip_smoke.py", "vqvae2_tpu_torch/__init__.py", "vqvae2_tpu_torch/ops/quantize.py",
             "vqvae2_tpu_torch/models/vqvae.py", "vqvae2_tpu_torch/data/codestore.py",
-            "vqvae2_tpu_torch/train/extract_codes.py"} <= names
+            "vqvae2_tpu_torch/train/extract_codes.py",
+            "vqvae2_tpu_torch/ops/flash_attention.py", "vqvae2_tpu_torch/models/pixelsnail.py",
+            "vqvae2_tpu_torch/models/sampling.py", "vqvae2_tpu_torch/models/incremental.py",
+            "vqvae2_tpu_torch/train/pixelsnail.py", "vqvae2_tpu_torch/train/sample.py",
+            "vqvae2_tpu_torch/utils/image.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -79,18 +83,21 @@ print("BUILT", _build.build_info, os.path.isdir(_build.BUILD_DIR) and os.listdir
     assert built.endswith(("False", "[]")), built
 
 
-def test_sources_of_the_kernels_are_in_the_package():
+@pytest.mark.parametrize("name", ["quantize", "flash_attention"])
+def test_sources_of_the_kernels_are_in_the_package(name):
     from vqvae2_tpu_torch.ops import _build
 
-    assert os.path.isfile(_build.source_path("quantize"))
+    assert os.path.isfile(_build.source_path(name))
+    assert os.path.dirname(_build.source_path(name)) == os.path.join(PACKAGE, "ops", "csrc")
     assert os.path.relpath(_build.BUILD_DIR, REPO) == os.path.join(
         "vqvae2_tpu_torch", "ops", "_built")
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "vqvae2_tpu_torch/ops/_built/" in f.read().split()
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     # the library's name follows the source: an edit rebuilds
-    path = _build._library_path("quantize")
+    path = _build._library_path(name)
     assert os.path.dirname(path) == _build.BUILD_DIR and path.endswith(".so")
+    assert os.path.basename(path).startswith(f"lib{name}_")
 
 
 # -- no CUDA here: the default device must raise, never fall back ----------------
@@ -143,6 +150,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         to_unit_device(torch.zeros(1, 8, 8, 3))
     assert not os.path.exists(out)
+
+
+def test_stage_two_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from vqvae2_tpu_torch.train import sample
+
+    out = str(tmp_path / "grid.png")
+    dirs = ["--vqvae", str(tmp_path / "v"), "--top", str(tmp_path / "t"),
+            "--bottom", str(tmp_path / "b")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        sample.main([out, *dirs, "--size", "32"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        sample.main([out, *dirs, "--size", "32", "--device", "cuda:0"])
+    # nothing was read or written before the device was refused
+    assert not os.path.exists(out) and os.listdir(str(tmp_path)) == []
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):
@@ -198,6 +219,79 @@ def test_the_launcher_refuses_what_the_kernel_does_not_take(monkeypatch):
     for flat, e, error, match in cases:
         with pytest.raises(error, match=match):
             qz._check_cuda_inputs(flat, e)
+
+
+def test_the_attention_kernel_path_never_takes_the_plain_version(monkeypatch):
+    """The launcher raises on tensors that are not on the card; the wrappers
+    take the plain version for a CPU tensor only; a tensor that claims to be
+    on the card goes to the launcher (here: to the build, which is refused),
+    never to the plain version."""
+    from vqvae2_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_counts()
+    q = torch.zeros(2, 5, 8)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa._causal_flash_attention_cuda(q, q, q, 0.0, 0)
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.causal_flash_attention_lse(meta, meta, meta)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.causal_flash_attention(meta[None], meta[None], meta[None])
+    with pytest.raises(ValueError, match="on the card"):
+        fa.dropout_keep_mask(2, 5, 0.1, 0, device="cpu")
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+        device = property(lambda self: torch.device("cuda:0"))
+
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(fa, "_library", refuse)
+    monkeypatch.setattr(fa, "causal_attention_reference_lse",
+                        lambda *a, **k: pytest.fail("a CUDA tensor reached the plain version"))
+    on_card = q.as_subclass(OnCard)
+    with pytest.raises(Refused):
+        fa.causal_flash_attention_lse(on_card, on_card, on_card)
+    needs_grad = torch.zeros(2, 5, 8, requires_grad=True).as_subclass(OnCard)
+    with pytest.raises(NotImplementedError, match="stage-2 training slice"):
+        fa.causal_flash_attention_lse(needs_grad, on_card, on_card)
+    with torch.no_grad(), pytest.raises(Refused):
+        fa.causal_flash_attention_lse(needs_grad, on_card, on_card)
+    assert not any(fa.plain_counts.values()) and not any(fa.launch_counts.values())
+
+
+def _on_card(t):
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+
+    return t.as_subclass(OnCard)
+
+
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: [torch.zeros(2, 5, 8, dtype=torch.float16)] * 3, TypeError, "float32 or bfloat16"),
+    (lambda: [torch.zeros(2, 5, 8), torch.zeros(2, 5, 8, dtype=torch.bfloat16), torch.zeros(2, 5, 8)],
+     TypeError, "share one dtype"),
+    (lambda: [torch.zeros(2, 5, 8), torch.zeros(2, 6, 8), torch.zeros(2, 5, 8)],
+     ValueError, "share one"),
+    (lambda: [torch.zeros(1, 2, 5, 8)] * 3, ValueError, "share one"),
+    (lambda: [torch.zeros(2, 5, 6)] * 3, ValueError, "multiple of 4"),
+    (lambda: [torch.zeros(2, 5, 128)] * 3, ValueError, "up to 64"),
+    (lambda: [torch.zeros(2, 0, 8)] * 3, ValueError, "N >= 1"),
+    (lambda: [torch.zeros(2, 5, 16)[:, :, :8]] * 3, ValueError, "contiguous"),
+    (lambda: [torch.zeros(2 * 5 * 8 + 1)[1:].reshape(2, 5, 8)] * 3, ValueError, "16-byte"),
+], ids=["float16", "mixed dtypes", "mixed shapes", "four dims", "D % 4", "D > 64", "N == 0",
+        "strided", "misaligned"])
+def test_the_attention_launcher_refuses_what_the_kernel_does_not_take(make, error, match):
+    """Shape, dtype, contiguity and alignment checks of the CUDA wrapper,
+    reached here by letting CPU tensors claim to be on the card."""
+    from vqvae2_tpu_torch.ops import flash_attention as fa
+
+    with pytest.raises(error, match=match):
+        fa._check_cuda_inputs(*(_on_card(t) for t in make()))
 
 
 def test_no_build_without_nvcc(monkeypatch, tmp_path):

@@ -8,3 +8,13 @@ from vqvae2_tpu_torch.models.vqvae import (  # noqa: F401
     ResBlock,
     build_vqvae,
 )
+from vqvae2_tpu_torch.models.pixelsnail import (  # noqa: F401
+    CausalAttention,
+    CausalConv,
+    CondResNet,
+    GatedResBlock,
+    PixelBlock,
+    PixelSNAIL,
+    WNConv,
+    WNDense,
+)

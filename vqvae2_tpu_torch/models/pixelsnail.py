@@ -1,0 +1,368 @@
+"""PixelSNAIL autoregressive prior (port of ``vqvae2_tpu/models/pixelsnail.py``).
+
+Layout: every module here takes and returns what the JAX package's does —
+code ids ``(B, H, W)`` int, feature maps ``(B, H, W, C)``, logits
+``(B, H, W, n_class)``.  A convolution sees ``x.permute(0, 3, 1, 2)``, a free
+NCHW view of the same memory (``channels_last``), and its result is permuted
+back; gates, concatenations and ELUs act on the trailing channel axis.
+
+Weight normalisation is written out (``w = g · v / sqrt(Σv² + 1e-12)``, the norm
+per output channel) with ``v``, ``g``, ``b`` as the parameters, since
+``torch.nn.utils.weight_norm`` has another epsilon and parametrisation.  A
+causal convolution's kernel mask is a constant buffer multiplied into ``v``
+*before* the norm, so the norm leaves the masked taps out.  ``WNConv.v`` is
+``(O, I, kh, kw)``; ``WNDense.v`` stays ``(I, O)`` as in the JAX package and is
+applied as ``x @ w`` (``utils/jax_import.py`` holds the maps).
+
+Attention goes through :func:`vqvae2_tpu_torch.ops.causal_flash_attention`:
+the hand-written kernel for a CUDA tensor of any length ``N``, the plain
+version for a CPU tensor.
+
+This slice of the port is fp32 and inference (plus whatever of training is
+plain differentiable PyTorch): the bf16 compute mode and train-mode attention
+dropout come with the stage-2 training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vqvae2_tpu_torch.ops.flash_attention import causal_flash_attention
+
+
+def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Weight-normalized conv/dense: w = g · v / ‖v‖, norm per output channel
+# ---------------------------------------------------------------------------
+
+class WNConv(nn.Module):
+    """Weight-normalised convolution, ``(B, H, W, C)`` in and out.
+
+    ``padding`` — ``(top, bottom, left, right)`` zeros, applied before a
+    convolution without padding of its own (the causal convolutions pad
+    asymmetrically).  ``kernel_mask`` — a static ``(kh, kw)`` 0/1 mask."""
+
+    def __init__(self, in_channel: int, features: int, kernel_size: Tuple[int, int],
+                 padding: Sequence[int] = (0, 0, 0, 0), use_bias: bool = True,
+                 kernel_mask: Optional[np.ndarray] = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.padding = tuple(int(p) for p in padding)
+        # the JAX package draws v from lecun_normal: variance 1 / fan_in
+        v = torch.randn(features, in_channel, kh, kw) * (in_channel * kh * kw) ** -0.5
+        if kernel_mask is not None:
+            self.register_buffer(
+                "kernel_mask", torch.as_tensor(np.asarray(kernel_mask), dtype=torch.float32),
+                persistent=False)
+            masked = v * self.kernel_mask
+        else:
+            self.kernel_mask = None
+            masked = v
+        self.v = nn.Parameter(v)
+        # g starts at the masked norm, so that w == v at the start
+        self.g = nn.Parameter(masked.pow(2).sum(dim=(1, 2, 3)).sqrt())
+        self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def weight(self) -> torch.Tensor:
+        """The resolved kernel ``(O, I, kh, kw)``."""
+        v = self.v if self.kernel_mask is None else self.v * self.kernel_mask
+        norm = torch.sqrt(torch.sum(v * v, dim=(1, 2, 3), keepdim=True) + 1e-12)
+        return (self.g[:, None, None, None] / norm) * v
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _to_nchw(x)
+        if any(self.padding):
+            top, bottom, left, right = self.padding
+            x = F.pad(x, (left, right, top, bottom))
+        return _to_nhwc(F.conv2d(x, self.weight(), self.b))
+
+
+class WNDense(nn.Module):
+    """Weight-normalised dense layer on the trailing axis; ``v`` is ``(I, O)``."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        v = torch.randn(in_features, features) * in_features ** -0.5
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(v.pow(2).sum(dim=0).sqrt())
+        self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def weight(self) -> torch.Tensor:
+        """The resolved matrix ``(I, O)``."""
+        norm = torch.sqrt(torch.sum(self.v * self.v, dim=0, keepdim=True) + 1e-12)
+        return (self.g[None, :] / norm) * self.v
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.weight()
+        return y + self.b if self.b is not None else y
+
+
+# ---------------------------------------------------------------------------
+# Shifts, (B, H, W, C)
+# ---------------------------------------------------------------------------
+
+def shift_down(x: torch.Tensor, size: int = 1) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, 0, size, 0))[:, : x.shape[1]]
+
+
+def shift_right(x: torch.Tensor, size: int = 1) -> torch.Tensor:
+    return F.pad(x, (0, 0, size, 0))[:, :, : x.shape[2]]
+
+
+# ---------------------------------------------------------------------------
+# Causal convolution
+# ---------------------------------------------------------------------------
+
+def causal_kernel_mask(kh: int, kw: int) -> np.ndarray:
+    """Ones, with the last row zeroed from the centre rightward."""
+    m = np.ones((kh, kw), np.float32)
+    m[-1, kw // 2:] = 0.0
+    return m
+
+
+class CausalConv(WNConv):
+    """'downright' pads (top kh−1, left kw−1); 'down' and 'causal' pad top kh−1
+    and kw//2 on both sides; 'causal' also masks the kernel's last row from the
+    centre rightward, as a static mask."""
+
+    def __init__(self, in_channel: int, features: int, kernel_size: Tuple[int, int],
+                 padding_mode: str = "downright"):
+        kh, kw = kernel_size
+        if padding_mode == "downright":
+            padding = (kh - 1, 0, kw - 1, 0)
+        elif padding_mode in ("down", "causal"):
+            padding = (kh - 1, 0, kw // 2, kw // 2)
+        else:
+            raise ValueError(padding_mode)
+        mask = causal_kernel_mask(kh, kw) if padding_mode == "causal" else None
+        super().__init__(in_channel, features, kernel_size, padding=padding, kernel_mask=mask)
+        self.padding_mode = padding_mode
+
+
+# ---------------------------------------------------------------------------
+# Gated residual block
+# ---------------------------------------------------------------------------
+
+class GatedResBlock(nn.Module):
+    """ELU → conv → (+ aux) → ELU → dropout → conv → (+ condition) → GLU, plus
+    skip.  ``conv`` ∈ 'wnconv2d' | 'causal_downright' | 'causal'.
+    ``aux_channel`` > 0 adds the 1×1 ``aux_conv`` branch (``aux_input``);
+    ``condition_dim`` > 0 adds the bias-free 1×1 ``condition`` branch."""
+
+    def __init__(self, in_channel: int, channel: int, kernel_size: int, conv: str = "wnconv2d",
+                 dropout: float = 0.1, aux_channel: int = 0, condition_dim: int = 0):
+        super().__init__()
+        self.conv1 = self._conv(conv, in_channel, channel, kernel_size)
+        self.aux_conv = WNConv(aux_channel, channel, (1, 1)) if aux_channel > 0 else None
+        self.dropout = nn.Dropout(dropout)
+        self.conv2 = self._conv(conv, channel, in_channel * 2, kernel_size)
+        self.condition = (WNConv(condition_dim, in_channel * 2, (1, 1), use_bias=False)
+                          if condition_dim > 0 else None)
+
+    @staticmethod
+    def _conv(conv: str, in_channel: int, features: int, k: int) -> WNConv:
+        if conv == "wnconv2d":
+            return WNConv(in_channel, features, (k, k), padding=(k // 2,) * 4)
+        if conv == "causal_downright":
+            return CausalConv(in_channel, features, (k, k), "downright")
+        if conv == "causal":
+            return CausalConv(in_channel, features, (k, k), "causal")
+        raise ValueError(conv)
+
+    def forward(self, x: torch.Tensor, aux_input: Optional[torch.Tensor] = None,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self.conv1(F.elu(x))
+        if aux_input is not None:
+            out = out + self.aux_conv(F.elu(aux_input))
+        out = self.dropout(F.elu(out))
+        out = self.conv2(out)
+        if condition is not None:
+            out = out + self.condition(condition)
+        a, b = out.chunk(2, dim=-1)
+        return x + a * torch.sigmoid(b)      # GLU gate + residual
+
+
+# ---------------------------------------------------------------------------
+# Causal attention
+# ---------------------------------------------------------------------------
+
+class CausalAttention(nn.Module):
+    """Strictly-causal multi-head attention over the raster order of the grid.
+
+    The scores, softmax and weighted sum run in
+    :func:`~vqvae2_tpu_torch.ops.flash_attention.causal_flash_attention`; for
+    a CUDA tensor that is the hand-written kernel for every ``N >= 1``."""
+
+    def __init__(self, query_channel: int, key_channel: int, channel: int, n_head: int = 8,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.channel, self.n_head, self.dropout = channel, n_head, dropout
+        self.query = WNDense(query_channel, channel)
+        self.key = WNDense(key_channel, channel)
+        self.value = WNDense(key_channel, channel)
+
+    def qkv(self, query: torch.Tensor, key: torch.Tensor):
+        """``q, k, v (B, n_head, N, dim_head)``, contiguous."""
+        b, h, w, _ = key.shape
+        n = h * w
+
+        def heads(t):
+            return t.reshape(b, n, self.n_head, self.channel // self.n_head) \
+                    .transpose(1, 2).contiguous()
+
+        return (heads(self.query(query.reshape(b, n, -1))),
+                heads(self.key(key.reshape(b, n, -1))),
+                heads(self.value(key.reshape(b, n, -1))))
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(
+                "train-mode dropout on the attention probabilities comes with the "
+                "stage-2 training slice of the port; call eval() or set dropout=0")
+        b, h, w, _ = key.shape
+        out = causal_flash_attention(*self.qkv(query, key))
+        return out.transpose(1, 2).reshape(b, h, w, self.channel)
+
+
+# ---------------------------------------------------------------------------
+# PixelBlock / CondResNet / PixelSNAIL
+# ---------------------------------------------------------------------------
+
+class PixelBlock(nn.Module):
+    def __init__(self, channel: int, res_channel: int, kernel_size: int, n_res_block: int,
+                 attention: bool = True, dropout: float = 0.1, condition_dim: int = 0):
+        super().__init__()
+        self.res = nn.ModuleList([
+            GatedResBlock(channel, res_channel, kernel_size, conv="causal", dropout=dropout,
+                          condition_dim=condition_dim)
+            for _ in range(n_res_block)])
+        self.attention = attention
+        if attention:
+            self.key_resblock = GatedResBlock(channel * 2 + 2, channel, 1, dropout=dropout)
+            self.query_resblock = GatedResBlock(channel + 2, channel, 1, dropout=dropout)
+            self.causal_attention = CausalAttention(
+                channel + 2, channel * 2 + 2, channel // 2, dropout=dropout)
+            self.out_resblock = GatedResBlock(channel, channel, 1, dropout=dropout,
+                                              aux_channel=channel // 2)
+        else:
+            self.out = WNConv(channel + 2, channel, (1, 1))
+
+    def forward(self, x: torch.Tensor, background: torch.Tensor,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = x
+        for res in self.res:
+            out = res(out, condition=condition)
+        if self.attention:
+            key = self.key_resblock(torch.cat([x, out, background], dim=-1))
+            query = self.query_resblock(torch.cat([out, background], dim=-1))
+            attn_out = self.causal_attention(query, key)
+            return self.out_resblock(out, aux_input=attn_out)
+        return self.out(torch.cat([out, background], dim=-1))
+
+
+class CondResNet(nn.Module):
+    def __init__(self, in_channel: int, channel: int, kernel_size: int, n_res_block: int):
+        super().__init__()
+        k = kernel_size
+        self.conv_in = WNConv(in_channel, channel, (k, k), padding=(k // 2,) * 4)
+        self.res = nn.ModuleList([GatedResBlock(channel, channel, k)
+                                  for _ in range(n_res_block)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for res in self.res:
+            x = res(x)
+        return x
+
+
+def _background(height: int, width: int) -> np.ndarray:
+    """Coordinate channels ``(H, W, 2)``: rows then columns, centred and scaled
+    to [-0.5, 0.5)."""
+    cx = ((np.arange(height, dtype=np.float32) - height / 2) / height)[:, None]
+    cy = ((np.arange(width, dtype=np.float32) - width / 2) / width)[None, :]
+    return np.stack(
+        [np.broadcast_to(cx, (height, width)), np.broadcast_to(cy, (height, width))],
+        axis=-1,
+    )
+
+
+class PixelSNAIL(nn.Module):
+    """``shape``: code grid (H, W); ``n_class``: codebook size.  Top prior:
+    attention on, unconditional.  Bottom prior: attention off, conditioned on
+    the top codes (``n_cond_res_block > 0``)."""
+
+    def __init__(self, shape: Tuple[int, int], n_class: int = 512, channel: int = 256,
+                 kernel_size: int = 5, n_block: int = 4, n_res_block: int = 4,
+                 res_channel: int = 256, attention: bool = True, dropout: float = 0.1,
+                 n_cond_res_block: int = 0, cond_res_channel: int = 0,
+                 cond_res_kernel: int = 3, n_out_res_block: int = 0):
+        super().__init__()
+        self.config = dict(
+            shape=tuple(shape), n_class=n_class, channel=channel, kernel_size=kernel_size,
+            n_block=n_block, n_res_block=n_res_block, res_channel=res_channel,
+            attention=attention, dropout=dropout, n_cond_res_block=n_cond_res_block,
+            cond_res_channel=cond_res_channel, cond_res_kernel=cond_res_kernel,
+            n_out_res_block=n_out_res_block)
+        self.shape = tuple(shape)
+        self.n_class, self.channel, self.kernel_size = n_class, channel, kernel_size
+        self.n_block, self.n_res_block, self.res_channel = n_block, n_res_block, res_channel
+        self.attention, self.n_out_res_block = attention, n_out_res_block
+
+        kernel = kernel_size + (kernel_size % 2 == 0)
+        self.horizontal = CausalConv(n_class, channel, (kernel // 2, kernel), "down")
+        self.vertical = CausalConv(n_class, channel, ((kernel + 1) // 2, kernel // 2),
+                                   "downright")
+        self.blocks = nn.ModuleList([
+            PixelBlock(channel, res_channel, kernel_size, n_res_block, attention=attention,
+                       dropout=dropout, condition_dim=cond_res_channel)
+            for _ in range(n_block)])
+        self.cond_resnet = (CondResNet(n_class, cond_res_channel, cond_res_kernel,
+                                       n_cond_res_block)
+                            if n_cond_res_block > 0 else None)
+        self.out_res = nn.ModuleList([GatedResBlock(channel, res_channel, 1)
+                                      for _ in range(n_out_res_block)])
+        self.out_conv = WNConv(channel, n_class, (1, 1))
+        self.register_buffer("background", torch.from_numpy(_background(*self.shape).copy()),
+                             persistent=False)
+
+    def forward(self, codes: torch.Tensor, condition: Optional[torch.Tensor] = None,
+                condition_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``codes (B, H, W)`` int → logits ``(B, H, W, n_class)``.  ``condition``
+        — ``(B, Hc, Wc)`` int codes of the grid above, or ``condition_features``
+        — what :meth:`compute_condition` made of them."""
+        b, height, width = codes.shape
+        x = F.one_hot(codes.long(), self.n_class).to(self.background.dtype)
+        out = shift_down(self.horizontal(x)) + shift_right(self.vertical(x))
+        background = self.background[:height, :width].expand(b, height, width, 2)
+
+        cond = condition_features
+        if cond is None and condition is not None:
+            cond = self.compute_condition(condition)
+        if cond is not None:
+            cond = cond[:, :height, :width]
+
+        for block in self.blocks:
+            out = block(out, background, condition=cond)
+        for res in self.out_res:
+            out = res(out)
+        return self.out_conv(F.elu(out))
+
+    def compute_condition(self, condition: torch.Tensor) -> torch.Tensor:
+        """CondResNet and a 2× nearest upsample; call once per sample run and
+        pass the result as ``condition_features``."""
+        c = F.one_hot(condition.long(), self.n_class).to(self.background.dtype)
+        c = self.cond_resnet(c)
+        return c.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+

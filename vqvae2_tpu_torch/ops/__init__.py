@@ -6,3 +6,7 @@ from vqvae2_tpu_torch.ops.quantize import (  # noqa: F401
     nearest_code_reference,
     quantize_lookup,
 )
+from vqvae2_tpu_torch.ops.flash_attention import (  # noqa: F401
+    causal_attention_reference,
+    causal_flash_attention,
+)

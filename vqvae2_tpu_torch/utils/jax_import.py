@@ -14,6 +14,13 @@ original PyTorch reference's ``state_dict`` layout.  The inverse of
   onto the indices of the port's ``blocks`` Sequential, which are the
   reference's.
 
+* ``PixelSNAIL``: a ``WNConv``'s ``v (kh, kw, I, O)`` → ``(O, I, kh, kw)``; a
+  ``WNDense``'s ``v`` stays ``(I, O)`` (the port applies it as ``x @ w``); ``g``
+  and ``b`` as they are.  flax wraps a causal convolution's parameters in
+  ``WNConv_0``, which the port (``CausalConv`` is a ``WNConv``) does not; flax's
+  ``blocks_{b}``, ``res{r}`` and ``out_res_{i}`` are the port's
+  ``blocks.{b}``, ``res.{r}`` and ``out_res.{i}``.
+
 Inputs are nested dicts of **numpy** arrays (the caller does the
 ``np.asarray``); nothing here imports JAX.
 """
@@ -97,6 +104,53 @@ def vqvae_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for q in _QUANTIZERS:
         for buf in ("embed", "cluster_size", "embed_avg"):
             out[f"{q}.{buf}"] = _array(stats[q][buf])
+    return out
+
+
+def _put_wn(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
+            dense: bool = False) -> None:
+    """A weight-normalised layer's ``v``, ``g`` and (where it has one) ``b``."""
+    p = p.get("WNConv_0", p)
+    out[f"{name}.v"] = _array(p["v"]) if dense else conv_weight(p["v"])
+    out[f"{name}.g"] = _array(p["g"])
+    if "b" in p:
+        out[f"{name}.b"] = _array(p["b"])
+
+
+def _put_gated_res(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    for conv in ("conv1", "conv2", "aux_conv", "condition"):
+        if conv in p:
+            _put_wn(out, f"{name}.{conv}", p[conv])
+
+
+def pixelsnail_from_jax(variables: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """The JAX package's PixelSNAIL ``{"params": ...}`` (nested dicts of numpy
+    arrays) as a ``state_dict`` of ``model``, the port's ``PixelSNAIL`` of the
+    same configuration (it says how many blocks to walk)."""
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _put_wn(out, "horizontal", params["horizontal"])
+    _put_wn(out, "vertical", params["vertical"])
+    for b in range(model.n_block):
+        bp, name = params[f"blocks_{b}"], f"blocks.{b}"
+        for r in range(model.n_res_block):
+            _put_gated_res(out, f"{name}.res.{r}", bp[f"res{r}"])
+        if model.attention:
+            for rb in ("key_resblock", "query_resblock", "out_resblock"):
+                _put_gated_res(out, f"{name}.{rb}", bp[rb])
+            for dense in ("query", "key", "value"):
+                _put_wn(out, f"{name}.causal_attention.{dense}",
+                        bp["causal_attention"][dense], dense=True)
+        else:
+            _put_wn(out, f"{name}.out", bp["out"])
+    for i in range(model.n_out_res_block):
+        _put_gated_res(out, f"out_res.{i}", params[f"out_res_{i}"])
+    if model.cond_resnet is not None:
+        cp = params["cond_resnet"]
+        _put_wn(out, "cond_resnet.conv_in", cp["conv_in"])
+        for i in range(len(model.cond_resnet.res)):
+            _put_gated_res(out, f"cond_resnet.res.{i}", cp[f"res{i}"])
+    _put_wn(out, "out_conv", params["out_conv"])
     return out
 
 
