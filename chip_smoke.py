@@ -4,8 +4,9 @@ Hopper card: the quickest proof that the port still builds, starts and is right
 on the GPU.
 
     python3 chip_smoke.py               # needs one card; exits non-zero without
-    python3 chip_smoke.py --breakdown   # also times the stages of encode_ids and of the
-                                        # top prior's forward; profiles the sampler
+    python3 chip_smoke.py --breakdown   # also times the stages of encode_ids, of the
+                                        # top prior's forward and of one train step of
+                                        # stage 1 and of the top prior; profiles the sampler
     python3 chip_smoke.py --repeatability   # also counts ids that flip between calls
 
 Phases, each printing one JSON line; the first failure ends the run non-zero:
@@ -15,8 +16,11 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               started together
 3. kernels  — each kernel against its plain PyTorch version on the card, at the
               main path's shapes (on the models' own activations) and at
-              awkward ones: the two nearest-code kernels, then the causal
-              flash-attention forward (also with dropout on)
+              awkward ones: the three nearest-code kernels (the statistics
+              flavour also with every row on one code, and run twice to show
+              that its sums repeat bit for bit), then the causal
+              flash-attention forward and its two backward kernels (also with
+              dropout on)
 4. main     — stage 1: ``VQVAE()`` at full width, 256 px: ``forward`` and
               ``encode_ids`` at batch 128, then ``extract_codes.main`` into a
               temporary directory, read back and compared with a direct
@@ -28,10 +32,15 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               smaller size, whose top codes must agree.  Each path runs with
               the launch counters at zero before and read after: the kernels
               ran, the plain versions did not.  Small inputs are held against
-              the CPU
+              the CPU.  Training: ``train.vqvae.main`` at the command line's
+              width and batch for a few steps and one step of two
+              microbatches, ``extract_codes.main`` on what it wrote, both
+              priors' ``train.pixelsnail.main`` at full width on those codes,
+              and ``sample.main`` from the three checkpoints; the losses fall;
+              one step of each trainer is held against the CPU
 5. times    — CUDA-event times of each kernel, its plain version and the
               nearest library route; ``encode_ids`` in img/s, the top prior's
-              forward in ms
+              forward in ms, a train step of stage 1 and of both priors
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -63,7 +72,10 @@ from vqvae2_tpu_torch.ops import _build
 from vqvae2_tpu_torch.ops import flash_attention as fa
 from vqvae2_tpu_torch.ops import quantize as qz
 from vqvae2_tpu_torch.train import extract_codes, sample
+from vqvae2_tpu_torch.train import pixelsnail as tp
+from vqvae2_tpu_torch.train import vqvae as tv
 from vqvae2_tpu_torch.train.pixelsnail import build_model
+from vqvae2_tpu_torch.utils import schedules
 from vqvae2_tpu_torch.utils.checkpoint import CheckpointManager
 
 SIZE = 256
@@ -103,6 +115,21 @@ PEAK_BYTES_PER_S = 3.35e12
 # this fraction of the summands' magnitude (|x|^2 + |E|^2).
 TIE_RTOL = 1e-5
 
+# training: steps of each command-line run (kept small: the run is a smoke run)
+TRAIN_STEPS = {"vqvae": 12, "top": 10, "bottom": 5}
+TRAIN_BATCH = {"vqvae": 128, "top": 32, "bottom": 32}    # the command lines' defaults
+# The statistics kernel's sums against a float64 sum of the same rows: each
+# element within this fraction of the sum of its terms' magnitudes (fp32 sums
+# in another, fixed order).
+ESUM_RTOL = 1e-5
+# A step on the card against the same step on the CPU: the loss as LOGITS_TOL;
+# each gradient tensor within this fraction of its largest element (fp32
+# convolutions summed in another order, through a whole network), or of a
+# thousandth of the model's largest gradient where that is larger: a gradient
+# that is zero in exact arithmetic (a key's bias cannot move a softmax) is
+# rounding noise on both sides.
+GRAD_RTOL = 1e-3
+
 KERNELS = {
     "nearest_code_ids": {
         "route": "cuda",
@@ -114,10 +141,25 @@ KERNELS = {
         "source": "vqvae2_tpu_torch/ops/csrc/quantize.cu",
         "replaces": "vqvae2_tpu/ops/quantize.py:134",
     },
+    "nearest_code_stats": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/quantize.cu",
+        "replaces": "vqvae2_tpu/ops/quantize.py:172",
+    },
     "causal_flash_attention": {
         "route": "cuda",
         "source": "vqvae2_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "vqvae2_tpu/ops/flash_attention.py:81",
+    },
+    "causal_flash_attention_dq": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "vqvae2_tpu/ops/flash_attention.py:136",
+    },
+    "causal_flash_attention_dkv": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "vqvae2_tpu/ops/flash_attention.py:176",
     },
 }
 SOURCES = ("quantize", "flash_attention")
@@ -222,6 +264,56 @@ def awkward_cases(gen: torch.Generator):
     yield "duplicated codebook rows", normal(4096, D), dup, True
 
 
+def compare_stats_with_plain(flat: torch.Tensor, embed: torch.Tensor, label: str) -> dict:
+    """The statistics kernel on ``flat``/``embed``: ids and ``q`` bit-equal to
+    the lookup kernel's (it is the same search), ids off the plain version at
+    near-ties only, ``csum`` bit-equal to the plain bincount of its own ids,
+    ``esum`` within ``ESUM_RTOL`` of a float64 sum of its own rows, and a
+    second launch bit-equal to the first."""
+    first = qz.nearest_code(flat, embed, with_stats=True)
+    again = qz.nearest_code(flat, embed, with_stats=True)
+    idx_l, q_l, _, _ = qz.nearest_code(flat, embed, with_stats=False)
+    torch.cuda.synchronize()
+    idx, q, csum, esum = first
+    n, d = flat.shape
+    k = embed.shape[0]
+    check(csum.shape == (k,) and esum.shape == (k, d) and csum.dtype == esum.dtype == torch.float32,
+          f"{label}: statistics shapes")
+    check(bool(torch.equal(idx, idx_l) and torch.equal(q, q_l)),
+          f"{label}: ids or q differ from the lookup kernel's")
+    ids = idx.long()
+    check(bool(torch.equal(csum, torch.bincount(ids, minlength=k).to(torch.float32))),
+          f"{label}: csum is not the bincount of the kernel's ids")
+    f64 = torch.zeros(k, d, dtype=torch.float64, device="cuda").index_add_(0, ids, flat.double())
+    mag = torch.zeros(k, d, dtype=torch.float64, device="cuda").index_add_(0, ids, flat.double().abs())
+    err = (esum.double() - f64).abs()
+    rel = float((err / mag.clamp_min(1e-30)).max())
+    check(bool((err <= ESUM_RTOL * mag + 1e-30).all()),
+          f"{label}: esum off a float64 sum by {rel} of its terms' magnitude (> {ESUM_RTOL})")
+    plain = torch.zeros(k, d, dtype=torch.float32, device="cuda").index_add_(0, ids, flat.float())
+    repeat = bool(all(torch.equal(a, b) for a, b in zip(first, again)))
+    check(repeat, f"{label}: a second launch gave other statistics")
+    ties = compare_with_plain(flat, embed, f"{label} (ids)")
+    return {"case": label, "n": n, "d": d, "k": k, "dtype": str(flat.dtype),
+            "id_mismatches_vs_plain": ties["id_mismatches"], "largest_rel_gap": ties["largest_rel_gap"],
+            "csum_bit_equal_to_bincount": True, "codes_used": int((csum > 0).sum()),
+            "esum_max_abs_err_vs_float64": float(err.max()), "esum_max_rel_err_vs_float64": rel,
+            "esum_max_abs_err_vs_plain_sum": float((esum - plain).abs().max()),
+            "esum_bit_repeatable": repeat}
+
+
+def stats_awkward_cases(gen: torch.Generator):
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    yield "N=1", normal(1, D), normal(K, D)
+    yield "N=7", normal(7, D), normal(K, D)
+    yield "N=1000", normal(1000, D), normal(K, D)
+    yield "K=1", normal(5000, D), normal(1, D)
+    yield "deep D=256 K=512", normal(4099, 256), normal(K, 256)
+    yield "bf16 x", normal(5000, D).to(torch.bfloat16), normal(K, D)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -249,11 +341,36 @@ def phase_build() -> None:
     built = {}
     for name, path in zip(SOURCES, paths):
         info = _build.build_info[name]
-        built[name] = {
-            "library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
-            "ptxas": [line.strip() for line in info["log"].splitlines()
-                      if "registers" in line or "spill" in line]}
+        built[name] = {"library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
+                       "ptxas": ptxas_summary(info["log"])}
     emit("build", seconds=time.perf_counter() - t0, sources=built)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spilled bytes of each compiled kernel variant, from
+    ``-Xptxas -v``, by a short name (``flash_bwd_dkv_kernel<float,16,2,1>``)."""
+    import re
+
+    def short(mangled: str) -> str:
+        m = re.search(r"\d+([A-Za-z_]*kernel)(?:I(.*?)EEv|E)", mangled)
+        if not m:
+            return mangled
+        if m.group(2) is None:
+            return m.group(1)
+        args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(?<![A-Za-z_])f", m.group(2))
+        shown = [a or b or ("bf16" if c else "float") for a, b, c in args]
+        return f"{m.group(1)}<{','.join(shown)}>"
+
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = short(line.split("'")[1])
+        elif name and "bytes spill stores" in line:
+            out.setdefault(name, {})["spill_store_bytes"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used " in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(line.split("Used ")[1].split()[0])
+    return out
 
 
 def capture_quantizer_inputs(model, x: torch.Tensor):
@@ -285,6 +402,14 @@ def seed_codebooks_from_data(model, x: torch.Tensor) -> None:
         quantizer.embed_avg.copy_(rows[pick])
 
 
+def one_code_rows(n: int, gen: torch.Generator):
+    """What an untrained encoder hands the bottom quantizer: rows far smaller
+    than a unit-normal codebook, which all take the code of least norm."""
+    embed = torch.randn(K, D, generator=gen, device="cuda")
+    embed[K // 3] *= 0.05
+    return 0.01 * torch.randn(n, D, generator=gen, device="cuda"), embed
+
+
 def phase_kernels(model, x: torch.Tensor):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -299,8 +424,16 @@ def phase_kernels(model, x: torch.Tensor):
             torch.randn(K, D, generator=gen, device="cuda"), f"normal rows N={n}"))
     for label, flat, embed, exact in awkward_cases(gen):
         cases.append(compare_with_plain(flat, embed, label, exact_ids=exact))
-    emit("kernels", tie_rtol=TIE_RTOL, cases=cases)
-    return flat_t, flat_b, cases
+    stats = [compare_stats_with_plain(flat_t, model.quantize_t.embed, "main path, top grid"),
+             compare_stats_with_plain(flat_b, model.quantize_b.embed, "main path, bottom grid")]
+    one = compare_stats_with_plain(*one_code_rows(flat_b.shape[0], gen),
+                                   f"every row on one code N={flat_b.shape[0]}")
+    check(one["codes_used"] == 1, f"the one-code case used {one['codes_used']} codes")
+    stats.append(one)
+    for label, flat, embed in stats_awkward_cases(gen):
+        stats.append(compare_stats_with_plain(flat, embed, label))
+    emit("kernels", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=cases, stats_cases=stats)
+    return flat_t, flat_b, cases, stats
 
 
 def small_input_against_cpu(model) -> dict:
@@ -340,7 +473,7 @@ def run_extract(same_weights, tmp: str, weights_args) -> dict:
     store.close()
     batches = n // EXTRACT_BATCH
     check({k: v - before[k] for k, v in qz.launch_counts.items()}
-          == {"nearest_code_ids": batches, "nearest_code_lookup": batches},
+          == {"nearest_code_ids": batches, "nearest_code_lookup": batches, "nearest_code_stats": 0},
           f"extract must launch each kernel once a batch: {before} -> {qz.launch_counts}")
     after = dict(qz.launch_counts)
     data = SyntheticImages(n=n, size=SIZE)
@@ -367,14 +500,16 @@ def phase_main(model, x: torch.Tensor) -> dict:
     torch.cuda.synchronize()
     check(dec.shape == x.shape and bool(torch.isfinite(dec).all()), "forward: shape or non-finite")
     check(diff.ndim == 0 and bool(torch.isfinite(diff)), "forward: diff")
-    check(qz.launch_counts == {"nearest_code_ids": 0, "nearest_code_lookup": 2},
+    check(qz.launch_counts == {"nearest_code_ids": 0, "nearest_code_lookup": 2,
+                               "nearest_code_stats": 0},
           f"forward must launch the lookup kernel twice: {qz.launch_counts}")
 
     id_t, id_b = model.encode_ids(x)
     torch.cuda.synchronize()
     check(id_t.shape == (BATCH, SIZE // 8, SIZE // 8) and id_b.shape == (BATCH, SIZE // 4, SIZE // 4),
           f"encode_ids shapes {tuple(id_t.shape)} {tuple(id_b.shape)}")
-    check(qz.launch_counts == {"nearest_code_ids": 1, "nearest_code_lookup": 3},
+    check(qz.launch_counts == {"nearest_code_ids": 1, "nearest_code_lookup": 3,
+                               "nearest_code_stats": 0},
           f"encode_ids must launch each kernel once: {qz.launch_counts}")
     _, _, _, e_t, e_b = model.encode(x)
     check(bool(torch.equal(e_t, id_t) and torch.equal(e_b, id_b)), "encode and encode_ids disagree")
@@ -495,6 +630,86 @@ def dropout_on_the_card(gen: torch.Generator) -> dict:
             "mask_equals_philox_reference": True}
 
 
+def plain_grads_in_chunks(q, k, v, do, keep=None, dropout_rate=0.0, chunk: int = 32):
+    """Autograd of the plain version over ``chunk`` heads at a time, in fp32."""
+    grads = [[], [], []]
+    for i in range(0, q.shape[0], chunk):
+        leaves = [t[i:i + chunk].detach().float().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            o = fa.causal_attention_reference(
+                *leaves, keep=None if keep is None else keep[i:i + chunk],
+                dropout_rate=dropout_rate)
+            for acc, g in zip(grads, torch.autograd.grad(o, leaves, do[i:i + chunk].float())):
+                acc.append(g)
+    return [torch.cat(g) for g in grads]
+
+
+def compare_attention_backward(q, k, v, do, label: str, dropout_rate: float = 0.0,
+                               seed: int = 0) -> dict:
+    """The gradients through the kernels (``causal_flash_attention_lse`` with
+    grad on: K4 forward, K5 and K6 backward) against autograd of the plain
+    version on the same inputs; with dropout on, the plain version takes the
+    kernel's own exported mask.  Row 0 of ``dq`` must be bit-zero."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o, lse = fa.causal_flash_attention_lse(*leaves, dropout_rate=dropout_rate, seed=seed)
+        got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    bh, n, d = q.shape
+    keep = fa.dropout_keep_mask(bh, n, dropout_rate, seed) if dropout_rate > 0 else None
+    want = plain_grads_in_chunks(q, k, v, do, keep=keep, dropout_rate=dropout_rate)
+    tol = FA_TOL_BF16 if q.dtype == torch.bfloat16 else FA_TOL
+    out = {"case": label, "bh": bh, "n": n, "d": d, "dtype": str(q.dtype),
+           "dropout_rate": dropout_rate}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == q.shape and g.dtype == q.dtype and bool(torch.isfinite(g.float()).all()),
+              f"{label}: {name} shape, dtype or non-finite")
+        err = float((g.float() - w).abs().max())
+        check(bool(torch.allclose(g.float(), w, **tol)),
+              f"{label}: {name} differs from autograd of the plain version by {err} "
+              f"(tolerance {tol})")
+        out[f"{name}_max_abs_err"] = err
+        out[f"{name}_abs_max"] = float(w.abs().max())
+    check(bool((got[0][:, 0] == 0).all()), f"{label}: row 0 of dq is not bit-zero")
+    return out
+
+
+def backward_causality_on_the_card(gen: torch.Generator) -> dict:
+    """An upstream gradient on row i alone moves no key or value at j >= i,
+    with dropout off and on."""
+    bh, n, i = 8, 700, 431
+    q, k, v = (torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda") for _ in range(3))
+    do = torch.zeros(bh, n, HEAD_DIM, device="cuda")
+    do[:, i] = torch.randn(bh, HEAD_DIM, generator=gen, device="cuda")
+    for rate in (0.0, 0.2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            o, _ = fa.causal_flash_attention_lse(*leaves, dropout_rate=rate, seed=11)
+            dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        check(bool((dk[:, i:] == 0).all() and (dv[:, i:] == 0).all()),
+              f"backward causality (rate {rate}): keys at j >= i got a gradient from row i")
+        check(bool((dk[:, :i] != 0).any()) and bool((dq[:, i] != 0).any())
+              and bool((dq[:, :i] == 0).all() and (dq[:, i + 1:] == 0).all()),
+              f"backward causality (rate {rate}): the gradient did not reach the rows < i")
+    return {"case": "backward causality", "n": n, "i": i, "keys_at_or_after_i_untouched": True}
+
+
+def attention_backward_awkward_cases(gen: torch.Generator):
+    def normal(bh, n, d, dtype=torch.float32):
+        return [torch.randn(bh, n, d, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+    yield "N=1 (all zeros)", normal(8, 1, HEAD_DIM), 0.0
+    yield "N=7", normal(8, 7, HEAD_DIM), 0.0
+    yield "N=96", normal(8, 96, HEAD_DIM), 0.0
+    yield "N=1000 (no multiple of a tile)", normal(16, 1000, HEAD_DIM), 0.0
+    yield "D=24 (padded to 32 in registers)", normal(4, 130, 24), 0.0
+    yield "D=32", normal(8, 300, 32), 0.0
+    yield "D=64", normal(8, 200, 64), 0.0
+    yield "bf16 inputs", normal(16, 1000, HEAD_DIM, torch.bfloat16), 0.0
+    yield "dropout 0.3, N=300", normal(8, 300, HEAD_DIM), 0.3
+    yield "dropout 0.1, D=32, N=257", normal(8, 257, 32), 0.1
+
+
 def capture_attention_inputs(prior, codes: torch.Tensor):
     """The ``q, k, v (B*H, N, D)`` that the top prior's forward hands the
     attention kernel in each block."""
@@ -543,7 +758,17 @@ def phase_attention_kernel(top, codes: torch.Tensor):
     cases.append(strict_causality_on_the_card(gen))
     cases.append(dropout_on_the_card(gen))
     emit("attention_kernel", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16, cases=cases)
-    return seen[0], cases
+
+    # the backward, on the prior's own q, k, v of the first block
+    do = torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda")
+    backward = [compare_attention_backward(*seen[0], do, "main path, block 0"),
+                compare_attention_backward(*seen[0], do, "main path, block 0, dropout 0.1",
+                                           dropout_rate=PRIOR_CONFIG["dropout"], seed=0xC0FFEE)]
+    for label, (q, k, v, g), rate in attention_backward_awkward_cases(gen):
+        backward.append(compare_attention_backward(q, k, v, g, label, dropout_rate=rate, seed=5))
+    backward.append(backward_causality_on_the_card(gen))
+    emit("attention_backward", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16, cases=backward)
+    return seen[0], cases, do, backward
 
 
 # ---------------------------------------------------------------------------
@@ -657,8 +882,8 @@ def run_sample(dirs: dict, tmp: str, size: int, full_forward: bool) -> dict:
               f"sample: the PNG is {img.size} {img.mode}")
     after = all_counts()
     rose = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
-    want = {"nearest_code_ids": 0, "nearest_code_lookup": 0,
-            "causal_flash_attention": th * th * 4 if full_forward else 0}
+    want = dict.fromkeys(after["launches"], 0)
+    want["causal_flash_attention"] = th * th * 4 if full_forward else 0
     check(rose == want, f"sample ({name}, {size} px) launched {rose}, expected {want}")
     check(after["plain_calls"] == before["plain_calls"],
           f"sample ran a plain version: {after['plain_calls']}")
@@ -729,6 +954,194 @@ def phase_main_stage2(dirs: dict, tmp: str, top, bottom) -> dict:
     return counts["launches"]
 
 
+# ---------------------------------------------------------------------------
+# training: both trainers through their command lines
+# ---------------------------------------------------------------------------
+
+def csv_column(path: str, column: str) -> list:
+    with open(path) as f:
+        header, *rows = [line.strip().split(",") for line in f if line.strip()]
+    at = header.index(column)
+    return [float(r[at]) for r in rows]
+
+
+def falling(values: list) -> bool:
+    """The mean of the last third of the steps lies below that of the first."""
+    w = max(1, len(values) // 3)
+    return float(np.mean(values[-w:])) < float(np.mean(values[:w]))
+
+
+def saved_step(ckpt_dir: str) -> int:
+    return int(CheckpointManager(ckpt_dir).restore("last")["step"])
+
+
+def step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) -> dict:
+    """One train step of the same weights on the card and on the CPU: the
+    metrics within LOGITS_TOL, each gradient tensor within GRAD_RTOL of its
+    largest element.  Returns the errors."""
+    results = []
+    for model, batch in ((model_cuda, batch_cuda), (model_cpu, batch_cpu)):
+        tx = schedules.adam(3e-4)
+        state = tv.create_state(model, tx)
+        with torch.enable_grad():
+            _, metrics = make_step(model, tx)(state, batch)
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    out = {"metrics_card": m_gpu, "metrics_cpu": m_cpu}
+    for k in m_cpu:
+        check(bool(np.isclose(m_gpu[k], m_cpu[k], rtol=LOGITS_TOL["rtol"], atol=LOGITS_TOL["atol"])),
+              f"card vs CPU step: {k} {m_gpu[k]} vs {m_cpu[k]}")
+    floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
+    worst = 0.0
+    for name, g in g_cpu.items():
+        scale = max(float(g.abs().max()), floor)
+        err = float((g_gpu[name] - g).abs().max())
+        worst = max(worst, err / scale)
+        check(err <= GRAD_RTOL * scale,
+              f"card vs CPU step: the gradient of {name} differs by {err} (scale {scale})")
+    out["grad_worst_rel_err"] = worst
+    return out
+
+
+def stage1_step_against_cpu(vq_dir: str) -> dict:
+    """Full width, small input, the run's own checkpoint: one stage-1 step on
+    the card against the same on the CPU; the codebook buffers after it agree
+    too where the two picked the same codes."""
+    cfg = CheckpointManager(vq_dir).load_config()
+    state = CheckpointManager(vq_dir).restore("last")["model"]
+    models = []
+    for device in ("cuda", "cpu"):
+        m = build_vqvae(device=device, channel=cfg["channel"], n_res_block=cfg["n_res_block"],
+                        n_res_channel=cfg["n_res_channel"], embed_dim=cfg["embed_dim"],
+                        n_embed=cfg["n_embed"])
+        m.load_state_dict(state)
+        models.append(m)
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        scale=0.5, size=(2, 64, 64, 3)).astype(np.float32))
+    ids = [m.encode_ids(x.to(device)) for m, device in zip(models, ("cuda", "cpu"))]
+    differing = int(sum((a.cpu() != b).sum() for a, b in zip(ids[0], ids[1])))
+    total = sum(t.numel() for t in ids[1])
+    check(differing <= 0.01 * total, f"card vs CPU: {differing} of {total} ids differ before the step")
+    out = step_against_cpu(models[0], models[1], tv.make_train_step, x.cuda(), x)
+    if differing == 0:
+        for name, value in models[1].state_dict().items():
+            if "quantize_" in name:
+                got = models[0].state_dict()[name].cpu()
+                check(bool(torch.allclose(got, value, rtol=1e-4, atol=1e-5)),
+                      f"card vs CPU step: {name} differs by {float((got - value).abs().max())}")
+    out.update(input=[2, 64, 64, 3], ids_differing=differing, buffers_compared=differing == 0)
+    return out
+
+
+def prior_step_against_cpu(top_dir: str) -> dict:
+    """Full width, small grid, the run's own top prior with dropout at 0 (the
+    card's and the CPU's generators draw differently): one step each."""
+    models = []
+    for device in ("cuda", "cpu"):
+        m = sample._restore_prior(top_dir, "top", (TOP_HW, BOTTOM_HW), device)
+        for mod in m.modules():
+            if hasattr(mod, "dropout"):
+                mod.dropout = 0.0
+        models.append(m)
+    codes = numpy_codes(6, 2, 8, 8)
+
+    def make(model, tx):
+        return tp.make_train_step(model, tx, conditional=False)
+
+    out = step_against_cpu(models[0], models[1], make, {"target": codes}, {"target": codes.cpu()})
+    out["grid"] = [2, 8, 8]
+    return out
+
+
+def phase_main_train(tmp: str) -> dict:
+    """Both trainers through their command lines at the defaults' width and
+    batch, with the launch counters at zero before and read after: stage 1
+    for a few steps and one step of two microbatches resumed from it, code
+    extraction from its checkpoint, the top and the bottom prior on those
+    codes, and sampling from the three checkpoints."""
+    root = os.path.join(tmp, "train")
+    dirs = {name: os.path.join(root, name) for name in ("vqvae", "top", "bottom")}
+    csvs = {name: os.path.join(root, f"{name}.csv") for name in dirs}
+    n1, n2, n3 = TRAIN_STEPS["vqvae"], TRAIN_STEPS["top"], TRAIN_STEPS["bottom"]
+    reset_all_counts()
+    result = {"steps": dict(TRAIN_STEPS), "batch": dict(TRAIN_BATCH)}
+
+    stage1 = ["--synthetic", "--size", str(SIZE), "--batch_size", str(TRAIN_BATCH["vqvae"]),
+              "--log_every", "1", "--ckpt_dir", dirs["vqvae"]]
+    t0 = time.perf_counter()
+    tv.main(stage1 + ["--steps", str(n1), "--metrics_csv", csvs["vqvae"]])
+    seconds = time.perf_counter() - t0
+    losses = csv_column(csvs["vqvae"], "loss")
+    check(len(losses) == n1 and all(np.isfinite(losses)), f"stage 1: losses {losses}")
+    check(falling(losses), f"stage 1: the loss did not fall: {losses}")
+    check(qz.launch_counts["nearest_code_stats"] == 2 * n1,
+          f"stage 1: {n1} steps launched the statistics kernel "
+          f"{qz.launch_counts['nearest_code_stats']} times, not {2 * n1}")
+    t0 = time.perf_counter()
+    tv.main(stage1 + ["--steps", "1", "--grad_accum", "2", "--resume"])
+    accum_seconds = time.perf_counter() - t0
+    check(saved_step(dirs["vqvae"]) == n1 + 1, "stage 1: the resumed step did not continue the count")
+    check(qz.launch_counts["nearest_code_stats"] == 2 * n1 + 4,
+          f"stage 1: the grad_accum=2 step launched {qz.launch_counts['nearest_code_stats'] - 2 * n1}"
+          " statistics kernels, not 4")
+    result["stage1"] = {"seconds": seconds, "loss": losses,
+                        "recon_mse": csv_column(csvs["vqvae"], "recon_mse"),
+                        "latent": csv_column(csvs["vqvae"], "latent"),
+                        "img_per_s_cli": csv_column(csvs["vqvae"], "img_per_s")[-1],
+                        "grad_accum_2_step_seconds": accum_seconds}
+
+    codes = os.path.join(root, "codes.vq2")
+    n = extract_codes.main(["--synthetic", "--ckpt_dir", dirs["vqvae"], "--size", str(SIZE),
+                            "--name", codes])
+    store = CodeStore(codes)
+    tops, bots, _ = store.gather(np.arange(n))
+    store.close()
+    result["extract"] = {"rows": n, "codes_used_top": int(np.unique(tops).size),
+                         "codes_used_bottom": int(np.unique(bots).size)}
+
+    for hier, steps in (("top", n2), ("bottom", n3)):
+        t0 = time.perf_counter()
+        tp.main([codes, "--hier", hier, "--batch", str(TRAIN_BATCH[hier]), "--steps", str(steps),
+                 "--log_every", "1", "--ckpt_dir", dirs[hier], "--metrics_csv", csvs[hier]])
+        ce = csv_column(csvs[hier], "loss")
+        check(len(ce) == steps and all(np.isfinite(ce)), f"{hier} prior: losses {ce}")
+        check(abs(ce[0] - np.log(K)) < 1.0, f"{hier} prior: CE starts at {ce[0]}, not near ln {K}")
+        check(falling(ce), f"{hier} prior: the cross-entropy did not fall: {ce}")
+        result[hier] = {"seconds": time.perf_counter() - t0, "loss": ce,
+                        "acc": csv_column(csvs[hier], "acc")}
+    check(fa.launch_counts["causal_flash_attention_dq"] == 4 * n2
+          and fa.launch_counts["causal_flash_attention_dkv"] == 4 * n2,
+          f"{n2} top-prior steps must launch each backward kernel {4 * n2} times: {fa.launch_counts}")
+
+    png = os.path.join(root, "sample.png")
+    t0 = time.perf_counter()
+    top, bottom = sample.main([png, "--vqvae", dirs["vqvae"], "--top", dirs["top"],
+                               "--bottom", dirs["bottom"], "--size", str(COMPARE_SIZE),
+                               "--batch", str(SAMPLE_BATCH)])
+    with Image.open(png) as img:
+        check(img.size == (SAMPLE_BATCH * (COMPARE_SIZE + 2) + 2, COMPARE_SIZE + 4),
+              f"sample from the trained checkpoints: the PNG is {img.size}")
+    result["sample"] = {"size": COMPARE_SIZE, "batch": SAMPLE_BATCH,
+                        "seconds": time.perf_counter() - t0,
+                        "codes_used_top": int(top.unique().numel()),
+                        "codes_used_bottom": int(bottom.unique().numel())}
+
+    counts = all_counts()                      # read just after the training path
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the training path: {counts['plain_calls']}")
+    want = {"nearest_code_stats": 2 * n1 + 4, "causal_flash_attention_dq": 4 * n2,
+            "causal_flash_attention_dkv": 4 * n2}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"training path launches {counts['launches']}, expected {want}")
+    result.update(counts)
+    result["stage1_step_vs_cpu"] = stage1_step_against_cpu(dirs["vqvae"])
+    result["top_prior_step_vs_cpu"] = prior_step_against_cpu(dirs["top"])
+    emit("main_train", **result)
+    return counts["launches"], dirs
+
+
 def kernel_work(name: str, n: int, d: int, k: int, itemsize: int) -> dict:
     """Least bytes and operations of one call: each input read once, each
     output written once; the product, the two norms and the two subtractions a
@@ -791,8 +1204,172 @@ def attention_record(qkv, launches: dict, cases) -> dict:
     }
 
 
+def stats_work(n: int, d: int, k: int, itemsize: int) -> dict:
+    """Least bytes and operations of one statistics call: the lookup's, plus
+    csum and esum written once, plus the N*D additions of the sums."""
+    w = kernel_work("nearest_code_lookup", n, d, k, itemsize)
+    nbytes = w["bytes"] + k * 4 + k * d * 4
+    flops = w["flops"] + n * d
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def library_stats(flat, embed):
+    """One library route to the same function: ``cdist`` + ``argmin`` +
+    ``bincount`` + ``index_add_`` (timed here, used nowhere in the port)."""
+    idx = torch.cdist(flat, embed).argmin(1)
+    k, d = embed.shape
+    esum = torch.zeros(k, d, device=flat.device).index_add_(0, idx, flat)
+    return idx, embed[idx], torch.bincount(idx, minlength=k).float(), esum
+
+
+def stats_record(flat_t, flat_b, model, launches, stats_cases, gen) -> dict:
+    """Times of the statistics kernel at the two shapes a stage-1 train step
+    gives it, on the model's own rows, and with every row on one code."""
+    per_shape = []
+    for flat, embed in ((flat_b, model.quantize_b.embed), (flat_t, model.quantize_t.embed)):
+        copies = [flat] + [flat.clone() for _ in range(max(0, 3 - flat.shape[0] // 200000))]
+        turn = itertools.count()
+        rotating = lambda fn: (lambda: fn(copies[next(turn) % len(copies)], embed))   # noqa: E731
+        n = flat.shape[0]
+        per_shape.append({
+            "shape": {"n": n, "d": D, "k": K},
+            "ms": cuda_ms(rotating(lambda f, e: qz.nearest_code(f, e, with_stats=True)), reps=20),
+            "plain_ms": cuda_ms(rotating(qz.nearest_code_reference), reps=5),
+            "library_ms": cuda_ms(rotating(library_stats), reps=5),
+            **stats_work(n, D, K, flat.element_size())})
+    one_flat, one_embed = one_code_rows(flat_b.shape[0], gen)
+    one = {"shape": {"n": flat_b.shape[0], "d": D, "k": K, "every_row_on_one_code": True},
+           "ms": cuda_ms(lambda: qz.nearest_code(one_flat, one_embed, with_stats=True), reps=20),
+           "lookup_only_ms": cuda_ms(lambda: qz.nearest_code(one_flat, one_embed, with_stats=False),
+                                     reps=20),
+           "plain_ms": cuda_ms(lambda: qz.nearest_code_reference(one_flat, one_embed), reps=5)}
+    first, case = per_shape[0], stats_cases[1]            # the bottom grid on the model's rows
+    return {
+        "name": "nearest_code_stats", **KERNELS["nearest_code_stats"],
+        "launches": launches["nearest_code_stats"],
+        # csum is exact; esum's error against the plain sums of the kernel's own ids
+        "max_abs_err": case["esum_max_abs_err_vs_plain_sum"],
+        "id_mismatches": case["id_mismatches_vs_plain"],
+        "shape": first["shape"], "ms": first["ms"], "kernel_ms": first["ms"],
+        "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+        "library": "torch.cdist + argmin + index + bincount + index_add_",
+        "share_of_bound": first["bound_ms"] / first["ms"], "shapes": per_shape,
+        "every_row_on_one_code": one,
+    }
+
+
+def backward_work(name: str, bh: int, n: int, d: int, itemsize: int) -> dict:
+    """Least bytes and operations of one backward launch over the causal
+    half: K5 reads q, k, v, o, do and lse and writes dq and dsum, three
+    products; K6 reads q, k, v, do, lse and dsum and writes dk and dv, four."""
+    nbytes = 6 * bh * n * d * itemsize + 2 * bh * n * 4      # the same count for both
+    products = 3 if name == "causal_flash_attention_dq" else 4
+    flops = products * 2 * bh * n * n * d // 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def backward_launchers(q, k, v, do, dropout_rate: float = 0.0, seed: int = 0):
+    """The two backward kernels launched one at a time (for timing, after the
+    paths' counts were read), from the forward kernel's ``o`` and ``lse``."""
+    o, lse = fa._causal_flash_attention_cuda(q, k, v, dropout_rate, seed)
+    _, dsum = fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed)
+    return (lambda: fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed),
+            lambda: fa._backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed))
+
+
+def backward_records(qkv, do, launches, backward_cases) -> list:
+    """Times of the two backward kernels at the shape the top prior's train
+    step gives them at batch 32, on the prior's own q, k, v (q, k, v, o and do
+    together are larger than the 50 MB L2), without and with dropout."""
+    q, k, v = qkv
+    bh, n, d = q.shape
+    run_dq, run_dkv = backward_launchers(q, k, v, do)
+    ms = {"causal_flash_attention_dq": cuda_ms(run_dq, reps=20),
+          "causal_flash_attention_dkv": cuda_ms(run_dkv, reps=20)}
+    drop_dq, drop_dkv = backward_launchers(q, k, v, do, PRIOR_CONFIG["dropout"], 0xC0FFEE)
+    dropout_ms = {"causal_flash_attention_dq": cuda_ms(drop_dq, reps=20),
+                  "causal_flash_attention_dkv": cuda_ms(drop_dkv, reps=20)}
+    o, lse = fa._causal_flash_attention_cuda(q, k, v, 0.0, 0)
+
+    def plain():
+        for i in range(0, bh, 32):
+            fa.causal_attention_backward_reference(q[i:i + 32], k[i:i + 32], v[i:i + 32],
+                                                   o[i:i + 32], lse[i:i + 32], do[i:i + 32])
+
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    mask = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
+    mask[0, 0] = True
+    rows = torch.ones(n, 1, device="cuda")
+    rows[0] = 0.0                          # row 0 zeroed out of place, for the backward
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_o = F.scaled_dot_product_attention(*(t[None] for t in leaves), attn_mask=mask)[0] * rows
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_o, leaves, do, retain_graph=True),
+                             reps=5)
+    case = backward_cases[0]
+    out = []
+    for name, errs in (("causal_flash_attention_dq", ("dq",)),
+                       ("causal_flash_attention_dkv", ("dk", "dv"))):
+        work = backward_work(name, bh, n, d, q.element_size())
+        out.append({
+            "name": name, **KERNELS[name], "launches": launches[name],
+            "max_abs_err": max(case[f"{e}_max_abs_err"] for e in errs),
+            "shape": {"bh": bh, "n": n, "d": d}, "ms": ms[name], "kernel_ms": ms[name],
+            "ms_with_dropout_0.1": dropout_ms[name],
+            "plain_ms": plain_ms, "plain": "causal_attention_backward_reference, dq, dk and dv together",
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "library_ms": library_ms,
+            "library": "backward of F.scaled_dot_product_attention with the strict mask "
+                       "(dq, dk and dv together; forward outside the timer)",
+            "share_of_bound": work["bound_ms"] / ms[name], "bytes": work["bytes"],
+            "flops": work["flops"]})
+    return out
+
+
+def train_step_times(dirs: dict) -> dict:
+    """One train step of each trainer at its command line's batch, by the
+    host's clock around steps that end in a synchronise, on batches already on
+    the card; peak memory of each."""
+    out = {}
+    vq = build_vqvae(device="cuda", seed=0)
+    vq.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
+    tx = schedules.adam(3e-4)
+    state = tv.create_state(vq, tx)
+    step = tv.make_train_step(vq, tx)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: step(state, x), 5)
+    out["stage1"] = {"batch": TRAIN_BATCH["vqvae"], "size": SIZE, "ms": ms,
+                     "img_per_s": TRAIN_BATCH["vqvae"] / ms * 1e3,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del vq, state, step, x
+    for hier, hw in (("top", TOP_HW), ("bottom", BOTTOM_HW)):
+        prior = sample._restore_prior(dirs[hier], hier, (TOP_HW, BOTTOM_HW), "cuda")
+        tx = schedules.adam(3e-4)
+        state = tv.create_state(prior, tx)
+        step = tp.make_train_step(prior, tx, conditional=hier == "bottom")
+        batch = {"target": numpy_codes(9, TRAIN_BATCH[hier], hw, hw)}
+        if hier == "bottom":
+            batch["condition"] = numpy_codes(10, TRAIN_BATCH[hier], TOP_HW, TOP_HW)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: step(state, batch), 3)
+        out[f"{hier}_prior"] = {"batch": TRAIN_BATCH[hier], "grid": [hw, hw], "ms": ms,
+                                "grids_per_s": TRAIN_BATCH[hier] / ms * 1e3,
+                                "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del prior, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
-                attention_cases) -> dict:
+                attention_cases, stats_cases, attention_do, backward_cases, dirs) -> dict:
     calls = {
         "nearest_code_ids": (lambda f, e: qz.nearest_code_ids(f, e),
                              qz.nearest_code_ids_reference,
@@ -841,7 +1418,10 @@ def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
             "share_of_bound": first["bound_ms"] / first["ms"], "shapes": per_shape,
         })
 
+    records.insert(2, stats_record(flat_t, flat_b, model, launches, stats_cases,
+                                   torch.Generator(device="cuda").manual_seed(3)))
     records.append(attention_record(attention_qkv, launches, attention_cases))
+    records.extend(backward_records(attention_qkv, attention_do, launches, backward_cases))
 
     torch.cuda.reset_peak_memory_stats()
     enc_ms = host_ms(lambda: model.encode_ids(x), 5)
@@ -850,12 +1430,18 @@ def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
     torch.cuda.reset_peak_memory_stats()
     codes = numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW)
     top_ms = host_ms(lambda: top(codes), 3)
+    top_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.enable_grad():
+        train_steps = train_step_times(dirs)
     emit("times", batch=BATCH, size=SIZE, encode_ids_ms=enc_ms,
          encode_ids_img_per_s=BATCH / enc_ms * 1e3, forward_ms=fwd_ms,
          forward_img_per_s=BATCH / fwd_ms * 1e3, peak_memory_gb=stage1_gb,
          top_prior_forward={"batch": PRIOR_BATCH, "grid": [TOP_HW, TOP_HW], "ms": top_ms,
-                            "grids_per_s": PRIOR_BATCH / top_ms * 1e3,
-                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+                            "grids_per_s": PRIOR_BATCH / top_ms * 1e3, "peak_memory_gb": top_gb},
+         train_step=train_steps,
+         kernels={r["name"]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+                  for r in records})
     return {"kernels": records}
 
 
@@ -981,6 +1567,86 @@ def phase_breakdown_stage2(top) -> None:
          incremental_top_sampler=sampler)
 
 
+def phase_breakdown_train(dirs: dict) -> None:
+    """Optional: where one train step of stage 1 (batch 128) and of the top
+    prior (batch 32) spends its time, by CUDA events: the model's forward
+    (with the EMA step and the statistics kernel inside it for stage 1, the
+    attention forward kernel for the prior), the loss and backward (with the
+    two backward kernels), the optimizer; and the kernels' own spans."""
+    pool = [torch.cuda.Event(enable_timing=True) for _ in range(512)]
+    marks = []
+
+    def mark(label):
+        ev = pool[len(marks)]
+        ev.record()
+        marks.append((label, ev))
+
+    def timed(fn, label):
+        def inner(*args, **kw):
+            mark((label, 0))
+            out = fn(*args, **kw)
+            mark((label, 1))
+            return out
+        return inner
+
+    from vqvae2_tpu_torch.models.vqvae import Quantize
+
+    patches = [(qz, "_nearest_code_stats_cuda", "K3 (statistics kernel)"),
+               (Quantize, "_ema_update", "EMA update of the codebooks"),
+               (fa, "_causal_flash_attention_cuda", "K4 (attention forward)"),
+               (fa, "_causal_flash_attention_backward_cuda", "K5 + K6 (attention backward)")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+
+    def measure(model, step, state, batch):
+        hooks = [model.register_forward_pre_hook(lambda m, a: mark(("forward", 0))),
+                 model.register_forward_hook(lambda m, a, o: mark(("forward", 1)))]
+        opt_step = state.optimizer.step
+        state.optimizer.step = timed(opt_step, "optimizer")
+        step(state, batch)                          # warm-up
+        torch.cuda.synchronize()
+        marks.clear()
+        mark(("step", 0))
+        step(state, batch)
+        mark(("step", 1))
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        state.optimizer.step = opt_step
+        spans, opened = {}, {}
+        for (label, end), ev in marks:
+            if end:
+                spans[label] = spans.get(label, 0.0) + opened.pop(label).elapsed_time(ev)
+            else:
+                opened[label] = ev
+        at = {label: ev for label, ev in marks}
+        spans["loss and backward"] = at[("forward", 1)].elapsed_time(at[("optimizer", 0)])
+        spans["total"] = spans.pop("step")
+        return spans
+
+    try:
+        for owner, name, label in patches:
+            setattr(owner, name, timed(getattr(owner, name), label))
+        with torch.enable_grad():
+            vq = build_vqvae(device="cuda", seed=0)
+            vq.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
+            tx = schedules.adam(3e-4)
+            x = torch.from_numpy(np.random.default_rng(8).normal(
+                scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
+            stage1 = measure(vq, tv.make_train_step(vq, tx), tv.create_state(vq, tx), x)
+            del vq, x
+            top = sample._restore_prior(dirs["top"], "top", (TOP_HW, BOTTOM_HW), "cuda")
+            tx = schedules.adam(3e-4)
+            batch = {"target": numpy_codes(9, TRAIN_BATCH["top"], TOP_HW, TOP_HW)}
+            prior = measure(top, tp.make_train_step(top, tx, conditional=False),
+                            tv.create_state(top, tx), batch)
+            del top
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    emit("breakdown_train", unit="ms", stage1_step={"batch": TRAIN_BATCH["vqvae"], **stage1},
+         top_prior_step={"batch": TRAIN_BATCH["top"], **prior})
+
+
 def phase_repeatability(model, x, calls: int = 6) -> None:
     """Optional: how far two calls on the same batch agree, with cuDNN free to
     pick non-deterministic algorithms and with it held to deterministic ones
@@ -1009,8 +1675,9 @@ def phase_repeatability(model, x, calls: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
-                    help="also time the stages of encode_ids and of the top prior's "
-                         "forward, and profile the incremental sampler")
+                    help="also time the stages of encode_ids, of the top prior's forward and "
+                         "of one train step of stage 1 and of the top prior, and profile the "
+                         "incremental sampler")
     ap.add_argument("--repeatability", action="store_true",
                     help="also count the ids that flip between calls, with and without "
                          "deterministic cuDNN")
@@ -1024,26 +1691,32 @@ def main(argv=None) -> int:
             x = torch.from_numpy(np.random.default_rng(0).normal(
                 scale=0.5, size=(BATCH, SIZE, SIZE, 3)).astype(np.float32)).cuda()
             seed_codebooks_from_data(model, x)
-            flat_t, flat_b, cases = phase_kernels(model, x)
+            flat_t, flat_b, cases, stats_cases = phase_kernels(model, x)
             launches = phase_main(model, x)
 
             dirs = write_checkpoints(model, tmp)
             top = sample._restore_prior(dirs["top"], "top", (TOP_HW, BOTTOM_HW), "cuda")
             bottom = sample._restore_prior(dirs["bottom"], "bottom", (TOP_HW, BOTTOM_HW), "cuda")
-            attention_qkv, attention_cases = phase_attention_kernel(
+            attention_qkv, attention_cases, attention_do, backward_cases = phase_attention_kernel(
                 top, numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW))
-            launches.update(
-                {k: v for k, v in phase_main_stage2(dirs, tmp, top, bottom).items()
-                 if k in fa.launch_counts})
+            launches["causal_flash_attention"] = phase_main_stage2(
+                dirs, tmp, top, bottom)["causal_flash_attention"]
+            with torch.enable_grad():
+                trained, train_dirs = phase_main_train(tmp)
+            launches.update({k: trained[k] for k in (
+                "nearest_code_stats", "causal_flash_attention_dq", "causal_flash_attention_dkv")})
         except torch.cuda.OutOfMemoryError as e:
             raise RuntimeError(
                 f"batch {BATCH} at {SIZE} px (stage 1) or batch {PRIOR_BATCH} of {TOP_HW}x{TOP_HW} "
-                f"code grids (stage 2) does not fit this card; the run does not shrink them") from e
+                f"code grids (stage 2), or a trainer at its command line's batch, does not fit "
+                f"this card; the run does not shrink them") from e
         record = phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
-                             attention_cases)
+                             attention_cases, stats_cases, attention_do, backward_cases,
+                             train_dirs)
         if args.breakdown:
             phase_breakdown(model, x)
             phase_breakdown_stage2(top)
+            phase_breakdown_train(train_dirs)
         if args.repeatability:
             phase_repeatability(model, x)
     print(json.dumps(record), flush=True)

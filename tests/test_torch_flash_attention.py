@@ -3,10 +3,16 @@ version (what the wrapper runs for a CPU tensor, and what the CUDA kernel is
 held against on the card) on the same seeded numpy ``q, k, v`` as
 ``causal_attention_reference`` and as the Pallas kernel in interpret mode.
 
+The backward: :func:`causal_attention_backward_reference` (the formula the
+backward kernels compute, what they are held against on the card) against
+autograd of the plain version and against ``jax.grad`` through the Pallas
+kernels in interpret mode, at the same tolerance.
+
 Tolerance: atol = rtol = 2e-5, what the JAX package holds its own kernel to
 (fp32 sums in another order).  Row 0 is bit-zero.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,19 +55,23 @@ def test_plain_version_equals_the_interpreted_pallas_kernel(shape):
     assert np.all(want[:, :, 0] == 0.0) and bool((got[:, :, 0] == 0).all())
 
 
+NO_CALLS = {"causal_flash_attention": 0, "causal_flash_attention_dq": 0,
+            "causal_flash_attention_dkv": 0}
+
+
 def test_wrapper_on_a_cpu_tensor_counts_a_plain_call_and_no_launch():
     q, k, v = qkv(2, 2, 2, 40, 16)
     fa.reset_counts()
     got = port(fa.causal_flash_attention, q, k, v)
-    assert fa.plain_counts == {"causal_flash_attention": 1}
-    assert fa.launch_counts == {"causal_flash_attention": 0}
+    assert fa.plain_counts == dict(NO_CALLS, causal_flash_attention=1)
+    assert fa.launch_counts == NO_CALLS
     want = port(fa.causal_attention_reference, q, k, v)
     assert torch.equal(got, want)
     o, lse = port(fa.causal_flash_attention_lse, *(a.reshape(4, 40, 16) for a in (q, k, v)))
     assert torch.equal(o.reshape(2, 2, 40, 16), want) and lse.shape == (4, 40, 1)
     assert fa.plain_counts["causal_flash_attention"] == 2
     fa.reset_counts()
-    assert fa.plain_counts == {"causal_flash_attention": 0}
+    assert fa.plain_counts == NO_CALLS
 
 
 def test_row_zero_is_bit_zero_and_a_single_position_gives_zeros():
@@ -192,3 +202,97 @@ def test_the_plain_version_is_differentiable_on_the_cpu():
     fa.causal_flash_attention(q, k, v).sin().sum().backward()
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
     assert bool((q.grad[:, :, 0] == 0).all())      # row 0 attends nothing
+
+
+# -- the backward ----------------------------------------------------------------
+
+def plain_grads(q, k, v, do, keep=None, rate=0.0):
+    """Autograd of the plain version: ``(dq, dk, dv)`` and its ``(o, lse)``."""
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = fa.causal_attention_reference_lse(qt, kt, vt, keep=keep, dropout_rate=rate)
+    grads = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do))
+    return grads, o.detach(), lse.detach()
+
+
+def reference_backward(q, k, v, o, lse, do, keep=None, rate=0.0):
+    return fa.causal_attention_backward_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), o, lse, torch.from_numpy(do),
+        keep=keep, dropout_rate=rate)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 96])
+def test_backward_reference_equals_autograd_and_jax_grad(n):
+    """The written-out backward against autograd of the plain forward, and
+    against ``jax.grad`` of the Pallas kernels in interpret mode (the JAX
+    package's flash path takes N a multiple of 8; at N = 1 and 7 its
+    reference is differentiated instead).  The upstream gradient is that of
+    ``sum(sin(o))``, as the JAX package's own test takes it."""
+    q, k, v = qkv(20 + n, 1, 2, n, 16)
+    want_o = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v))))
+    do = np.cos(want_o).astype(np.float32)
+    (aq, ak, av), o, lse = plain_grads(q, k, v, do)
+    got = reference_backward(q, k, v, o, lse, do)
+    for g, a, name in zip(got, (aq, ak, av), ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), err_msg=name, **TOL)
+
+    def loss(fn, **kw):
+        return lambda q_, k_, v_: jnp.sum(jnp.sin(fn(q_, k_, v_, **kw)))
+
+    fn = (loss(jax_flash, block=64, interpret=True) if n % 8 == 0 else loss(jax_reference))
+    want = jax.grad(fn, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    assert bool((got[0][:, :, 0] == 0).all())          # row 0 gets no gradient
+
+
+def test_backward_reference_with_an_explicit_keep_mask():
+    """Given the same keep mask, the written-out backward is autograd of the
+    plain forward with dropout on."""
+    q, k, v = qkv(30, 1, 2, 40, 16)
+    rate = 0.3
+    keep = torch.from_numpy(np.random.default_rng(31).random((1, 2, 40, 40)) >= rate)
+    do = np.random.default_rng(32).normal(size=q.shape).astype(np.float32)
+    (aq, ak, av), o, lse = plain_grads(q, k, v, do, keep=keep, rate=rate)
+    got = reference_backward(q, k, v, o, lse, do, keep=keep, rate=rate)
+    for g, a, name in zip(got, (aq, ak, av), ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), err_msg=name, **TOL)
+    with pytest.raises(ValueError, match="keep"):
+        reference_backward(q, k, v, o, lse, do, rate=rate)
+
+
+def test_no_gradient_crosses_the_causal_mask():
+    """Row i's output moves no key or value at j >= i: with an upstream
+    gradient on row i alone, dk and dv vanish from row i on."""
+    q, k, v = qkv(33, 1, 1, 24, 8)
+    i = 13
+    do = np.zeros(q.shape, np.float32)
+    do[:, :, i] = 1.0
+    _, o, lse = plain_grads(q, k, v, do)
+    dq, dk, dv = reference_backward(q, k, v, o, lse, do)
+    assert bool((dk[:, :, i:] == 0).all()) and bool((dv[:, :, i:] == 0).all())
+    assert bool((dk[:, :, :i] != 0).any()) and bool((dq[:, :, i] != 0).all())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_the_autograd_binding_on_cpu_tensors_counts_plain_calls(rate):
+    """``CausalFlashAttention`` on CPU tensors runs the plain forward and the
+    written-out backward with the mask of the kernel's draw, counts plain
+    calls and no launch, and gives autograd's gradients."""
+    q, k, v = qkv(34, 2, 1, 33, 16)
+    flat = [torch.from_numpy(a.reshape(2, 33, 16)).requires_grad_() for a in (q, k, v)]
+    do = torch.from_numpy(np.random.default_rng(35).normal(size=(2, 33, 16)).astype(np.float32))
+    seed = 99
+    fa.reset_counts()
+    o, lse = fa.CausalFlashAttention.apply(*flat, rate, seed)
+    o.backward(do)
+    assert fa.plain_counts == {"causal_flash_attention": 1, "causal_flash_attention_dq": 1,
+                               "causal_flash_attention_dkv": 1}
+    assert fa.launch_counts == NO_CALLS
+    keep = fa.dropout_keep_reference(seed, 2, 33, rate) if rate else None
+    same = [t.detach().clone().requires_grad_() for t in flat]
+    want = fa.causal_attention_reference(*same, keep=keep, dropout_rate=rate)
+    want.backward(do)
+    assert torch.equal(o.detach(), want.detach())
+    for a, b in zip(flat, same):
+        torch.testing.assert_close(a.grad, b.grad, **TOL)
+    assert not lse.requires_grad

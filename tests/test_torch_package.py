@@ -43,7 +43,9 @@ def test_the_walk_sees_the_port():
             "vqvae2_tpu_torch/ops/flash_attention.py", "vqvae2_tpu_torch/models/pixelsnail.py",
             "vqvae2_tpu_torch/models/sampling.py", "vqvae2_tpu_torch/models/incremental.py",
             "vqvae2_tpu_torch/train/pixelsnail.py", "vqvae2_tpu_torch/train/sample.py",
-            "vqvae2_tpu_torch/utils/image.py"} <= names
+            "vqvae2_tpu_torch/utils/image.py", "vqvae2_tpu_torch/train/vqvae.py",
+            "vqvae2_tpu_torch/utils/schedules.py", "vqvae2_tpu_torch/utils/metrics.py",
+            "vqvae2_tpu_torch/utils/checkpoint.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -186,11 +188,15 @@ def test_the_kernel_path_never_takes_the_plain_version():
         qz._nearest_code_ids_cuda(flat, embed)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         qz._nearest_code_lookup_cuda(flat, embed)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        qz._nearest_code_stats_cuda(flat, embed)
     meta_flat, meta_embed = flat.to("meta"), embed.to("meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         qz.nearest_code_ids(meta_flat, meta_embed)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         qz.nearest_code(meta_flat, meta_embed, with_stats=False)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        qz.nearest_code(meta_flat, meta_embed, with_stats=True)
     assert not any(qz.plain_counts.values()) and not any(qz.launch_counts.values())
 
 
@@ -256,11 +262,18 @@ def test_the_attention_kernel_path_never_takes_the_plain_version(monkeypatch):
     on_card = q.as_subclass(OnCard)
     with pytest.raises(Refused):
         fa.causal_flash_attention_lse(on_card, on_card, on_card)
+    # an input that needs a gradient goes through the autograd binding to the
+    # same launcher (and its backward to the backward kernels)
     needs_grad = torch.zeros(2, 5, 8, requires_grad=True).as_subclass(OnCard)
-    with pytest.raises(NotImplementedError, match="stage-2 training slice"):
+    with pytest.raises(Refused):
         fa.causal_flash_attention_lse(needs_grad, on_card, on_card)
     with torch.no_grad(), pytest.raises(Refused):
         fa.causal_flash_attention_lse(needs_grad, on_card, on_card)
+    with pytest.raises(Refused):
+        fa._backward(on_card, on_card, on_card, on_card, torch.zeros(2, 5, 1).as_subclass(OnCard),
+                     on_card, 0.0, 0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa._causal_flash_attention_backward_cuda(q, q, q, q, torch.zeros(2, 5, 1), q, 0.0, 0)
     assert not any(fa.plain_counts.values()) and not any(fa.launch_counts.values())
 
 
@@ -320,3 +333,63 @@ def test_a_failed_compile_raises(monkeypatch, tmp_path):
         _build.build("quantize", nvcc=str(fake))
     assert "error: no" in str(err.value)
     assert os.listdir(str(tmp_path / "_built")) == []
+
+
+def test_the_statistics_kernel_path_never_takes_the_plain_version(monkeypatch):
+    """``nearest_code(with_stats=True)`` on a tensor that claims to be on the
+    card goes to the statistics launcher (here: to the build, which is
+    refused), never to the plain version; a codebook too wide for the
+    kernel's shared-memory histogram is refused before the build."""
+    from vqvae2_tpu_torch.ops import quantize as qz
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+        device = property(lambda self: torch.device("cuda:0"))
+
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(qz, "_library", refuse)
+    monkeypatch.setattr(qz, "nearest_code_reference",
+                        lambda *a: pytest.fail("a CUDA tensor reached the plain version"))
+    qz.reset_counts()
+    with pytest.raises(Refused):
+        qz.nearest_code(torch.zeros(4, 8).as_subclass(OnCard),
+                        torch.zeros(16, 8).as_subclass(OnCard), with_stats=True)
+    with pytest.raises(ValueError, match="K <= 12288"):
+        qz._nearest_code_stats_cuda(torch.zeros(4, 8).as_subclass(OnCard),
+                                    torch.zeros(12289, 8).as_subclass(OnCard))
+    assert not any(qz.plain_counts.values()) and not any(qz.launch_counts.values())
+
+
+def test_trainers_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    """The two trainers take ``--device`` (default ``cuda``) and refuse to run
+    without it: nothing is read or written first."""
+    from vqvae2_tpu_torch.train import pixelsnail as tp
+    from vqvae2_tpu_torch.train import vqvae as tv
+
+    assert tv.build_argparser().parse_args(["--synthetic"]).device == "cuda"
+    assert tp.build_argparser().parse_args(["codes.vq2"]).device == "cuda"
+    ckpt = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tv.main(["--synthetic", "--steps", "1", "--size", "32", "--ckpt_dir", ckpt])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tp.main([str(tmp_path / "missing.vq2"), "--steps", "1", "--ckpt_dir", ckpt])
+    assert os.listdir(str(tmp_path)) == []
+
+
+@pytest.mark.parametrize("trainer", ["vqvae", "pixelsnail"])
+def test_bf16_is_refused_not_ignored(trainer, tmp_path):
+    """``--bf16`` stays in both parsers, and raises: the bf16 compute mode is
+    not ported."""
+    from vqvae2_tpu_torch.train import pixelsnail as tp
+    from vqvae2_tpu_torch.train import vqvae as tv
+
+    argv = (["--synthetic", "--steps", "1", "--size", "32"] if trainer == "vqvae"
+            else [str(tmp_path / "codes.vq2")])
+    module = tv if trainer == "vqvae" else tp
+    with pytest.raises(NotImplementedError, match="bf16"):
+        module.main(argv + ["--bf16", "--device", "cpu"])

@@ -180,8 +180,13 @@ def test_causal_attention():
     assert bool((got[:, 0, 0] == 0).all())             # the first position attends nothing
     q, k, v = mod.qkv(torch.from_numpy(query), torch.from_numpy(key))
     assert q.shape == k.shape == v.shape == (2, 4, 20, 4) and q.is_contiguous()
-    with pytest.raises(NotImplementedError, match="stage-2 training slice"):
-        mod.train()(torch.from_numpy(query), torch.from_numpy(key))
+    # train mode drops the probabilities, drawing from an explicit generator
+    mod.train()
+    with pytest.raises(ValueError, match="generator"):
+        mod(torch.from_numpy(query), torch.from_numpy(key))
+    a, b, c = (mod(torch.from_numpy(query), torch.from_numpy(key),
+                   generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2))
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.allclose(a, got)
 
 
 def test_background():
@@ -276,3 +281,32 @@ def test_build_model_gives_the_two_reference_configurations():
     for model in (top, bottom):
         jmodel = jps.PixelSNAIL(**model.config)
         assert all(getattr(jmodel, k) == v for k, v in model.config.items())
+
+
+def test_dropout_follows_the_mode_and_the_generator():
+    """``dropout`` is flax's inverted dropout, drawn from the generator it is
+    given: a no-op in eval mode or at rate 0, repeatable for one seed, and
+    refused in train mode without a generator."""
+    x = torch.ones(4, 64, 64)
+    assert tps.dropout(x, 0.5, False, None) is x and tps.dropout(x, 0.0, True, None) is x
+    with pytest.raises(ValueError, match="generator"):
+        tps.dropout(x, 0.5, True, None)
+    a = tps.dropout(x, 0.25, True, torch.Generator().manual_seed(0))
+    assert torch.equal(a, tps.dropout(x, 0.25, True, torch.Generator().manual_seed(0)))
+    assert set(a.unique().tolist()) == {0.0, float(np.float32(1.0) / np.float32(0.75))}
+    assert abs(float((a == 0).float().mean()) - 0.25) < 0.02
+
+
+def test_train_mode_draws_every_dropout_from_the_generator():
+    _, _, model, codes, cond = make_pair("bottom")
+    model = tps.PixelSNAIL(**dict(BOTTOM, dropout=0.2))
+    model.load_state_dict(make_pair("bottom")[2].state_dict())
+    c, t = torch.from_numpy(codes), torch.from_numpy(cond)
+    with torch.no_grad():
+        want = model.eval()(c, condition=t)
+        model.train()
+        with pytest.raises(ValueError, match="generator"):
+            model(c, condition=t)
+        a, b, other = (model(c, condition=t, generator=torch.Generator().manual_seed(s))
+                       for s in (3, 3, 4))
+    assert torch.equal(a, b) and not torch.equal(a, other) and not torch.allclose(a, want)

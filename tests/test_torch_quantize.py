@@ -4,7 +4,9 @@ seed.  The JAX side runs both through ``nearest_code_reference`` and through
 the Pallas kernels in interpret mode.
 
 Tolerances: ids bit-equal; ``q`` bit-equal to ``E[idx]``; ``csum`` exact;
-``esum`` rtol 1e-5 (sums of a handful of fp32 rows taken in another order).
+``esum`` rtol 1e-6 against the plain reference and 1e-5 against the Pallas
+kernel, whose sums go through a three-way bf16 split (fp32 rows summed in
+another order).
 The CUDA kernels cannot run here: ``chip_smoke.py`` holds them against the
 same plain version on the card.
 """
@@ -123,12 +125,76 @@ def test_bad_shapes_raise_like_jax(fn):
 
 
 def test_counters_count_launches_only():
-    """On the CPU the plain version runs: no launch is counted."""
+    """On the CPU the plain version runs: no launch is counted, and each
+    flavour counts its own plain call."""
     tq.reset_counts()
     flat, embed = (torch.from_numpy(a) for a in _inputs(9, 8, 16))
     tq.nearest_code_ids(flat, embed)
     tq.nearest_code(flat, embed, with_stats=False)
-    assert tq.launch_counts == {"nearest_code_ids": 0, "nearest_code_lookup": 0}
-    assert tq.plain_counts == {"nearest_code_ids": 1, "nearest_code_lookup": 1}
+    tq.nearest_code(flat, embed, with_stats=True)
+    assert tq.launch_counts == {"nearest_code_ids": 0, "nearest_code_lookup": 0,
+                                "nearest_code_stats": 0}
+    assert tq.plain_counts == {"nearest_code_ids": 1, "nearest_code_lookup": 1,
+                               "nearest_code_stats": 1}
     tq.reset_counts()
     assert not any(tq.plain_counts.values())
+
+
+# -- the statistics flavour (K3) ----------------------------------------------------
+
+def _stats_case(name):
+    """(flat, embed) of each case the statistics must get right."""
+    if name == "ragged N":               # 300 rows: the Pallas launcher pads to 384
+        return _inputs(300, 64, 512, seed=5)
+    if name == "all rows on one code":   # an untrained encoder: tiny rows, one near code
+        flat, embed = _inputs(200, 16, 32, seed=6)
+        embed[3] = 0.0
+        return (0.01 * flat).astype(np.float32), embed
+    if name == "K=1":
+        return _inputs(130, 8, 1, seed=7)
+    if name == "deep D=256":
+        return _inputs(257, 256, 512, seed=8)
+    raise ValueError(name)
+
+
+STATS_CASES = ["ragged N", "all rows on one code", "K=1", "deep D=256"]
+
+
+def _check_stats(got, want, esum_rtol):
+    idx, q, csum, esum = got
+    ridx, rq, rcsum, resum = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(idx.numpy(), ridx)
+    np.testing.assert_array_equal(q.numpy(), rq)
+    np.testing.assert_array_equal(csum.numpy(), rcsum)
+    np.testing.assert_allclose(esum.numpy(), resum, rtol=esum_rtol, atol=1e-6)
+    assert csum.dtype == esum.dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+def test_statistics_match_the_jax_reference(case):
+    flat, embed = _stats_case(case)
+    want = jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))
+    got = tq.nearest_code(torch.from_numpy(flat), torch.from_numpy(embed), with_stats=True)
+    _check_stats(got, want, esum_rtol=1e-6)
+    assert float(got[2].sum()) == flat.shape[0]          # every row counted once
+    if case == "all rows on one code":
+        assert int(got[2][3]) == flat.shape[0]
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+def test_statistics_match_the_interpreted_pallas_kernel(case):
+    """The TPU kernel sums across a sequential grid and subtracts its pad rows'
+    counts (``N`` not a multiple of the 128-row block); the port's counts and
+    sums must come out the same."""
+    flat, embed = _stats_case(case)
+    want = _jax_pallas(jq._nearest_code_pallas, flat, embed)
+    got = tq.nearest_code(torch.from_numpy(flat), torch.from_numpy(embed), with_stats=True)
+    _check_stats(got, want, esum_rtol=1e-5)
+
+
+def test_statistics_flavour_is_not_differentiable():
+    """The zero vjp of the JAX package: the wrapper runs under no_grad."""
+    flat = torch.randn(12, 8, requires_grad=True)
+    embed = torch.randn(16, 8, requires_grad=True)
+    out = tq.nearest_code(flat, embed, with_stats=True)
+    assert not any(t.requires_grad for t in out)

@@ -181,14 +181,97 @@ def test_size_not_divisible_by_8_raises(method):
 
 
 def test_train_mode_is_not_ported_yet():
+    """Train mode was left out of the first slice and is ported now: where it
+    raised, ``forward``, ``encode`` and ``Quantize`` take ``train=True``, move
+    both codebooks and leave the outputs of ``train=False``."""
     model = build_vqvae(device="cpu", **CONFIGS["tiny"])
-    x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(x, train=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 32, 32, 3)).astype(np.float32))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        want = model(x)
+        got = model(x, train=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)        # the lookup used the codebook as it was
+    for name in ("quantize_t", "quantize_b"):
+        assert not torch.equal(model.state_dict()[f"{name}.cluster_size"],
+                               before[f"{name}.cluster_size"])
+        assert getattr(model, name).perplexity is not None
+    with torch.no_grad():
         model.encode(x, train=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
         model.quantize_t(torch.zeros(1, 4, 4, 8), train=True)
+
+
+QCFG = dict(dim=8, n_embed=16)
+
+
+def quantize_pair(restart_threshold, seed=7):
+    """A JAX ``Quantize`` with its three buffers from a numpy seed, and the
+    port's with the same buffers."""
+    from vqvae2_tpu.models.vqvae import Quantize as JaxQuantize
+
+    g = np.random.default_rng(seed)
+    embed = (0.5 * g.normal(size=(16, 8))).astype(np.float32)
+    stats = {"embed": embed, "embed_avg": (embed * 0.9).astype(np.float32),
+             "cluster_size": g.uniform(0.0, 0.06, size=16).astype(np.float32)}
+    jq = JaxQuantize(**QCFG, restart_threshold=restart_threshold)
+    tq = Quantize(**QCFG, restart_threshold=restart_threshold)
+    for name, value in stats.items():
+        getattr(tq, name).copy_(torch.from_numpy(value))
+    return jq, {k: jnp.asarray(v) for k, v in stats.items()}, tq
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("restart_threshold", [0.0, 0.03])
+def test_quantize_train_mode_matches_jax(steps, restart_threshold):
+    """The EMA step (Laplace smoothing, dead-code restart) against the JAX
+    module run with ``mutable=["vq_stats", "intermediates"]``, one call and
+    two in a row: outputs, the three buffers and the perplexity."""
+    jq, stats, tq = quantize_pair(restart_threshold)
+    g = np.random.default_rng(8)
+    for step in range(steps):
+        x = g.normal(scale=0.5, size=(2, 3, 5, 8)).astype(np.float32)
+        (want_q, want_diff, want_idx), new_vars = jq.apply(
+            {"vq_stats": stats}, jnp.asarray(x), train=True,
+            mutable=["vq_stats", "intermediates"])
+        stats = new_vars["vq_stats"]
+        quantized, diff, idx = tq(torch.from_numpy(x), train=True)
+        same_ids(idx, want_idx, f"ids, call {step}")
+        close(quantized, want_q, f"quantized, call {step}")
+        close(diff, want_diff, f"diff, call {step}")
+        close(tq.perplexity, new_vars["intermediates"]["perplexity"][0], "perplexity")
+        for name in ("embed", "embed_avg", "cluster_size"):
+            close(getattr(tq, name), stats[name], f"{name} after call {step}")
+    if restart_threshold and steps == 1:
+        # codes below the threshold were restarted from rows of the batch
+        assert np.any(np.asarray(stats["cluster_size"]) == 1.0)
+
+
+def test_eval_mode_leaves_the_buffers_bit_unchanged():
+    _, _, tq = quantize_pair(0.03)
+    before = {k: v.clone() for k, v in tq.named_buffers()}
+    tq(torch.randn(2, 4, 4, 8, generator=torch.Generator().manual_seed(0)))
+    for name, value in tq.named_buffers():
+        assert torch.equal(value, before[name]), name
+    assert tq.perplexity is None
+
+
+def test_vqvae_train_forward_matches_jax():
+    """The whole model in train mode: ``(dec, diff)`` and both quantizers'
+    buffers after one call, against ``apply(..., train=True,
+    mutable=["vq_stats"])``."""
+    jmodel, variables, _, x = make_pair("tiny")
+    model = VQVAE(**CONFIGS["tiny"])
+    model.load_state_dict(vqvae_from_jax(to_numpy_tree(variables)))
+    (want_dec, want_diff), new_vars = jmodel.apply(
+        variables, jnp.asarray(x), train=True, mutable=["vq_stats"])
+    with torch.no_grad():
+        dec, diff = model(torch.from_numpy(x), train=True)
+    close(dec, want_dec, "dec")
+    close(diff, want_diff, "diff")
+    carried = vqvae_from_jax(to_numpy_tree({"params": variables["params"], **new_vars}))
+    for name, value in model.state_dict().items():
+        if "quantize_" in name:
+            close(value, carried[name].numpy(), name)
 
 
 def test_build_vqvae_is_seeded_and_leaves_the_global_generator_alone():
@@ -208,6 +291,7 @@ def test_build_vqvae_is_seeded_and_leaves_the_global_generator_alone():
 def test_default_config_is_the_reference_width():
     model = VQVAE()
     assert model.config == dict(in_channel=3, channel=128, n_res_block=2, n_res_channel=32,
-                                embed_dim=64, n_embed=512, decay=0.99, with_ir_head=False)
+                                embed_dim=64, n_embed=512, decay=0.99, with_ir_head=False,
+                                restart_threshold=0.0)
     assert tuple(model.quantize_b.embed.shape) == (512, 64)
     assert tuple(model.quantize_conv_b.weight.shape) == (64, 192, 1, 1)

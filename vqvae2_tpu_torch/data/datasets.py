@@ -119,6 +119,17 @@ def iterate_batches(
     dependent draws — give such datasets a per-index ``SeedSequence`` (the
     ``data/shapes.py`` pattern) or run them with ``workers=0``."""
 
+    done = threading.Event()     # the consumer stopped: the producer must too
+
+    def put(q: queue.Queue, item) -> bool:
+        while not done.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
     def producer(q: queue.Queue, pool):
         epoch = 0
         while epochs is None or epoch < epochs:
@@ -129,17 +140,25 @@ def iterate_batches(
                 idx = order[s : s + batch_size]
                 if len(idx) < batch_size and drop_last:
                     break
+                if done.is_set():
+                    return
                 if pool is not None:
-                    items = list(pool.map(dataset.__getitem__,
-                                          [int(i) for i in idx]))
+                    try:
+                        items = list(pool.map(dataset.__getitem__,
+                                              [int(i) for i in idx]))
+                    except RuntimeError:
+                        if done.is_set():      # the pool was shut down under us
+                            return
+                        raise
                 else:
                     items = [dataset[int(i)] for i in idx]
                 imgs = np.stack([it[0] for it in items])
                 labels = np.asarray([it[1] for it in items], np.int32)
                 paths = [it[2] for it in items]
-                q.put((imgs, labels, paths))
+                if not put(q, (imgs, labels, paths)):
+                    return
             epoch += 1
-        q.put(None)
+        put(q, None)
 
     pool = None
     if workers:
@@ -156,5 +175,6 @@ def iterate_batches(
                 return
             yield item
     finally:
+        done.set()
         if pool is not None:
             pool.shutdown(wait=False)

@@ -18,9 +18,12 @@ Attention goes through :func:`vqvae2_tpu_torch.ops.causal_flash_attention`:
 the hand-written kernel for a CUDA tensor of any length ``N``, the plain
 version for a CPU tensor.
 
-This slice of the port is fp32 and inference (plus whatever of training is
-plain differentiable PyTorch): the bf16 compute mode and train-mode attention
-dropout come with the stage-2 training slice.
+Dropout follows the module's mode: in ``train()`` with a rate above zero the
+forward needs a ``generator`` (a ``torch.Generator`` on the input's device),
+from which every dropout draw of the call is taken — the residual blocks'
+Bernoulli masks, and the seed of the attention kernel's counter-based draw on
+the probabilities.  In ``eval()`` nothing is drawn.  Compute is fp32; the
+``dtype=bf16`` mode of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -151,6 +154,20 @@ class CausalConv(WNConv):
         self.padding_mode = padding_mode
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (``flax.linen.Dropout``): keep with probability
+    ``1 - rate`` and scale by ``1 / (1 - rate)``; the draw comes from
+    ``generator``, which training with ``rate > 0`` requires."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator (pass generator=...)")
+    keep = torch.empty(x.shape, dtype=torch.float32, device=x.device).bernoulli_(
+        1.0 - rate, generator=generator)
+    return torch.where(keep != 0, x / (1.0 - rate), torch.zeros_like(x))
+
+
 # ---------------------------------------------------------------------------
 # Gated residual block
 # ---------------------------------------------------------------------------
@@ -166,7 +183,7 @@ class GatedResBlock(nn.Module):
         super().__init__()
         self.conv1 = self._conv(conv, in_channel, channel, kernel_size)
         self.aux_conv = WNConv(aux_channel, channel, (1, 1)) if aux_channel > 0 else None
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.conv2 = self._conv(conv, channel, in_channel * 2, kernel_size)
         self.condition = (WNConv(condition_dim, in_channel * 2, (1, 1), use_bias=False)
                           if condition_dim > 0 else None)
@@ -182,11 +199,12 @@ class GatedResBlock(nn.Module):
         raise ValueError(conv)
 
     def forward(self, x: torch.Tensor, aux_input: Optional[torch.Tensor] = None,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         out = self.conv1(F.elu(x))
         if aux_input is not None:
             out = out + self.aux_conv(F.elu(aux_input))
-        out = self.dropout(F.elu(out))
+        out = dropout(F.elu(out), self.dropout, self.training, generator)
         out = self.conv2(out)
         if condition is not None:
             out = out + self.condition(condition)
@@ -201,9 +219,11 @@ class GatedResBlock(nn.Module):
 class CausalAttention(nn.Module):
     """Strictly-causal multi-head attention over the raster order of the grid.
 
-    The scores, softmax and weighted sum run in
+    The scores, softmax, dropout and weighted sum run in
     :func:`~vqvae2_tpu_torch.ops.flash_attention.causal_flash_attention`; for
-    a CUDA tensor that is the hand-written kernel for every ``N >= 1``."""
+    a CUDA tensor that is the hand-written kernel for every ``N >= 1``, and
+    its gradient the two backward kernels.  In ``train()`` the probabilities
+    are dropped at ``dropout`` with a seed drawn from ``generator``."""
 
     def __init__(self, query_channel: int, key_channel: int, channel: int, n_head: int = 8,
                  dropout: float = 0.1):
@@ -226,13 +246,14 @@ class CausalAttention(nn.Module):
                 heads(self.key(key.reshape(b, n, -1))),
                 heads(self.value(key.reshape(b, n, -1))))
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "train-mode dropout on the attention probabilities comes with the "
-                "stage-2 training slice of the port; call eval() or set dropout=0")
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = key.shape
-        out = causal_flash_attention(*self.qkv(query, key))
+        rate = self.dropout if self.training else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("dropout in train mode needs a generator (pass generator=...)")
+        out = causal_flash_attention(*self.qkv(query, key), dropout_rate=rate,
+                                     generator=generator)
         return out.transpose(1, 2).reshape(b, h, w, self.channel)
 
 
@@ -260,15 +281,17 @@ class PixelBlock(nn.Module):
             self.out = WNConv(channel + 2, channel, (1, 1))
 
     def forward(self, x: torch.Tensor, background: torch.Tensor,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         out = x
         for res in self.res:
-            out = res(out, condition=condition)
+            out = res(out, condition=condition, generator=generator)
         if self.attention:
-            key = self.key_resblock(torch.cat([x, out, background], dim=-1))
-            query = self.query_resblock(torch.cat([out, background], dim=-1))
-            attn_out = self.causal_attention(query, key)
-            return self.out_resblock(out, aux_input=attn_out)
+            key = self.key_resblock(torch.cat([x, out, background], dim=-1), generator=generator)
+            query = self.query_resblock(torch.cat([out, background], dim=-1),
+                                        generator=generator)
+            attn_out = self.causal_attention(query, key, generator=generator)
+            return self.out_resblock(out, aux_input=attn_out, generator=generator)
         return self.out(torch.cat([out, background], dim=-1))
 
 
@@ -280,10 +303,11 @@ class CondResNet(nn.Module):
         self.res = nn.ModuleList([GatedResBlock(channel, channel, k)
                                   for _ in range(n_res_block)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.conv_in(x)
         for res in self.res:
-            x = res(x)
+            x = res(x, generator=generator)
         return x
 
 
@@ -338,10 +362,12 @@ class PixelSNAIL(nn.Module):
                              persistent=False)
 
     def forward(self, codes: torch.Tensor, condition: Optional[torch.Tensor] = None,
-                condition_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition_features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``codes (B, H, W)`` int → logits ``(B, H, W, n_class)``.  ``condition``
         — ``(B, Hc, Wc)`` int codes of the grid above, or ``condition_features``
-        — what :meth:`compute_condition` made of them."""
+        — what :meth:`compute_condition` made of them.  ``generator`` feeds the
+        dropout draws in ``train()``."""
         b, height, width = codes.shape
         x = F.one_hot(codes.long(), self.n_class).to(self.background.dtype)
         out = shift_down(self.horizontal(x)) + shift_right(self.vertical(x))
@@ -349,20 +375,21 @@ class PixelSNAIL(nn.Module):
 
         cond = condition_features
         if cond is None and condition is not None:
-            cond = self.compute_condition(condition)
+            cond = self.compute_condition(condition, generator=generator)
         if cond is not None:
             cond = cond[:, :height, :width]
 
         for block in self.blocks:
-            out = block(out, background, condition=cond)
+            out = block(out, background, condition=cond, generator=generator)
         for res in self.out_res:
-            out = res(out)
+            out = res(out, generator=generator)
         return self.out_conv(F.elu(out))
 
-    def compute_condition(self, condition: torch.Tensor) -> torch.Tensor:
+    def compute_condition(self, condition: torch.Tensor,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CondResNet and a 2× nearest upsample; call once per sample run and
         pass the result as ``condition_features``."""
         c = F.one_hot(condition.long(), self.n_class).to(self.background.dtype)
-        c = self.cond_resnet(c)
+        c = self.cond_resnet(c, generator=generator)
         return c.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 

@@ -13,8 +13,10 @@ so such a checkpoint loads after the codebook buffers are transposed
 (``utils/jax_import.py``).  The codebook state (``embed``, ``cluster_size``,
 ``embed_avg``) lives in buffers, not parameters.
 
-This slice of the port is inference in fp32: ``train=True`` (the EMA codebook
-update) raises ``NotImplementedError``.
+``train=True`` runs the statistics flavour of the quantizer kernel and
+updates the three codebook buffers in place (the JAX package threads them
+through ``mutable=["vq_stats"]``).  Compute is fp32; the ``dtype=bf16`` mode and
+``remat`` of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,19 +44,27 @@ def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class Quantize(nn.Module):
-    """EMA vector quantizer, inference path.
+    """EMA vector quantizer.
 
     ``embed`` is ``(n_embed, dim)`` as in the JAX package (the original
-    PyTorch reference stores ``(dim, n_embed)``)."""
+    PyTorch reference stores ``(dim, n_embed)``).  ``restart_threshold > 0``
+    re-seeds, at each training call, the codes whose EMA cluster size fell
+    below it from rows of the batch (off by default, as in the reference).
+
+    ``perplexity`` holds the code-usage perplexity of the last training call
+    (``None`` before one): the counterpart of the JAX module's
+    ``sow("intermediates", "perplexity", ...)``."""
 
     def __init__(self, dim: int, n_embed: int = 512, decay: float = 0.99,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, restart_threshold: float = 0.0):
         super().__init__()
         self.dim, self.n_embed, self.decay, self.eps = dim, n_embed, decay, eps
+        self.restart_threshold = restart_threshold
         embed = torch.randn(n_embed, dim)
         self.register_buffer("embed", embed)
         self.register_buffer("cluster_size", torch.zeros(n_embed))
         self.register_buffer("embed_avg", embed.clone())
+        self.perplexity = None
 
     def forward(
         self, x: torch.Tensor, train: bool = False
@@ -62,19 +72,42 @@ class Quantize(nn.Module):
         """``x`` — ``(..., dim)`` features.  Returns ``(quantized, diff,
         indices)``: straight-through quantized output, commitment loss (mean
         over all elements, in fp32) and int32 code ids of shape
-        ``x.shape[:-1]``."""
-        if train:
-            raise NotImplementedError(
-                "Quantize(train=True), the EMA codebook update, is not ported yet: "
-                "it comes with the stage-1 training slice of the port")
+        ``x.shape[:-1]``.  With ``train=True`` the search also returns the
+        per-code counts and sums, and the buffers take one EMA step after
+        ``quantized`` was looked up in the codebook as it was."""
         flat = x.reshape(-1, self.dim).contiguous()
-        indices, quantized, _, _ = nearest_code(flat, self.embed, with_stats=False)
+        indices, quantized, csum, esum = nearest_code(flat, self.embed, with_stats=train)
+        if train:
+            self._ema_update(flat, csum, esum)
         indices = indices.reshape(x.shape[:-1])
         quantized = quantized.reshape(x.shape).to(x.dtype)
         diff = torch.mean(
             torch.square(quantized.detach().to(torch.float32) - x.to(torch.float32)))
         quantized = x + (quantized - x).detach()
         return quantized, diff, indices
+
+    @torch.no_grad()
+    def _ema_update(self, flat: torch.Tensor, csum: torch.Tensor, esum: torch.Tensor) -> None:
+        """The EMA step of the JAX module (``vqvae2_tpu/models/vqvae.py:83-120``),
+        term for term, written into the buffers in place."""
+        probs = csum / torch.clamp(torch.sum(csum), min=1.0)
+        self.perplexity = torch.exp(-torch.sum(probs * torch.log(torch.clamp(probs, min=1e-10))))
+        new_cluster = self.cluster_size * self.decay + (1 - self.decay) * csum
+        new_avg = self.embed_avg * self.decay + (1 - self.decay) * esum
+        n = torch.sum(new_cluster)
+        smoothed = (new_cluster + self.eps) / (n + self.n_embed * self.eps) * n
+        new_embed = new_avg / smoothed[:, None]
+        if self.restart_threshold > 0:
+            # dead-code restart from rows of the batch, a draw fixed by its content
+            dead = new_cluster < self.restart_threshold
+            take = torch.arange(self.n_embed, device=flat.device) % flat.shape[0]
+            repl = flat[take].to(torch.float32)
+            new_embed = torch.where(dead[:, None], repl, new_embed)
+            new_avg = torch.where(dead[:, None], repl, new_avg)
+            new_cluster = torch.where(dead, torch.ones_like(new_cluster), new_cluster)
+        self.cluster_size.copy_(new_cluster)
+        self.embed_avg.copy_(new_avg)
+        self.embed.copy_(new_embed)
 
     def embed_code(self, indices: torch.Tensor) -> torch.Tensor:
         """Codebook lookup by id, any leading shape."""
@@ -167,25 +200,29 @@ class VQVAE(nn.Module):
 
     Defaults are the reference configuration: channel 128, 2 residual blocks
     of 32 channels, code dimension 64, 512 codes.  ``with_ir_head`` adds the
-    extra 1-channel decoder head ``dec_ir`` (two residual blocks deeper)."""
+    extra 1-channel decoder head ``dec_ir`` (two residual blocks deeper).
+    ``restart_threshold`` goes to both quantizers (see :class:`Quantize`)."""
 
     def __init__(self, in_channel: int = 3, channel: int = 128, n_res_block: int = 2,
                  n_res_channel: int = 32, embed_dim: int = 64, n_embed: int = 512,
-                 decay: float = 0.99, with_ir_head: bool = False):
+                 decay: float = 0.99, with_ir_head: bool = False,
+                 restart_threshold: float = 0.0):
         super().__init__()
         self.config = dict(in_channel=in_channel, channel=channel,
                            n_res_block=n_res_block, n_res_channel=n_res_channel,
                            embed_dim=embed_dim, n_embed=n_embed, decay=decay,
-                           with_ir_head=with_ir_head)
+                           with_ir_head=with_ir_head, restart_threshold=restart_threshold)
         self.with_ir_head = with_ir_head
         self.enc_b = Encoder(in_channel, channel, n_res_block, n_res_channel, stride=4)
         self.enc_t = Encoder(channel, channel, n_res_block, n_res_channel, stride=2)
         self.quantize_conv_t = nn.Conv2d(channel, embed_dim, 1)
-        self.quantize_t = Quantize(embed_dim, n_embed, decay)
+        self.quantize_t = Quantize(embed_dim, n_embed, decay,
+                                   restart_threshold=restart_threshold)
         self.dec_t = Decoder(embed_dim, embed_dim, channel, n_res_block,
                              n_res_channel, stride=2)
         self.quantize_conv_b = nn.Conv2d(embed_dim + channel, embed_dim, 1)
-        self.quantize_b = Quantize(embed_dim, n_embed, decay)
+        self.quantize_b = Quantize(embed_dim, n_embed, decay,
+                                   restart_threshold=restart_threshold)
         self.upsample_t = nn.ConvTranspose2d(embed_dim, embed_dim, 4, stride=2,
                                              padding=1)
         self.dec = Decoder(embed_dim + embed_dim, in_channel, channel, n_res_block,
@@ -205,7 +242,8 @@ class VQVAE(nn.Module):
                 f"pad or resize the input")
 
     def forward(self, x: torch.Tensor, train: bool = False):
-        """Returns ``(dec, diff)``."""
+        """Returns ``(dec, diff)``; ``train=True`` also takes one EMA step of
+        both codebooks."""
         quant_t, quant_b, diff, _, _ = self.encode(x, train=train)
         return self.decode(quant_t, quant_b), diff
 

@@ -1,7 +1,10 @@
-// Strictly-causal flash attention, forward, written for Hopper (sm_90a).
+// Strictly-causal flash attention, forward and backward, written for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel _fwd_kernel of vqvae2_tpu/ops/flash_attention.py
-// (launched by _flash_fwd).
+// Replaces three TPU kernels of vqvae2_tpu/ops/flash_attention.py:
+//   flash_fwd_kernel      <- _fwd_kernel   (launched by _flash_fwd; entry fa_forward)
+//   flash_bwd_dq_kernel   <- _dq_kernel    (launched by _flash_bwd; entry fa_backward_dq)
+//   flash_bwd_dkv_kernel  <- _dkv_kernel   (launched by _flash_bwd; entry fa_backward_dkv)
 //
 // What is computed, for q, k, v (BH, N, D) and each (bh, i):
 //   s[j]   = <q[i], k[j]> * (1 / sqrt(D))       in true fp32, keys j < i only
@@ -37,6 +40,26 @@
 // kernel regenerates it from the same function (dropout_bits4 below).  An
 // element is kept when its bits >= rate * 2^32.  fa_keep_mask writes the same
 // draw out as a (BH, N, N) byte mask for comparisons at small N.
+//
+// Backward.  With lse from the forward and m = keep / (1 - rate) (1 without
+// dropout), for every visible pair j < i:
+//   p[i, j]  = exp(s[i, j] - lse[i])             recomputed, never stored
+//   dp[i, j] = <do[i], v[j]> * m[i, j]
+//   ds[i, j] = p * (dp - dsum[i]) * (1 / sqrt(D)),   dsum[i] = <do[i], o[i]>
+//   dq[i] = sum_j ds * k[j];  dk[j] = sum_i ds * q[i];  dv[j] = sum_i p * m * do[i]
+// The dq kernel (K5) is the forward's shape with the roles kept: one thread
+// owns R query rows (q, do, dq in registers), the block walks key tiles up to
+// the diagonal; it also computes dsum for its rows from do and o and writes it
+// out (no separate reduction).  The dk/dv kernel (K6) swaps them: one thread
+// owns R key rows (k, v, dk, dv in registers), the block walks query tiles from
+// the diagonal to N with q, do, lse and dsum staged in shared memory.  It runs
+// after K5 on the same stream and reads K5's dsum.  Both are bound by
+// operations as the forward is: three (K5) and four (K6) products of
+// N*N*D/2 FMAs a head in plain fp32, fp32 accumulators.  The mask is a factor:
+// row 0 contributes and receives exactly nothing, and no key j >= i is touched
+// by row i.  Dropout is regenerated by dropout_bits4 on the absolute (bh, i, j),
+// so the backward's mask is the forward's bit for bit whatever the tiling, and
+// nothing of size N*N is stored.
 
 #include <cmath>
 
@@ -306,6 +329,401 @@ int launch_by_depth(const void* q, const void* k, const void* v, void* o, float*
   return launch<T, 64, 1>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+constexpr int QT = 64;            // queries in a shared tile of the dk/dv kernel
+constexpr int QC = 8;             // queries folded per step of the dk/dv kernel
+static_assert(QT % QC == 0, "a query tile is whole steps");
+
+__device__ __forceinline__ unsigned int word_of(uint4 bits, int w) {
+  return w == 0 ? bits.x : w == 1 ? bits.y : w == 2 ? bits.z : bits.w;
+}
+
+// K5: dq, and dsum for the same rows.  Blocks are ordered by the length of
+// their key loop, longest first, across all heads.
+template <typename T, int DP, int R, bool DROP>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dsum_out,
+                    T* __restrict__ dq, long long bh_count, int n, int d, int nq, float scale,
+                    unsigned int threshold, float inv_keep, unsigned long long seed) {
+  constexpr int TQ = NT * R;
+  __shared__ __align__(16) float ks[KT][DP];
+  __shared__ __align__(16) float vs[KT][DP];
+
+  const int tid = threadIdx.x;
+  const long long bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int row0 = qt * TQ + tid * R;
+  const long long base = bh * n * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  float qr[R][DP], dor[R][DP], acc[R][DP], lr[R], dsr[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r;
+    float ds = 0.f;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n && c < d) {
+        const long long at = base + static_cast<long long>(i) * d + c;
+        a = load4(q + at);
+        g = load4(dout + at);
+        y = load4(o + at);
+      }
+      qr[r][c + 0] = a.x;
+      qr[r][c + 1] = a.y;
+      qr[r][c + 2] = a.z;
+      qr[r][c + 3] = a.w;
+      dor[r][c + 0] = g.x;
+      dor[r][c + 1] = g.y;
+      dor[r][c + 2] = g.z;
+      dor[r][c + 3] = g.w;
+      ds = fmaf(g.x, y.x, ds);
+      ds = fmaf(g.y, y.y, ds);
+      ds = fmaf(g.z, y.z, ds);
+      ds = fmaf(g.w, y.w, ds);
+      acc[r][c + 0] = acc[r][c + 1] = acc[r][c + 2] = acc[r][c + 3] = 0.f;
+    }
+    dsr[r] = ds;
+    lr[r] = 0.f;
+    if (i < n) {
+      lr[r] = lse[bh * n + i];
+      dsum_out[bh * n + i] = ds;
+    }
+  }
+
+  const int key_end = min(n, qt * TQ + TQ) - 1;
+  const int warp_row0 = qt * TQ + (tid / 32) * 32 * R;
+  const int warp_last = warp_row0 < n ? min(n, warp_row0 + 32 * R) - 1 : 0;
+
+  for (int k0 = 0; k0 < key_end; k0 += KT) {
+    __syncthreads();   // the previous tile has been consumed
+    for (int f = tid; f < KT * (DP / 4); f += NT) {
+      const int r = f / (DP / 4);
+      const int c = (f % (DP / 4)) * 4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < n && c < d) {
+        a = load4(kb + static_cast<long long>(k0 + r) * d + c);
+        b = load4(vb + static_cast<long long>(k0 + r) * d + c);
+      }
+      *reinterpret_cast<float4*>(&ks[r][c]) = a;
+      *reinterpret_cast<float4*>(&vs[r][c]) = b;
+    }
+    __syncthreads();
+    if (k0 >= warp_last) continue;   // wholly above this warp's rows (warp-uniform)
+
+    const int kmax = min(KT, warp_last - k0);
+    for (int c0 = 0; c0 < kmax; c0 += KC) {
+      float s[R][KC], dp[R][KC];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+#pragma unroll
+        for (int dd = 0; dd < DP; dd += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[c0 + c][dd]);
+          const float4 vv = *reinterpret_cast<const float4*>(&vs[c0 + c][dd]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            s[r][c] = fmaf(qr[r][dd + 0], kk.x, s[r][c]);
+            s[r][c] = fmaf(qr[r][dd + 1], kk.y, s[r][c]);
+            s[r][c] = fmaf(qr[r][dd + 2], kk.z, s[r][c]);
+            s[r][c] = fmaf(qr[r][dd + 3], kk.w, s[r][c]);
+            dp[r][c] = fmaf(dor[r][dd + 0], vv.x, dp[r][c]);
+            dp[r][c] = fmaf(dor[r][dd + 1], vv.y, dp[r][c]);
+            dp[r][c] = fmaf(dor[r][dd + 2], vv.z, dp[r][c]);
+            dp[r][c] = fmaf(dor[r][dd + 3], vv.w, dp[r][c]);
+          }
+        }
+      }
+
+      const int j0 = k0 + c0;   // a multiple of KC
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = row0 + r;
+        if (DROP) {
+#pragma unroll
+          for (int c = 0; c < KC; c += 4) {
+            const uint4 bits = dropout_bits4(seed, bh, i, (j0 + c) >> 2);
+            dp[r][c + 0] = (bits.x >= threshold) ? dp[r][c + 0] * inv_keep : 0.f;
+            dp[r][c + 1] = (bits.y >= threshold) ? dp[r][c + 1] * inv_keep : 0.f;
+            dp[r][c + 2] = (bits.z >= threshold) ? dp[r][c + 2] * inv_keep : 0.f;
+            dp[r][c + 3] = (bits.w >= threshold) ? dp[r][c + 3] * inv_keep : 0.f;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const bool seen = j0 + c < i && i < n;
+          const float p = seen ? __expf(s[r][c] * scale - lr[r]) : 0.f;
+          s[r][c] = p * (dp[r][c] - dsr[r]) * scale;
+        }
+      }
+
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+#pragma unroll
+        for (int dd = 0; dd < DP; dd += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[c0 + c][dd]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][dd + 0] = fmaf(s[r][c], kk.x, acc[r][dd + 0]);
+            acc[r][dd + 1] = fmaf(s[r][c], kk.y, acc[r][dd + 1]);
+            acc[r][dd + 2] = fmaf(s[r][c], kk.z, acc[r][dd + 2]);
+            acc[r][dd + 3] = fmaf(s[r][c], kk.w, acc[r][dd + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      if (c < d) {
+        store4(dq + base + static_cast<long long>(i) * d + c,
+               make_float4(acc[r][c + 0], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]));
+      }
+    }
+  }
+}
+
+// K6: dk and dv.  One thread owns R consecutive keys, which lie in one Philox
+// quad (R divides 4 and the block's first key is a multiple of 4), so one draw
+// a query serves all of them.  Blocks are ordered by the length of their query
+// loop, longest (the first key tile) first, across all heads.
+template <typename T, int DP, int R, bool DROP>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
+                     long long bh_count, int n, int d, float scale, unsigned int threshold,
+                     float inv_keep, unsigned long long seed) {
+  constexpr int TK = NT * R;                   // keys a block owns
+  static_assert(4 % R == 0, "a thread's keys lie in one Philox quad");
+  __shared__ __align__(16) float qs[QT][DP];
+  __shared__ __align__(16) float gs[QT][DP];   // do
+  __shared__ float ls[QT];
+  __shared__ float sums[QT];
+
+  const int tid = threadIdx.x;
+  const long long bh = blockIdx.x % bh_count;
+  const int kt = static_cast<int>(blockIdx.x / bh_count);
+  const int key0 = kt * TK + tid * R;          // first of this thread's keys
+  const long long base = bh * n * d;
+  const T* qb = q + base;
+  const T* gb = dout + base;
+
+  float kr[R][DP], vr[R][DP], dkr[R][DP], dvr[R][DP];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key0 + r < n && c < d) {
+        a = load4(k + base + static_cast<long long>(key0 + r) * d + c);
+        b = load4(v + base + static_cast<long long>(key0 + r) * d + c);
+      }
+      kr[r][c + 0] = a.x;
+      kr[r][c + 1] = a.y;
+      kr[r][c + 2] = a.z;
+      kr[r][c + 3] = a.w;
+      vr[r][c + 0] = b.x;
+      vr[r][c + 1] = b.y;
+      vr[r][c + 2] = b.z;
+      vr[r][c + 3] = b.w;
+      dkr[r][c + 0] = dkr[r][c + 1] = dkr[r][c + 2] = dkr[r][c + 3] = 0.f;
+      dvr[r][c + 0] = dvr[r][c + 1] = dvr[r][c + 2] = dvr[r][c + 3] = 0.f;
+    }
+  }
+
+  // The queries that see a key of this warp are those after its first key.
+  const int warp_key0 = kt * TK + (tid / 32) * 32 * R;
+
+  for (int q0 = kt * TK; q0 < n; q0 += QT) {
+    __syncthreads();   // the previous tile has been consumed
+    for (int f = tid; f < QT * (DP / 4); f += NT) {
+      const int r = f / (DP / 4);
+      const int c = (f % (DP / 4)) * 4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < n && c < d) {
+        a = load4(qb + static_cast<long long>(q0 + r) * d + c);
+        b = load4(gb + static_cast<long long>(q0 + r) * d + c);
+      }
+      *reinterpret_cast<float4*>(&qs[r][c]) = a;
+      *reinterpret_cast<float4*>(&gs[r][c]) = b;
+    }
+    for (int r = tid; r < QT; r += NT) {
+      const bool in = q0 + r < n;
+      ls[r] = in ? lse[bh * n + q0 + r] : 0.f;
+      sums[r] = in ? dsum[bh * n + q0 + r] : 0.f;
+    }
+    __syncthreads();
+    if (warp_key0 >= n) continue;   // this warp's keys all lie beyond N (warp-uniform)
+
+    for (int c0 = 0; c0 < QT; c0 += QC) {
+      if (q0 + c0 + QC - 1 <= warp_key0) continue;   // no query here sees this warp's keys
+      float s[R][QC], dp[R][QC];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < QC; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll
+      for (int c = 0; c < QC; ++c) {
+#pragma unroll
+        for (int dd = 0; dd < DP; dd += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(&qs[c0 + c][dd]);
+          const float4 gg = *reinterpret_cast<const float4*>(&gs[c0 + c][dd]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            s[r][c] = fmaf(kr[r][dd + 0], qq.x, s[r][c]);
+            s[r][c] = fmaf(kr[r][dd + 1], qq.y, s[r][c]);
+            s[r][c] = fmaf(kr[r][dd + 2], qq.z, s[r][c]);
+            s[r][c] = fmaf(kr[r][dd + 3], qq.w, s[r][c]);
+            dp[r][c] = fmaf(vr[r][dd + 0], gg.x, dp[r][c]);
+            dp[r][c] = fmaf(vr[r][dd + 1], gg.y, dp[r][c]);
+            dp[r][c] = fmaf(vr[r][dd + 2], gg.z, dp[r][c]);
+            dp[r][c] = fmaf(vr[r][dd + 3], gg.w, dp[r][c]);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int c = 0; c < QC; ++c) {
+        const int i = q0 + c0 + c;
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if (DROP) bits = dropout_bits4(seed, bh, i, key0 >> 2);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int j = key0 + r;
+          const bool seen = j < i && i < n;
+          const float p = seen ? __expf(s[r][c] * scale - ls[c0 + c]) : 0.f;
+          float m = 1.f;
+          if (DROP) m = (word_of(bits, j & 3) >= threshold) ? inv_keep : 0.f;
+          s[r][c] = p * m;                                      // multiplies do into dv
+          dp[r][c] = p * (dp[r][c] * m - sums[c0 + c]) * scale;  // multiplies q into dk
+        }
+      }
+
+#pragma unroll
+      for (int c = 0; c < QC; ++c) {
+#pragma unroll
+        for (int dd = 0; dd < DP; dd += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(&qs[c0 + c][dd]);
+          const float4 gg = *reinterpret_cast<const float4*>(&gs[c0 + c][dd]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            dvr[r][dd + 0] = fmaf(s[r][c], gg.x, dvr[r][dd + 0]);
+            dvr[r][dd + 1] = fmaf(s[r][c], gg.y, dvr[r][dd + 1]);
+            dvr[r][dd + 2] = fmaf(s[r][c], gg.z, dvr[r][dd + 2]);
+            dvr[r][dd + 3] = fmaf(s[r][c], gg.w, dvr[r][dd + 3]);
+            dkr[r][dd + 0] = fmaf(dp[r][c], qq.x, dkr[r][dd + 0]);
+            dkr[r][dd + 1] = fmaf(dp[r][c], qq.y, dkr[r][dd + 1]);
+            dkr[r][dd + 2] = fmaf(dp[r][c], qq.z, dkr[r][dd + 2]);
+            dkr[r][dd + 3] = fmaf(dp[r][c], qq.w, dkr[r][dd + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = key0 + r;
+    if (j >= n) continue;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      if (c < d) {
+        const long long at = base + static_cast<long long>(j) * d + c;
+        store4(dk + at, make_float4(dkr[r][c + 0], dkr[r][c + 1], dkr[r][c + 2], dkr[r][c + 3]));
+        store4(dv + at, make_float4(dvr[r][c + 0], dvr[r][c + 1], dvr[r][c + 2], dvr[r][c + 3]));
+      }
+    }
+  }
+}
+
+// The arguments of both backward kernels.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* dsum;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long bh;
+  int n;
+  int d;
+  unsigned int threshold;
+  float inv_keep;
+  unsigned long long seed;
+};
+
+template <typename T, int DP, int R, bool DROP>
+int launch_bwd(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
+  constexpr int TQ = NT * R;
+  const int tiles = (a.n + TQ - 1) / TQ;   // query tiles of K5 and key tiles of K6 alike
+  const long long blocks = a.bh * tiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.d));
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  if (dq_pass) {
+    flash_bwd_dq_kernel<T, DP, R, DROP><<<grid, NT, 0, stream>>>(
+        q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.dsum, static_cast<T*>(a.dq), a.bh,
+        a.n, a.d, tiles, scale, a.threshold, a.inv_keep, a.seed);
+  } else {
+    flash_bwd_dkv_kernel<T, DP, R, DROP><<<grid, NT, 0, stream>>>(
+        q, k, v, dout, a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bh, a.n,
+        a.d, scale, a.threshold, a.inv_keep, a.seed);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP, int R>
+int launch_bwd_drop(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
+  return a.threshold > 0 ? launch_bwd<T, DP, R, true>(a, dq_pass, stream)
+                         : launch_bwd<T, DP, R, false>(a, dq_pass, stream);
+}
+
+template <typename T>
+int launch_bwd_by_depth(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
+  if (a.d <= 16) return launch_bwd_drop<T, 16, 2>(a, dq_pass, stream);
+  if (a.d <= 32) return launch_bwd_drop<T, 32, 1>(a, dq_pass, stream);
+  return launch_bwd_drop<T, 64, 1>(a, dq_pass, stream);
+}
+
+int backward(const BwdArgs& a, bool dq_pass, int is_bf16, void* stream) {
+  if (a.bh < 1 || a.n < 1 || a.d < 4 || a.d > 64 || a.d % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_bwd_by_depth<__nv_bfloat16>(a, dq_pass, s)
+                 : launch_bwd_by_depth<float>(a, dq_pass, s);
+}
+
 }  // namespace
 
 // o (BH, N, D) in the inputs' type and lse (BH, N) fp32 from q, k, v
@@ -325,6 +743,32 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
   return is_bf16
              ? launch_by_depth<__nv_bfloat16>(q, k, v, o, l, bh, n, d, threshold, inv_keep, seed, s)
              : launch_by_depth<float>(q, k, v, o, l, bh, n, d, threshold, inv_keep, seed, s);
+}
+
+// The backward, in two launches on one stream, from q, k, v, o, do (BH, N, D)
+// in one type and the forward's lse (BH, N) fp32, all contiguous; threshold,
+// inv_keep and seed as for fa_forward (the same values give the same mask).
+// fa_backward_dq writes dq (BH, N, D) in the inputs' type and dsum (BH, N)
+// fp32; fa_backward_dkv then reads that dsum and writes dk, dv.  Each returns
+// cudaGetLastError() after its launch (0 on success), or cudaErrorInvalidValue
+// for a shape the kernels do not take, and does not synchronise.
+extern "C" int fa_backward_dq(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* dsum, void* dq,
+                              long long bh, int n, int d, int is_bf16, unsigned int threshold,
+                              float inv_keep, unsigned long long seed, void* stream) {
+  const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(dsum),
+                  dq, nullptr, nullptr, bh, n, d, threshold, inv_keep, seed};
+  return backward(a, true, is_bf16, stream);
+}
+
+extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* dsum, void* dk, void* dv,
+                               long long bh, int n, int d, int is_bf16, unsigned int threshold,
+                               float inv_keep, unsigned long long seed, void* stream) {
+  const BwdArgs a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                  const_cast<float*>(static_cast<const float*>(dsum)), nullptr, dk, dv, bh, n, d,
+                  threshold, inv_keep, seed};
+  return backward(a, false, is_bf16, stream);
 }
 
 // keep (BH, N, N) bytes: 1 where the forward kernel keeps element (bh, i, j)

@@ -1,18 +1,22 @@
 // Nearest-code search for vector quantization, written for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of vqvae2_tpu/ops/quantize.py:
+// Replaces three TPU kernels of vqvae2_tpu/ops/quantize.py:
 //   vq_nearest_ids     <- _quantize_kernel_ids      (indices only)
 //   vq_nearest_lookup  <- _quantize_kernel_nostats  (indices and q = E[idx])
+//   vq_nearest_stats   <- _quantize_kernel          (indices, q and the EMA statistics)
 //
 // What is computed, for x (N, D) and a codebook E (K, D):
 //   score[n, k] = (2 * <x[n], E[k]> - |x[n]|^2) - |E[k]|^2      in true fp32
 //   idx[n]      = argmax_k score[n, k]      (the first maximum wins)
-//   q[n, :]     = E[idx[n], :]              (lookup flavour only, in x's type)
+//   q[n, :]     = E[idx[n], :]              (lookup and statistics flavours, in x's type)
+//   csum[k]     = #{n : idx[n] == k}        (statistics flavour, fp32)
+//   esum[k, :]  = sum of x[n] over idx[n] == k   (statistics flavour, fp32)
 //
 // What bounds it on this card: operations.  The product is 2*N*K*D flops of
 // plain fp32 (TF32 would flip near-tie ids), which the CUDA cores do at about
 // 67 TFLOP/s, while x in and idx/q out are a few hundred bytes a row: the time
-// the memory needs is an order of magnitude below the time the FMAs need.
+// the memory needs is an order of magnitude below the time the FMAs need.  The
+// statistics add N*D additions and one more read of x, which is memory work.
 //
 // What the design does about it: a register-tiled fp32 product.  A block of
 // 256 threads owns 128 rows.  It walks the codebook in chunks of 128 codes and
@@ -26,7 +30,28 @@
 // the lower index, as argmax does.  The lookup is an exact row gather from the
 // codebook.  N, D and K are runtime values: the ragged tail of each is masked,
 // no input is padded.  D must be a multiple of 4 (16-byte loads).
+//
+// The statistics are the search kernel (the lookup flavour, unchanged)
+// followed by six small kernels of their own, not one fused kernel.  The TPU
+// kernel sums them over a grid that runs in sequence; CUDA blocks run at once,
+// and an atomicAdd of every row into esum[k, :] would serialise on the 64
+// addresses of one code when an untrained encoder sends every row there.  So:
+//   1. a histogram of the ids over chunks of 1024 rows (shared-memory integer
+//      atomics: exact); the column sums over chunks are csum, exact;
+//   2. prefix sums turn the histogram into each chunk's first slot in every
+//      code's run of a stable counting sort, and count each code's pieces of
+//      256 rows;
+//   3. one warp a chunk scatters its row numbers into the sorted order, in row
+//      order (__match_any_sync ranks the lanes that share a code);
+//   4. one block a piece sums its 256 rows of one code in a fixed order;
+//   5. one block a code sums its pieces in order.
+// Every sum is taken in an order fixed by the ids alone, so esum is the same
+// bit for bit from run to run, and no code gets more than one block's serial
+// work per 256 of its rows.  Rows >= N are never counted (no pad rows, no
+// correction).  K is at most 12288 (a histogram row of K ints in 48 KB of
+// shared memory) and N below 2^31.
 
+#include <climits>
 #include <cmath>
 
 #include <cuda_bf16.h>
@@ -233,6 +258,252 @@ bool bad_shape(long long n, int d, int k) {
   return n < 1 || d < 4 || d % 4 != 0 || k < 1 || (n + TN - 1) / TN > 2147483647LL;
 }
 
+
+// ---------------------------------------------------------------------------
+// Statistics (steps 1-5 of the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int HR = 1024;          // rows of a histogram chunk
+constexpr int SP = 256;           // rows of one code summed by one block
+constexpr int MAX_K_STATS = 12288;
+
+__host__ __device__ constexpr long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// Step 1: table[c][code] = rows of chunk c that took code.
+__global__ void __launch_bounds__(256)
+hist_kernel(const int* __restrict__ idx, int* __restrict__ table, long long n, int k) {
+  extern __shared__ int h[];
+  for (int c = threadIdx.x; c < k; c += blockDim.x) h[c] = 0;
+  __syncthreads();
+  const long long r0 = static_cast<long long>(blockIdx.x) * HR;
+  for (int r = threadIdx.x; r < HR; r += blockDim.x) {
+    if (r0 + r < n) atomicAdd(&h[idx[r0 + r]], 1);
+  }
+  __syncthreads();
+  int* out = table + static_cast<long long>(blockIdx.x) * k;
+  for (int c = threadIdx.x; c < k; c += blockDim.x) out[c] = h[c];
+}
+
+// Step 1 (end) and 2: per code, the table's column becomes its exclusive
+// prefix over chunks; the column's total is the code's count and csum.
+__global__ void __launch_bounds__(256)
+column_scan_kernel(int* __restrict__ table, int* __restrict__ counts, float* __restrict__ csum,
+                   int chunks, int k) {
+  const int code = blockIdx.x * blockDim.x + threadIdx.x;
+  if (code >= k) return;
+  int run = 0;
+  for (int c = 0; c < chunks; ++c) {
+    int* p = table + static_cast<long long>(c) * k + code;
+    const int v = *p;
+    *p = run;
+    run += v;
+  }
+  counts[code] = run;
+  csum[code] = static_cast<float>(run);
+}
+
+// Step 2: exclusive prefix sums over the codes of the counts (each code's
+// first slot in the sorted order) and of the pieces of SP rows (each code's
+// first piece); piece_base[k] is the number of pieces.  One block.
+__global__ void __launch_bounds__(1024)
+code_scan_kernel(const int* __restrict__ counts, int* __restrict__ start,
+                 int* __restrict__ piece_base, int k) {
+  __shared__ int sa[1024], sb[1024];
+  __shared__ int carry_a, carry_b;
+  const int t = threadIdx.x;
+  if (t == 0) carry_a = carry_b = 0;
+  __syncthreads();
+  for (int c0 = 0; c0 < k; c0 += 1024) {
+    const int code = c0 + t;
+    const int a = code < k ? counts[code] : 0;
+    const int b = static_cast<int>(cdiv(a, SP));
+    sa[t] = a;
+    sb[t] = b;
+    __syncthreads();
+    for (int off = 1; off < 1024; off <<= 1) {   // inclusive scan, Hillis-Steele
+      const int xa = t >= off ? sa[t - off] : 0;
+      const int xb = t >= off ? sb[t - off] : 0;
+      __syncthreads();
+      sa[t] += xa;
+      sb[t] += xb;
+      __syncthreads();
+    }
+    if (code < k) {
+      start[code] = carry_a + sa[t] - a;
+      piece_base[code] = carry_b + sb[t] - b;
+    }
+    __syncthreads();
+    if (t == 1023) {
+      carry_a += sa[1023];
+      carry_b += sb[1023];
+    }
+    __syncthreads();
+  }
+  if (t == 0) piece_base[k] = carry_b;
+}
+
+// Step 3: one warp a chunk writes its row numbers to their sorted slots, rows
+// in order, so that the sort is stable.
+__global__ void __launch_bounds__(32)
+scatter_kernel(const int* __restrict__ idx, const int* __restrict__ table,
+               const int* __restrict__ start, int* __restrict__ order, long long n, int k) {
+  extern __shared__ int cursor[];
+  const int lane = threadIdx.x;
+  const int* first = table + static_cast<long long>(blockIdx.x) * k;
+  for (int c = lane; c < k; c += 32) cursor[c] = start[c] + first[c];
+  __syncwarp();
+  const long long r0 = static_cast<long long>(blockIdx.x) * HR;
+  for (int s = 0; s < HR; s += 32) {
+    const long long row = r0 + s + lane;
+    const bool live = row < n;
+    const unsigned int active = __ballot_sync(0xffffffffu, live);
+    if (live) {
+      const int code = idx[row];
+      const unsigned int peers = __match_any_sync(active, code);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      const int slot = cursor[code];
+      __syncwarp(active);   // every peer has read the cursor before the first one moves it
+      order[slot + rank] = static_cast<int>(row);
+      if (rank == 0) cursor[code] = slot + __popc(peers);
+    }
+    __syncwarp();
+  }
+}
+
+// The code whose pieces hold piece p: the last code c with piece_base[c] <= p
+// (codes without rows have no pieces and are passed over).
+__device__ __forceinline__ int code_of_piece(const int* piece_base, int k, int p) {
+  int lo = 0, hi = k - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (piece_base[mid] <= p) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Step 4: one block a piece of SP sorted rows of one code.  Thread (lane,
+// col) sums rows lane, lane + lanes, ... of the piece at columns 4*col..+3;
+// then the lanes are summed in order.
+template <typename XT>
+__global__ void __launch_bounds__(256)
+piece_sum_kernel(const XT* __restrict__ x, const int* __restrict__ order,
+                 const int* __restrict__ start, const int* __restrict__ counts,
+                 const int* __restrict__ piece_base, float* __restrict__ partial, int d, int k) {
+  __shared__ float4 red[256];
+  const int piece = blockIdx.x;
+  if (piece >= piece_base[k]) return;   // the grid is an upper bound of the pieces
+  const int code = code_of_piece(piece_base, k, piece);
+  const int p0 = start[code] + (piece - piece_base[code]) * SP;
+  const int p1 = min(start[code] + counts[code], p0 + SP);
+  const int c4 = d / 4;
+  for (int cb = 0; cb < c4; cb += 256) {
+    const int cols = min(256, c4 - cb);
+    const int lanes = 256 / cols;
+    const int col = threadIdx.x % cols;
+    const int lane = threadIdx.x / cols;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (lane < lanes) {
+      for (int p = p0 + lane; p < p1; p += lanes) {
+        const float4 v = load4(x + static_cast<long long>(order[p]) * d + (cb + col) * 4);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    if (threadIdx.x < cols) {
+      float4 s = red[threadIdx.x];
+      for (int l = 1; l < lanes; ++l) {
+        const float4 o = red[l * cols + threadIdx.x];
+        s.x += o.x;
+        s.y += o.y;
+        s.z += o.z;
+        s.w += o.w;
+      }
+      store4(partial + static_cast<long long>(piece) * d + (cb + threadIdx.x) * 4, s);
+    }
+    __syncthreads();
+  }
+}
+
+// Step 5: one block a code sums its pieces in order (zero for a code without rows).
+__global__ void code_sum_kernel(const float* __restrict__ partial, const int* __restrict__ piece_base,
+                                float* __restrict__ esum, int d) {
+  const int code = blockIdx.x;
+  const int b0 = piece_base[code];
+  const int b1 = piece_base[code + 1];
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int b = b0; b < b1; ++b) s += partial[static_cast<long long>(b) * d + c];
+    esum[static_cast<long long>(code) * d + c] = s;
+  }
+}
+
+// Scratch of the statistics: partial sums (floats), then the histogram table,
+// counts, starts, piece bases and the sorted row order (ints).
+struct StatsScratch {
+  float* partial;
+  int* table;
+  int* counts;
+  int* start;
+  int* piece_base;
+  int* order;
+  long long bytes;
+};
+
+// With base == nullptr only .bytes is meaningful.
+StatsScratch stats_scratch(void* base, long long n, int d, int k) {
+  const long long pieces = cdiv(n, SP) + k;
+  const long long chunks = cdiv(n, HR);
+  StatsScratch s;
+  char* p = static_cast<char*>(base);
+  s.partial = reinterpret_cast<float*>(p);
+  long long off = pieces * d * 4;
+  s.table = reinterpret_cast<int*>(p + off);
+  off += chunks * k * 4;
+  s.counts = reinterpret_cast<int*>(p + off);
+  off += static_cast<long long>(k) * 4;
+  s.start = reinterpret_cast<int*>(p + off);
+  off += static_cast<long long>(k) * 4;
+  s.piece_base = reinterpret_cast<int*>(p + off);
+  off += static_cast<long long>(k + 1) * 4;
+  s.order = reinterpret_cast<int*>(p + off);
+  off += n * 4;
+  s.bytes = off;
+  return s;
+}
+
+template <typename XT>
+int launch_stats(const void* x, const void* embed, void* idx, void* q, float* csum, float* esum,
+                 void* scratch, long long n, int d, int k, cudaStream_t stream) {
+  int err = launch<XT, true>(x, embed, idx, q, n, d, k, stream);
+  if (err) return err;
+  const StatsScratch s = stats_scratch(scratch, n, d, k);
+  const int* ids = static_cast<const int*>(idx);
+  const unsigned int chunks = static_cast<unsigned int>(cdiv(n, HR));
+  const size_t hist_bytes = static_cast<size_t>(k) * sizeof(int);
+  hist_kernel<<<chunks, 256, hist_bytes, stream>>>(ids, s.table, n, k);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  column_scan_kernel<<<static_cast<unsigned int>(cdiv(k, 256)), 256, 0, stream>>>(
+      s.table, s.counts, csum, static_cast<int>(chunks), k);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  code_scan_kernel<<<1, 1024, 0, stream>>>(s.counts, s.start, s.piece_base, k);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  scatter_kernel<<<chunks, 32, hist_bytes, stream>>>(ids, s.table, s.start, s.order, n, k);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  piece_sum_kernel<XT><<<static_cast<unsigned int>(cdiv(n, SP) + k), 256, 0, stream>>>(
+      static_cast<const XT*>(x), s.order, s.start, s.counts, s.piece_base, s.partial, d, k);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const int threads = d >= 256 ? 256 : static_cast<int>(cdiv(d, 32) * 32);
+  code_sum_kernel<<<static_cast<unsigned int>(k), threads, 0, stream>>>(
+      s.partial, s.piece_base, esum, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (0 on success), or
@@ -252,6 +523,33 @@ extern "C" int vq_nearest_lookup(const void* x, const void* embed, void* idx, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_bf16 ? launch<__nv_bfloat16, true>(x, embed, idx, q, n, d, k, s)
                    : launch<float, true>(x, embed, idx, q, n, d, k, s);
+}
+
+// Bytes of scratch that vq_nearest_stats needs for this shape (the caller
+// allocates it; the kernels allocate nothing).
+extern "C" long long vq_stats_scratch_bytes(long long n, int d, int k) {
+  return stats_scratch(nullptr, n, d, k).bytes;
+}
+
+// idx and q as vq_nearest_lookup, and csum (K,) and esum (K, D) in fp32.
+// Returns cudaGetLastError() after the last launch (0 on success), or
+// cudaErrorInvalidValue for a shape the kernels do not take or too little
+// scratch.  Launches on the given stream and does not synchronise.
+extern "C" int vq_nearest_stats(const void* x, const void* embed, void* idx, void* q, void* csum,
+                                void* esum, void* scratch, long long scratch_bytes, long long n,
+                                int d, int k, int x_is_bf16, void* stream) {
+  if (bad_shape(n, d, k) || k > MAX_K_STATS || n > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (scratch_bytes < stats_scratch(nullptr, n, d, k).bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* cs = static_cast<float*>(csum);
+  float* es = static_cast<float*>(esum);
+  return x_is_bf16
+             ? launch_stats<__nv_bfloat16>(x, embed, idx, q, cs, es, scratch, n, d, k, s)
+             : launch_stats<float>(x, embed, idx, q, cs, es, scratch, n, d, k, s);
 }
 
 extern "C" const char* vq_error_string(int code) {

@@ -1,5 +1,5 @@
 """Strictly-causal attention for the PixelSNAIL prior (port of
-``vqvae2_tpu/ops/flash_attention.py``, forward only so far).
+``vqvae2_tpu/ops/flash_attention.py``).
 
 For ``q, k, v (B, H, N, D)``: query ``i`` attends keys ``j < i`` only, the
 scores are ``(q·kᵀ)·(1/√D)`` in true fp32, and row 0, which attends nothing,
@@ -18,9 +18,15 @@ in plain integer tensor arithmetic, and ``dropout_keep_mask`` exports the
 kernel's own mask, so the plain version — which takes an explicit ``keep`` —
 can be held against the kernel with dropout on.
 
-No gradient yet: the backward kernels come with the stage-2 training slice of
-the port, and a CUDA input that requires grad raises ``NotImplementedError``.
-The plain version on the CPU is ordinary differentiable PyTorch.
+The gradient: :class:`CausalFlashAttention` binds the forward kernel (which
+saves ``lse``) to the two backward kernels of the same source, one for ``dq``
+(which also sums ``dsum = Σ_d do·o``) and one for ``dk, dv``; they recompute
+the probabilities from ``lse`` and regenerate the dropout mask from the same
+seed, so nothing of size ``N²`` is kept between the passes.  The wrappers take
+it for a CUDA input whenever grad is enabled and an input requires it.  On the
+CPU the plain version stays ordinary differentiable PyTorch;
+:func:`causal_attention_backward_reference` is the kernels' formula written
+out, the yardstick of the backward kernels.
 """
 
 from __future__ import annotations
@@ -38,8 +44,9 @@ MAX_HEAD_DIM = 64
 
 # Launches of the CUDA kernel, and uses of the plain version by the wrapper.
 # The wrapper adds one where it launches the kernel and nowhere else.
-launch_counts: Dict[str, int] = {"causal_flash_attention": 0}
-plain_counts: Dict[str, int] = {"causal_flash_attention": 0}
+_KERNELS = ("causal_flash_attention", "causal_flash_attention_dq", "causal_flash_attention_dkv")
+launch_counts: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
+plain_counts: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
 
 
 def reset_counts() -> None:
@@ -90,6 +97,40 @@ def causal_attention_reference(
     """Plain version of the kernel's ``o``; see
     :func:`causal_attention_reference_lse`."""
     return causal_attention_reference_lse(q, k, v, keep=keep, dropout_rate=dropout_rate)[0]
+
+
+def causal_attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, keep: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels on ``(..., N, D)``: the gradients
+    of :func:`causal_attention_reference` given its ``o``, ``lse`` and the
+    upstream ``do``, by the formula the kernels compute — ``p`` recomputed
+    from ``lse`` (zero where ``j >= i``), ``dsum = Σ_d do·o``, ``dp = do·vᵀ``
+    times ``keep / (1 − rate)``, ``ds = p·(dp − dsum)/√D``; ``dq = ds·k``,
+    ``dk = dsᵀ·q``, ``dv = (p·keep/(1 − rate))ᵀ·do``.  ``keep`` as in the
+    forward.  Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    n, d = q.shape[-2:]
+    scale = 1.0 / math.sqrt(d)
+    q32, k32, v32, o32, do32 = (t.to(torch.float32) for t in (q, k, v, o, do))
+    qi = torch.arange(n, device=q.device)[:, None]
+    kj = torch.arange(n, device=q.device)[None, :]
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    p = torch.where(kj < qi, torch.exp(s - lse), torch.zeros_like(s))
+    dsum = torch.sum(do32 * o32, dim=-1, keepdim=True)
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    p_drop = p
+    if dropout_rate > 0.0:
+        if keep is None:
+            raise ValueError("dropout_rate > 0 needs an explicit keep mask")
+        m = (keep != 0).to(torch.float32) / (1.0 - dropout_rate)
+        dp = dp * m
+        p_drop = p * m
+    ds = p * (dp - dsum) * scale
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    dv = torch.matmul(p_drop.transpose(-1, -2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _philox4x32_10(ctr, key):
@@ -152,6 +193,9 @@ def _library() -> ctypes.CDLL:
         u32, u64, f32 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float
         lib.fa_forward.restype = i32
         lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, u32, f32, u64, ptr]
+        for name in ("fa_backward_dq", "fa_backward_dkv"):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = [ptr] * 8 + [i64, i32, i32, i32, u32, f32, u64, ptr]
         lib.fa_keep_mask.restype = i32
         lib.fa_keep_mask.argtypes = [ptr, i64, i32, u32, u64, ptr]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -201,10 +245,6 @@ def _causal_flash_attention_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(q, k, v)
     _check_dropout(dropout_rate)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "causal_flash_attention has no backward kernel yet: the gradient comes with "
-            "the stage-2 training slice of the port (run under torch.no_grad())")
     lib = _library()
     bh, n, d = q.shape
     o = torch.empty_like(q)
@@ -218,6 +258,63 @@ def _causal_flash_attention_cuda(
     _raise_on_error(lib, code, "fa_forward")
     launch_counts["causal_flash_attention"] += 1
     return o, lse
+
+
+def _backward_args(q: torch.Tensor, dropout_rate: float, seed: int) -> tuple:
+    bh, n, d = q.shape
+    return (bh, n, d, int(q.dtype == torch.bfloat16), dropout_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate), seed & 0xFFFFFFFFFFFFFFFF)
+
+
+def _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate: float, seed: int):
+    """The dq kernel: ``(dq, dsum)``."""
+    lib = _library()
+    dq = torch.empty_like(q)
+    dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = lib.fa_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                                  *_backward_args(q, dropout_rate, seed),
+                                  torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, code, "fa_backward_dq")
+    launch_counts["causal_flash_attention_dq"] += 1
+    return dq, dsum
+
+
+def _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate: float, seed: int):
+    """The dk/dv kernel, after the dq kernel wrote ``dsum``: ``(dk, dv)``."""
+    lib = _library()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        code = lib.fa_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                   *_backward_args(q, dropout_rate, seed),
+                                   torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, code, "fa_backward_dkv")
+    launch_counts["causal_flash_attention_dkv"] += 1
+    return dk, dv
+
+
+def _causal_flash_attention_backward_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, dropout_rate: float, seed: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_cuda_inputs(q, k, v)
+    _check_dropout(dropout_rate)
+    bh, n, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, n, 1):
+        raise ValueError(f"o, do must be {tuple(q.shape)} and lse {(bh, n, 1)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"o and do must be {q.dtype} and lse float32, got "
+                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
+    if not (o.is_contiguous() and do.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("o, do and lse must be contiguous")
+    if o.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("o and do must start on a 16-byte boundary")
+    dq, dsum = _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed)
+    dk, dv = _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed)
+    return dq, dk, dv
 
 
 def dropout_keep_mask(bh: int, n: int, dropout_rate: float, seed: int,
@@ -242,6 +339,73 @@ def dropout_keep_mask(bh: int, n: int, dropout_rate: float, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# Forward and backward by device, and the autograd binding
+# ---------------------------------------------------------------------------
+
+def _check_cpu_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dropout_rate: float) -> None:
+    """Device, shape and rate checks of the plain path."""
+    if q.device.type != "cpu":
+        raise ValueError(f"causal attention takes CPU or CUDA tensors, got {q.device}")
+    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"q, k, v must share one (BH, N, D) shape, got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_dropout(dropout_rate)
+
+
+def _keep_for(seed: int, q: torch.Tensor, dropout_rate: float) -> Optional[torch.Tensor]:
+    if dropout_rate == 0.0:
+        return None
+    return dropout_keep_reference(seed, q.shape[0], q.shape[1], dropout_rate)
+
+
+def _forward(q, k, v, dropout_rate: float, seed: int):
+    """Kernel for a CUDA tensor, plain version for a CPU tensor."""
+    if q.device.type == "cuda":
+        return _causal_flash_attention_cuda(q, k, v, dropout_rate, seed)
+    _check_cpu_inputs(q, k, v, dropout_rate)
+    plain_counts["causal_flash_attention"] += 1
+    return causal_attention_reference_lse(q, k, v, keep=_keep_for(seed, q, dropout_rate),
+                                          dropout_rate=dropout_rate)
+
+
+def _backward(q, k, v, o, lse, do, dropout_rate: float, seed: int):
+    """Kernels for a CUDA tensor, plain version for a CPU tensor."""
+    if q.device.type == "cuda":
+        return _causal_flash_attention_backward_cuda(q, k, v, o, lse, do, dropout_rate, seed)
+    _check_cpu_inputs(q, k, v, dropout_rate)
+    plain_counts["causal_flash_attention_dq"] += 1
+    plain_counts["causal_flash_attention_dkv"] += 1
+    return causal_attention_backward_reference(
+        q, k, v, o, lse, do, keep=_keep_for(seed, q, dropout_rate), dropout_rate=dropout_rate)
+
+
+class CausalFlashAttention(torch.autograd.Function):
+    """The forward kernel bound to the two backward kernels: ``apply(q, k, v,
+    dropout_rate, seed) -> (o, lse)`` on ``(BH, N, D)``.  Saves ``(q, k, v,
+    o, lse)`` and the seed, as the JAX package's ``custom_vjp`` does; ``lse``
+    and the seed get no gradient.  On CPU tensors it runs the plain versions
+    (forward and the written-out backward), which is how the binding itself is
+    tested without a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate: float, seed: int):
+        o, lse = _forward(q, k, v, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, o, lse, do.to(o.dtype).contiguous(),
+                               ctx.dropout_rate, ctx.seed)
+        return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
 
@@ -251,21 +415,13 @@ def causal_flash_attention_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o (BH, N, D) in q's dtype, lse (BH, N, 1) fp32)`` from contiguous
     ``q, k, v (BH, N, D)``.  ``seed`` keys the dropout draw; the CPU path
-    draws the same mask as the kernel (:func:`dropout_keep_reference`)."""
-    if q.device.type == "cuda":
-        return _causal_flash_attention_cuda(q, k, v, dropout_rate, seed)
-    if q.device.type != "cpu":
-        raise ValueError(f"causal attention takes CPU or CUDA tensors, got {q.device}")
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"q, k, v must share one (BH, N, D) shape, got {tuple(q.shape)}, "
-            f"{tuple(k.shape)}, {tuple(v.shape)}")
-    _check_dropout(dropout_rate)
-    plain_counts["causal_flash_attention"] += 1
-    keep = None
-    if dropout_rate > 0.0:
-        keep = dropout_keep_reference(seed, q.shape[0], q.shape[1], dropout_rate)
-    return causal_attention_reference_lse(q, k, v, keep=keep, dropout_rate=dropout_rate)
+    draws the same mask as the kernel (:func:`dropout_keep_reference`).  On
+    the card, with grad enabled and an input that requires it, the result is
+    differentiable through the backward kernels."""
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return CausalFlashAttention.apply(q, k, v, dropout_rate, seed)
+    return _forward(q, k, v, dropout_rate, seed)
 
 
 def causal_flash_attention(

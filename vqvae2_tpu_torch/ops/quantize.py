@@ -17,14 +17,19 @@ plain version.  On a CPU tensor — and only because the tensor lies on the
 CPU — they use the plain PyTorch version below, which is also what the kernels
 are compared with on the card.
 
-Two kernels are ported here:
+Three kernels are ported here:
 
 * ``nearest_code_ids``                 — indices only
 * ``nearest_code(with_stats=False)``   — indices and the looked-up rows
+* ``nearest_code(with_stats=True)``    — indices, rows and the EMA statistics:
+  per-code counts ``csum (K,)`` and sums ``esum (K, D)`` in fp32.  The
+  kernel's sums are taken in an order fixed by the ids alone, so ``esum`` is
+  the same bit for bit from run to run; it differs from the plain version's
+  ``index_add_`` by the rounding of another order.
 
-The statistics flavour (``with_stats=True``: per-code counts and sums for the
-EMA update) has no CUDA kernel yet: on a CUDA tensor it raises
-``NotImplementedError``; on the CPU the plain version returns the statistics.
+None is differentiable (the JAX package gives them a zero vjp): the wrappers
+run under ``torch.no_grad()`` and callers write the straight-through estimator
+themselves.
 """
 
 from __future__ import annotations
@@ -38,8 +43,10 @@ from vqvae2_tpu_torch.ops import _build
 
 # Launches of each CUDA kernel, and uses of the plain version by a wrapper.
 # A wrapper adds one where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"nearest_code_ids": 0, "nearest_code_lookup": 0}
-plain_counts: Dict[str, int] = {"nearest_code_ids": 0, "nearest_code_lookup": 0}
+launch_counts: Dict[str, int] = {
+    "nearest_code_ids": 0, "nearest_code_lookup": 0, "nearest_code_stats": 0}
+plain_counts: Dict[str, int] = {
+    "nearest_code_ids": 0, "nearest_code_lookup": 0, "nearest_code_stats": 0}
 
 
 def reset_counts() -> None:
@@ -110,6 +117,11 @@ def _library() -> ctypes.CDLL:
         lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
         lib.vq_nearest_lookup.restype = i32
         lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.vq_stats_scratch_bytes.restype = i64
+        lib.vq_stats_scratch_bytes.argtypes = [i64, i32, i32]
+        lib.vq_nearest_stats.restype = i32
+        lib.vq_nearest_stats.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
+                                         i32, ptr]
         lib.vq_error_string.restype = ctypes.c_char_p
         lib.vq_error_string.argtypes = [i32]
         _lib = lib
@@ -182,6 +194,37 @@ def _nearest_code_lookup_cuda(
     return idx, q
 
 
+# The statistics kernels keep a K-int histogram row in shared memory.
+MAX_K_STATS = 12288
+
+
+def _nearest_code_stats_cuda(
+    flat: torch.Tensor, embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_cuda_inputs(flat, embed)
+    n, d = flat.shape
+    k = embed.shape[0]
+    if k > MAX_K_STATS or n >= 2 ** 31:
+        raise ValueError(
+            f"the statistics kernel takes K <= {MAX_K_STATS} and N < 2^31, got K={k}, N={n}")
+    lib = _library()
+    idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
+    q = torch.empty((n, d), dtype=flat.dtype, device=flat.device)
+    csum = torch.empty((k,), dtype=torch.float32, device=flat.device)
+    esum = torch.empty((k, d), dtype=torch.float32, device=flat.device)
+    nbytes = lib.vq_stats_scratch_bytes(n, d, k)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.vq_nearest_stats(
+            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), csum.data_ptr(),
+            esum.data_ptr(), scratch.data_ptr(), nbytes, n, d, k,
+            int(flat.dtype == torch.bfloat16), stream)
+    _raise_on_error(lib, code, "vq_nearest_stats")
+    launch_counts["nearest_code_stats"] += 1
+    return idx, q, csum, esum
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
@@ -211,18 +254,17 @@ def nearest_code(
 
     Not differentiable: callers write the straight-through estimator
     themselves.  ``with_stats=False`` (inference, extraction) returns zeros in
-    place of the statistics.  ``with_stats=True`` on a CUDA tensor raises:
-    that kernel belongs to the stage-1 training slice of the port."""
+    place of the statistics; ``with_stats=True`` (the EMA update of training)
+    returns them."""
     _check_shapes(flat, embed)
     k, d = embed.shape
     if flat.device.type == "cuda":
         if with_stats:
-            raise NotImplementedError(
-                "nearest_code(with_stats=True) has no CUDA kernel yet: the statistics "
-                "kernel comes with the stage-1 training slice of the port")
+            return _nearest_code_stats_cuda(flat, embed)
         idx, q = _nearest_code_lookup_cuda(flat, embed)
     elif flat.device.type == "cpu":
         if with_stats:
+            plain_counts["nearest_code_stats"] += 1
             return nearest_code_reference(flat, embed)
         plain_counts["nearest_code_lookup"] += 1
         idx, q = nearest_code_lookup_reference(flat, embed)
