@@ -6,7 +6,8 @@ on the GPU.
     python3 chip_smoke.py               # needs one card; exits non-zero without
     python3 chip_smoke.py --breakdown   # also times the stages of encode_ids, of the
                                         # top prior's forward and of one train step of
-                                        # stage 1 and of the top prior; profiles the sampler
+                                        # stage 1, of the top prior and of the ReID
+                                        # trainer; profiles the sampler
     python3 chip_smoke.py --repeatability   # also counts ids that flip between calls
 
 Phases, each printing one JSON line; the first failure ends the run non-zero:
@@ -41,6 +42,17 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
 5. times    — CUDA-event times of each kernel, its plain version and the
               nearest library route; ``encode_ids`` in img/s, the top prior's
               forward in ms, a train step of stage 1 and of both priors
+6. abn_kernels — the in-place ABN forward (K7) and backward (K8) against their
+              plain versions at the inputs of the 13 ABNs of
+              ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
+              and at awkward shapes (one row, three channels, bf16, eval mode,
+              the elu asymptote); the backward twice, its sums bit for bit
+7. main_reid — the ReID path with the counters at zero before and read after:
+              the eval forward at batch 50, ``train.reid.main --synthetic`` at
+              its defaults for a few steps validating every epoch on a raw SYSU
+              tree, the losses falling; one step held against the CPU
+8. times_reid — K7/K8 times against bound, plain and library; a ReID train
+              step and the eval forward
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
 import itertools
 import json
 import os
@@ -70,6 +83,7 @@ from vqvae2_tpu_torch.models import build_vqvae
 from vqvae2_tpu_torch.models.incremental import teacher_forced_logits
 from vqvae2_tpu_torch.ops import _build
 from vqvae2_tpu_torch.ops import flash_attention as fa
+from vqvae2_tpu_torch.ops import inplace_abn as ia
 from vqvae2_tpu_torch.ops import quantize as qz
 from vqvae2_tpu_torch.train import extract_codes, sample
 from vqvae2_tpu_torch.train import pixelsnail as tp
@@ -161,8 +175,18 @@ KERNELS = {
         "source": "vqvae2_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "vqvae2_tpu/ops/flash_attention.py:176",
     },
+    "abn_forward": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/inplace_abn.cu",
+        "replaces": "vqvae2_tpu/ops/inplace_abn.py:80",
+    },
+    "abn_backward": {
+        "route": "cuda",
+        "source": "vqvae2_tpu_torch/ops/csrc/inplace_abn.cu",
+        "replaces": "vqvae2_tpu/ops/inplace_abn.py:89",
+    },
 }
-SOURCES = ("quantize", "flash_attention")
+SOURCES = ("quantize", "flash_attention", "inplace_abn")
 
 
 def emit(phase: str, **fields) -> None:
@@ -338,6 +362,7 @@ def phase_build() -> None:
         paths = list(pool.map(_build.build, SOURCES))
     qz._library()
     fa._library()
+    ia._library()
     built = {}
     for name, path in zip(SOURCES, paths):
         info = _build.build_info[name]
@@ -794,13 +819,14 @@ def write_checkpoints(vqvae, tmp: str) -> dict:
 
 
 def all_counts() -> dict:
-    return {"launches": {**qz.launch_counts, **fa.launch_counts},
-            "plain_calls": {**qz.plain_counts, **fa.plain_counts}}
+    return {"launches": {**qz.launch_counts, **fa.launch_counts, **ia.launch_counts},
+            "plain_calls": {**qz.plain_counts, **fa.plain_counts, **ia.plain_counts}}
 
 
 def reset_all_counts() -> None:
     qz.reset_counts()
     fa.reset_counts()
+    ia.reset_counts()
 
 
 def numpy_codes(seed: int, *shape) -> torch.Tensor:
@@ -1672,12 +1698,515 @@ def phase_repeatability(model, x, calls: int = 6) -> None:
     emit("repeatability", batch=BATCH, **out)
 
 
+# ---------------------------------------------------------------------------
+# the ReID + part-parsing path: the ABN kernels (K7, K8), EmbedNet2 and its
+# trainer
+# ---------------------------------------------------------------------------
+
+REID_ARCH = "resnet50"
+REID_HW = (288, 144)            # train/reid.py's IMG_H, IMG_W
+REID_P, REID_K = 6, 4           # the command line's --batch_size and --num_pos
+REID_ROWS = REID_P * REID_K     # loader rows a step; three modalities of images each
+REID_EVAL_BATCH = 50            # eval/reid.py's test_batch
+REID_STEPS = 10
+REID_IDS = 8                    # make_synthetic_sysu's identities
+N_ABN = 13                      # in-place ABNs in one EmbedNet2 forward
+# The ABN kernels against their plain versions: fp32 as the JAX package holds
+# its own fused op (one product and one add in another order, FMA-contracted on
+# the card); bf16 outputs may round to the neighbouring bf16 value (the
+# attention kernels' bf16 tolerance).  The backward's sums against a float64 sum of the same
+# terms: each within this fraction of the sum of its terms' magnitudes.
+ABN_TOL = dict(atol=1e-5, rtol=1e-5)
+ABN_TOL_BF16 = FA_TOL_BF16
+ABN_SUM_RTOL = 1e-5
+# The card-vs-CPU ReID step is taken at 128x64: at 96x48 the fp32 gradient of
+# a few trunk tensors moves by up to 6.5e-2 of their size with the rounding
+# alone (the port's own fp32 against its float64 backward on the CPU), at
+# 128x64 by at most 1.5e-3 (1.8e-2 with this step's seed).  GRAD_RTOL (each
+# tensor within 1e-3 of its largest element) is not met there: single
+# tensors differ between card and CPU by up to 1.07e-1 of their size
+# (trunk.layer4.0.conv1, which lies as far from the float64 backward), while
+# each group's gradient agrees within 3.5e-3 of its norm (one NVIDIA H100
+# 80GB HBM3, 700 W).
+# The check holds each learning-rate group's gradient, as one vector, to
+# REID_GRAD_NORM_RTOL of its norm, and reports the worst tensors beside the
+# CPU's own distance from a float64 backward.
+REID_GRAD_NORM_RTOL = 1e-2
+REID_SMALL_HW = (128, 64)
+
+
+def capture_abn_inputs(model, batch) -> list:
+    """The rows each of the 13 in-place ABNs of ``model`` gets in a train-mode
+    forward of ``batch``, in call order: ``(name, x (M, C))``."""
+    from vqvae2_tpu_torch.models.abn import InPlaceABN
+
+    seen, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, InPlaceABN):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: seen.append(
+                    (name, args[0].detach().reshape(-1, args[0].shape[-1]).contiguous()))))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        model.train()(xRGB=batch["rgb"], xIR=batch["ir"], xZ=batch["gray"], modal=0,
+                      generator=gen)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def abn_vectors(c: int, gen: torch.Generator, x: torch.Tensor, shift_offset: float = 0.0) -> dict:
+    """Per-channel vectors as InPlaceABN builds them from ``x``'s moments and
+    a weight of either sign."""
+    w = torch.randn(c, generator=gen, device="cuda")
+    b = 0.3 * torch.randn(c, generator=gen, device="cuda") + shift_offset
+    mean, var = ia.batch_moments(x)
+    w_t, rstd = w.abs() + 1e-5, torch.rsqrt(var + 1e-5)
+    return {"mean": mean, "var": var, "w_t": w_t, "shift": b,
+            "scale": (rstd * w_t).contiguous(), "mul": (w_t * rstd).contiguous()}
+
+
+def float64_sums(z, dz, b, w_t, activation):
+    """edz, eydz summed in float64 over the fp32 terms the kernel sums, and the
+    sums of their terms' magnitudes."""
+    y, dy = ia.act_invert(z.float(), dz.float(), activation, 0.01)
+    dy, prod = dy.double(), ((y - b) / w_t * dy).double()
+    return dy.sum(0), prod.sum(0), dy.abs().sum(0), prod.abs().sum(0)
+
+
+def compare_abn_with_plain(x, label, gen, activation=ia.ACT_LEAKY_RELU, training=True,
+                           shift_offset: float = 0.0) -> dict:
+    """K7 on ``x`` and K8 on its output against their plain versions; K8
+    twice, bit for bit; its sums against a float64 sum."""
+    m, c = x.shape
+    v = abn_vectors(c, gen, x.float(), shift_offset)
+    mean, scale, shift, w_t, mul = v["mean"], v["scale"], v["shift"], v["w_t"], v["mul"]
+    z = ia.abn_forward(x, mean, scale, shift, activation)
+    z_plain = ia.abn_forward_reference(x, mean, scale, shift, activation)
+    tol = ABN_TOL if x.dtype == torch.float32 else ABN_TOL_BF16
+    z_err = float((z.float() - z_plain.float()).abs().max())
+    check(bool(torch.allclose(z.float(), z_plain.float(), **tol)),
+          f"{label}: K7 differs from its plain version by {z_err}")
+    dz = (1e-3 * torch.randn(m, c, generator=gen, device="cuda")).to(x.dtype)
+    inv = 1.0 / m if training else 0.0
+    first = ia.abn_backward(z, dz, shift, w_t, mul, inv, training, activation)
+    again = ia.abn_backward(z, dz, shift, w_t, mul, inv, training, activation)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    check(repeat, f"{label}: a second K8 launch gave other results")
+    dx, edz, eydz = first
+    dx_plain, edz_plain, eydz_plain = ia.abn_backward_reference(z, dz, shift, w_t, mul, inv,
+                                                                training, activation)
+    check(bool(torch.isfinite(dx.float()).all() and torch.isfinite(edz).all()
+               and torch.isfinite(eydz).all()), f"{label}: K8 gave non-finite values")
+    # the scale of dx's terms: at M = 1 (or a channel that is constant) dx is
+    # zero in exact arithmetic and both sides hold rounding noise
+    scale_dx = max(float(dx_plain.float().abs().max()),
+                   float(dz.float().abs().max() * mul.abs().max()), 1e-30)
+    dx_err = float((dx.float() - dx_plain.float()).abs().max())
+    check(bool(torch.allclose(dx.float(), dx_plain.float(), rtol=tol["rtol"],
+                              atol=tol["atol"] * scale_dx)),
+          f"{label}: K8's dx differs from its plain version by {dx_err} (scale {scale_dx})")
+    sums = {}
+    if training and m > 1:
+        # (at M = 1 every yhat is zero in exact arithmetic: eydz's terms are the
+        # inversion's rounding on either side, and dx is checked above)
+        e64, y64, e_mag, y_mag = float64_sums(z, dz, shift, w_t, activation)
+        for name, got, want, mag in (("edz", edz, e64, e_mag), ("eydz", eydz, y64, y_mag)):
+            err = (got.double() - want).abs()
+            rel = float((err / mag.clamp_min(1e-30)).max())
+            check(bool((err <= ABN_SUM_RTOL * mag + 1e-30).all()),
+                  f"{label}: {name} off a float64 sum by {rel} of its terms' magnitude")
+            sums[f"{name}_max_rel_err_vs_float64"] = rel
+    elif not training:
+        check(not edz.any() and not eydz.any(), f"{label}: eval mode must give zero sums")
+    return {"case": label, "m": m, "c": c, "dtype": str(x.dtype), "activation": activation,
+            "training": training, "z_max_abs_err": z_err, "z_max": float(z.float().max()), "dx_max_abs_err": dx_err,
+            "dx_scale": scale_dx, "sums_bit_repeatable": repeat,
+            "edz_max_abs_err_vs_plain": float((edz - edz_plain).abs().max()),
+            "eydz_max_abs_err_vs_plain": float((eydz - eydz_plain).abs().max()), **sums}
+
+
+def abn_awkward_cases(gen: torch.Generator):
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for act in (ia.ACT_LEAKY_RELU, ia.ACT_ELU, ia.ACT_NONE):
+        yield f"M=1 C=48 {act}", normal(1, 48), act, True, 0.0
+        yield f"M=7 C=3 {act}", normal(7, 3), act, True, 0.0
+        yield f"M=1031 C=48 {act}", normal(1031, 48), act, True, 0.0
+        yield f"M=513 C=256 bf16 {act}", normal(513, 256).to(torch.bfloat16), act, True, 0.0
+        yield f"M=5000 C=3 bf16 {act}", normal(5000, 3).to(torch.bfloat16), act, True, 0.0
+        yield f"eval M=2592 C=48 {act}", normal(2592, 48), act, False, 0.0
+    # a shift of -40 puts every pre-activation far below zero: elu saturates
+    # onto -1 exactly, where the inversion must clamp to stay finite
+    yield "elu asymptote", normal(4096, 48), ia.ACT_ELU, True, -40.0
+    yield "elu asymptote bf16", normal(4096, 48).to(torch.bfloat16), ia.ACT_ELU, True, -40.0
+
+
+def reid_batch(seed: int, p: int, k: int, hw, n_ids: int):
+    """A collated part-mode P×K batch (``p * k`` loader rows, three images
+    each) from a synthetic SYSU tree, on the card."""
+    from vqvae2_tpu_torch.data.sysu import SYSUData
+    from vqvae2_tpu_torch.train import reid as tr
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.make_synthetic_sysu(d, n_ids=n_ids, per_id=8, h=hw[0], w=hw[1], seed=seed)
+        ds = SYSUData(d, part=True, seed=seed)
+        ds.samplize(p, k)
+        items = [ds[i] for i in range(p * k)]
+    return tr.to_device(tr.collate(items, hw), "cuda")
+
+
+def phase_abn_kernels() -> list:
+    """K7 and K8 against their plain versions at the inputs of the 13 ABNs of
+    EmbedNet2(resnet50) on a train-mode batch of 72 images at 288x144, and at
+    awkward shapes."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+    inputs = capture_abn_inputs(model, reid_batch(4, REID_P, REID_K, REID_HW, REID_IDS))
+    del model
+    check(len(inputs) == N_ABN, f"EmbedNet2 ran {len(inputs)} ABNs, not {N_ABN}")
+    cases = [compare_abn_with_plain(x, f"main path {name}", gen) for name, x in inputs]
+    for label, x, act, training, offset in abn_awkward_cases(gen):
+        cases.append(compare_abn_with_plain(x, label, gen, act, training, offset))
+    for cs in cases:
+        if cs["case"].startswith("elu asymptote"):
+            check(cs["z_max"] == -1.0, f"{cs['case']}: z did not saturate onto -1 ({cs['z_max']})")
+    shapes = [(name, list(x.shape)) for name, x in inputs]
+    emit("abn_kernels", tol=ABN_TOL, tol_bf16=ABN_TOL_BF16, sum_rtol=ABN_SUM_RTOL,
+         main_path_shapes=shapes, cases=cases)
+    largest = max(inputs, key=lambda t: t[1].numel())
+    return cases, largest[1]
+
+
+def write_raw_sysu(root: str, n_ids: int = REID_IDS, per_cam: int = 2, hw=(64, 32),
+                   seed: int = 0) -> str:
+    """A raw SYSU-MM01 tree: ``cam1..cam6/<id>/<n>.jpg`` and ``exp/test_id.txt``."""
+    g = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "exp"))
+    with open(os.path.join(root, "exp", "test_id.txt"), "w") as f:
+        f.write(",".join(str(i) for i in range(1, n_ids + 1)) + "\n")
+    for cam in range(1, 7):
+        for pid in range(1, n_ids + 1):
+            d = os.path.join(root, f"cam{cam}", f"{pid:04d}")
+            os.makedirs(d)
+            for k in range(per_cam):
+                Image.fromarray(g.integers(0, 255, size=(*hw, 3)).astype(np.uint8)).save(
+                    os.path.join(d, f"{k:04d}.jpg"))
+    return root
+
+
+def count_forwards(cls):
+    """A counter of ``cls`` forwards anywhere in the process: ``(counts, handle)``."""
+    counts = {"forwards": 0}
+
+    def hook(module, args, out):
+        if isinstance(module, cls):
+            counts["forwards"] += 1
+
+    return counts, torch.nn.modules.module.register_module_forward_hook(hook)
+
+
+def reid_step_against_cpu() -> dict:
+    """One ReID train step of resnet18 at 128x64, P = K = 2, on the card and
+    on the CPU from the same weights and batch, the parsing head's dropout
+    replaced by the identity on both (the two generators draw differently):
+    the metrics within LOGITS_TOL; the gradient of each learning-rate group,
+    as one vector, within REID_GRAD_NORM_RTOL of its norm.  Reports the
+    tensors that differ most beside the CPU's own distance from a float64
+    backward, which shows how ill-conditioned they are."""
+    from vqvae2_tpu_torch.part import part_model as pm
+    from vqvae2_tpu_torch.train import reid as tr
+
+    batch = reid_batch(5, 2, 2, REID_SMALL_HW, 3)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        cpu = pm.EmbedNet2(class_num=3, arch="resnet18")
+
+    def step(model, dtype, device):
+        model = copy.deepcopy(model).to(device=device, dtype=dtype)
+        b = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+             for k, v in batch.items()}
+        sgd = tr.make_optimizer(0.1, 10)
+        with torch.enable_grad():
+            _, metrics = tr.make_train_step(model, sgd, 2, 2, REID_SMALL_HW)(
+                tr.create_state(model, sgd), b)
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()})
+
+    saved = pm.dropout
+    pm.dropout = lambda x, *a, **k: x
+    try:
+        (m_gpu, g_gpu), (m_cpu, g_cpu) = step(cpu, torch.float32, "cuda"), step(cpu, torch.float32, "cpu")
+        _, g64 = step(cpu, torch.float64, "cpu")
+    finally:
+        pm.dropout = saved
+    for k in m_cpu:
+        check(bool(np.isclose(m_gpu[k], m_cpu[k], rtol=LOGITS_TOL["rtol"], atol=LOGITS_TOL["atol"])),
+              f"ReID card vs CPU step: {k} {m_gpu[k]} vs {m_cpu[k]}")
+    from vqvae2_tpu_torch.train.reid import param_group
+
+    groups = {}
+    for name in g_cpu:
+        groups.setdefault(param_group(name), []).append(name)
+    norm_err = {}
+    for group, names in groups.items():
+        err = sum(float(((g_gpu[n] - g_cpu[n]) ** 2).sum()) for n in names) ** 0.5
+        norm = sum(float((g_cpu[n] ** 2).sum()) for n in names) ** 0.5
+        norm_err[group] = err / norm
+        check(err <= REID_GRAD_NORM_RTOL * norm,
+              f"ReID card vs CPU step: the {group} gradient differs by {err / norm} of its norm")
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    worst = sorted(((rel(g_gpu[n], g_cpu[n]), n) for n in g_cpu), reverse=True)[:5]
+    return {"arch": "resnet18", "hw": list(REID_SMALL_HW), "p": 2, "k": 2,
+            "metrics_card": m_gpu, "metrics_cpu": m_cpu, "grad_norm_rel_err": norm_err,
+            "worst_tensors": [{"name": n, "card_vs_cpu": e, "cpu_fp32_vs_float64": rel(g_cpu[n], g64[n]),
+                               "card_vs_float64": rel(g_gpu[n], g64[n])} for e, n in worst]}
+
+
+def phase_main_reid(tmp: str) -> dict:
+    """The ReID path with the counters at zero before and read after: the eval
+    forward of EmbedNet2(resnet50) at batch 50, then ``train.reid.main`` at its
+    defaults on synthetic data for a few steps, validating on a raw SYSU tree
+    every epoch; then one step held against the CPU."""
+    from vqvae2_tpu_torch.eval.reid import validate
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+    from vqvae2_tpu_torch.train import reid as tr
+
+    root = os.path.join(tmp, "reid")
+    raw = write_raw_sysu(os.path.join(root, "SYSU-MM01"), hw=(128, 64))
+    ckpt, csv, map_csv = (os.path.join(root, n) for n in ("ckpt", "steps.csv", "map.csv"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(6)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda().eval()
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(REID_EVAL_BATCH, *REID_HW, 3)).astype(np.float32)).cuda()
+
+    reset_all_counts()
+    with torch.no_grad():
+        pooled, feats = model(xRGB=x, modal=1)
+    torch.cuda.synchronize()
+    check(pooled.shape == (REID_EVAL_BATCH, 2048) and feats.shape == (REID_EVAL_BATCH, 2048 + 1536)
+          and bool(torch.isfinite(feats).all()), "EmbedNet2 eval forward: shape or non-finite")
+    norm_err = float((torch.linalg.norm(feats, dim=1) - 1).abs().max())
+    check(norm_err < 1e-4, f"EmbedNet2 eval features are not unit length ({norm_err})")
+    check(ia.launch_counts == {"abn_forward": N_ABN, "abn_backward": 0},
+          f"one eval forward must launch K7 {N_ABN} times: {ia.launch_counts}")
+
+    forwards, handle = count_forwards(EmbedNet2)
+    t0 = time.perf_counter()
+    try:
+        last = tr.main(["--synthetic", "--steps", str(REID_STEPS), "--log_every", "1",
+                        "--metrics_csv", csv, "--ckpt_dir", ckpt, "--eval_every", "1",
+                        "--eval_path", raw, "--map_csv", map_csv])
+    finally:
+        handle.remove()
+    seconds = time.perf_counter() - t0
+    counts = all_counts()                       # read just after the ReID path
+    losses = csv_column(csv, "loss")
+    check(len(losses) == REID_STEPS and all(np.isfinite(losses)), f"ReID: losses {losses}")
+    check(falling(losses), f"ReID: the loss did not fall: {losses}")
+    maps = csv_column(map_csv, "mAP")
+    check(maps and all(0.0 <= v <= 1.0 for v in maps), f"ReID: mAP {maps}")
+    check(saved_step(ckpt) == REID_STEPS, "ReID: last.pt does not hold the last step")
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the ReID path: {counts['plain_calls']}")
+    n_fwd = 1 + forwards["forwards"]
+    want = {"abn_forward": N_ABN * n_fwd, "abn_backward": N_ABN * REID_STEPS}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"ReID path launches {counts['launches']}, expected {want} "
+          f"({n_fwd} forwards, {REID_STEPS} steps)")
+
+    state = CheckpointManager(ckpt).restore("last")["model"]
+    model.load_state_dict(state)
+    t0 = time.perf_counter()
+    mAP = validate(model, raw, img_size=(REID_HW[1], REID_HW[0]), test_batch=REID_EVAL_BATCH)
+    validate_seconds = time.perf_counter() - t0
+    result = {"eval_forward": {"batch": REID_EVAL_BATCH, "hw": list(REID_HW),
+                               "unit_norm_max_err": norm_err},
+              "train": {"steps": REID_STEPS, "p": REID_P, "k": REID_K, "hw": list(REID_HW),
+                        "seconds": seconds, "loss": losses, "acc": csv_column(csv, "acc"),
+                        "img_per_s_cli": csv_column(csv, "img_per_s")[-1], "mAP": maps,
+                        "last_metrics": last},
+              "validate": {"seconds": validate_seconds, "mAP": mAP},
+              "forwards": n_fwd, **counts,
+              "step_vs_cpu": reid_step_against_cpu()}
+    emit("main_reid", **result)
+    return counts["launches"], result
+
+
+def abn_work(name: str, m: int, c: int, itemsize: int) -> dict:
+    """Least bytes and operations of one call: K7 reads x and writes z, about
+    five operations an element; K8 reads z and dz and writes dx, about fifteen
+    (inversion, yhat, the two sums, dx); the channel vectors are noise."""
+    rows = m * c * itemsize
+    nbytes = (2 if name == "abn_forward" else 3) * rows + 5 * c * 4
+    flops = (5 if name == "abn_forward" else 15) * m * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
+    """Times of K7 and K8 at the largest shape the ReID train step gives them
+    (M = 186,624, C = 256, fp32; larger than the 50 MB L2), their plain
+    versions and one library route each."""
+    m, c = x.shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    v = abn_vectors(c, gen, x)
+    mean, var, scale, shift, w_t, mul = (v[k] for k in ("mean", "var", "scale", "shift", "w_t",
+                                                         "mul"))
+    z = ia.abn_forward(x, mean, scale, shift)
+    dz = 1e-3 * torch.randn(m, c, generator=gen, device="cuda")
+    run = {"abn_forward": (lambda: ia.abn_forward(x, mean, scale, shift),
+                           lambda: ia.abn_forward_reference(x, mean, scale, shift)),
+           "abn_backward": (lambda: ia.abn_backward(z, dz, shift, w_t, mul, 1.0 / m),
+                            lambda: ia.abn_backward_reference(z, dz, shift, w_t, mul, 1.0 / m))}
+    lib_fwd = lambda: F.leaky_relu(F.batch_norm(x, mean, var, w_t, shift, False, 0.0, 1e-5), 0.01)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w_t, shift)]
+    with torch.enable_grad():
+        lib_out = F.leaky_relu(F.batch_norm(leaves[0], None, None, leaves[1], leaves[2], True, 0.0,
+                                            1e-5), 0.01)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dz, retain_graph=True),
+                             reps=10)
+    library = {"abn_forward": (cuda_ms(lib_fwd, reps=20),
+                               "F.batch_norm(training=False) + F.leaky_relu"),
+               "abn_backward": (lib_bwd_ms, "autograd backward of F.batch_norm(training=True) + "
+                                            "F.leaky_relu (dx, dw, db; forward outside the timer)")}
+    main_cases = [cs for cs in cases if cs["case"].startswith("main path")]
+    out = []
+    for name, (kernel, plain) in run.items():
+        work = abn_work(name, m, c, x.element_size())
+        ms = cuda_ms(kernel, reps=20)
+        err = max(cs["z_max_abs_err"] if name == "abn_forward" else cs["dx_max_abs_err"]
+                  for cs in main_cases)
+        out.append({"name": name, **KERNELS[name], "launches": launches[name],
+                    "max_abs_err": err, "shape": {"m": m, "c": c, "dtype": str(x.dtype)},
+                    "ms": ms, "kernel_ms": ms, "plain_ms": cuda_ms(plain, reps=5),
+                    "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                    "library_ms": library[name][0], "library": library[name][1],
+                    "share_of_bound": work["bound_ms"] / ms, "bytes": work["bytes"],
+                    "flops": work["flops"]})
+    return out
+
+
+def reid_step_times() -> dict:
+    """One ReID train step at the command line's batch (72 images at
+    288x144), by the host's clock around steps ending in a synchronise, the
+    batch already on the card; its peak memory; the eval forward at batch 50."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+    from vqvae2_tpu_torch.train import reid as tr
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+    batch = reid_batch(8, REID_P, REID_K, REID_HW, REID_IDS)
+    tx = tr.make_optimizer(0.1, 10)
+    state = tr.create_state(model, tx)
+    step = tr.make_train_step(model, tx, REID_K, REID_P, REID_HW, seed=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        ms = host_ms(lambda: step(state, batch), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.eval()
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(REID_EVAL_BATCH, *REID_HW, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        eval_ms = host_ms(lambda: model(xRGB=x, modal=1), 5)
+    return {"train_step": {"rows": REID_ROWS, "images": 3 * REID_ROWS, "hw": list(REID_HW),
+                           "ms": ms, "rows_per_s": REID_ROWS / ms * 1e3,
+                           "img_per_s": 3 * REID_ROWS / ms * 1e3, "peak_memory_gb": peak},
+            "eval_forward": {"batch": REID_EVAL_BATCH, "ms": eval_ms,
+                             "img_per_s": REID_EVAL_BATCH / eval_ms * 1e3}}
+
+
+def phase_breakdown_reid() -> None:
+    """Optional: where one ReID train step (72 images at 288x144) spends its
+    time, by CUDA events: the model's forward (13 K7 launches inside it), the
+    loss and backward (13 K8), the optimizer; the kernels' own spans; and the
+    aten operators of a third step that take the most device time, by
+    ``torch.profiler`` (which nests them: a backward operator holds its parts)."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+    from vqvae2_tpu_torch.train import reid as tr
+
+    pool = [torch.cuda.Event(enable_timing=True) for _ in range(256)]
+    marks = []
+
+    def mark(label):
+        ev = pool[len(marks)]
+        ev.record()
+        marks.append((label, ev))
+
+    def timed(fn, label):
+        def inner(*args, **kw):
+            mark((label, 0))
+            out = fn(*args, **kw)
+            mark((label, 1))
+            return out
+        return inner
+
+    saved = (ia._abn_forward_cuda, ia._abn_backward_cuda)
+    ia._abn_forward_cuda = timed(saved[0], "K7 (ABN forward), 13 launches")
+    ia._abn_backward_cuda = timed(saved[1], "K8 (ABN backward), 13 launches")
+    try:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(9)
+            model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+        batch = reid_batch(9, REID_P, REID_K, REID_HW, REID_IDS)
+        tx = tr.make_optimizer(0.1, 10)
+        state = tr.create_state(model, tx)
+        step = tr.make_train_step(model, tx, REID_K, REID_P, REID_HW, seed=1)
+        hooks = [model.register_forward_pre_hook(lambda m, a: mark(("forward", 0))),
+                 model.register_forward_hook(lambda m, a, o: mark(("forward", 1)))]
+        opt_step = state.optimizer.step
+        state.optimizer.step = timed(opt_step, "optimizer")
+        with torch.enable_grad():
+            step(state, batch)                      # warm-up
+            torch.cuda.synchronize()
+            marks.clear()
+            mark(("step", 0))
+            step(state, batch)
+            mark(("step", 1))
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            state.optimizer.step = opt_step
+            timed_marks = list(marks)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step(state, batch)
+                torch.cuda.synchronize()
+    finally:
+        ia._abn_forward_cuda, ia._abn_backward_cuda = saved
+    device_ms = lambda e: getattr(e, "device_time_total", 0.0) / 1e3
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    top_ops = [{"op": e.key, "device_ms": device_ms(e), "calls": e.count}
+               for e in sorted(ops, key=device_ms, reverse=True)[:12]]
+    spans, opened = {}, {}
+    for (label, end), ev in timed_marks:
+        if end:
+            spans[label] = spans.get(label, 0.0) + opened.pop(label).elapsed_time(ev)
+        else:
+            opened[label] = ev
+    at = {label: ev for label, ev in timed_marks}
+    spans["loss and backward"] = at[("forward", 1)].elapsed_time(at[("optimizer", 0)])
+    spans["total"] = spans.pop("step")
+    emit("breakdown_reid", unit="ms", images=3 * REID_ROWS, hw=list(REID_HW), **spans,
+         profiled_step_top_aten_ops=top_ops)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="also time the stages of encode_ids, of the top prior's forward and "
-                         "of one train step of stage 1 and of the top prior, and profile the "
-                         "incremental sampler")
+                         "of one train step of stage 1, of the top prior and of the ReID "
+                         "trainer, and profile the incremental sampler")
     ap.add_argument("--repeatability", action="store_true",
                     help="also count the ids that flip between calls, with and without "
                          "deterministic cuDNN")
@@ -1713,10 +2242,21 @@ def main(argv=None) -> int:
         record = phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
                              attention_cases, stats_cases, attention_do, backward_cases,
                              train_dirs)
+        torch.cuda.empty_cache()
+        abn_cases, abn_rows = phase_abn_kernels()
+        with torch.enable_grad():
+            reid_launches, _ = phase_main_reid(tmp)
+        abn = abn_records(abn_rows, reid_launches, abn_cases)
+        record["kernels"] += abn
+        emit("times_reid", **reid_step_times(),
+             kernels={r["name"]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                                  "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+                      for r in abn})
         if args.breakdown:
             phase_breakdown(model, x)
             phase_breakdown_stage2(top)
             phase_breakdown_train(train_dirs)
+            phase_breakdown_reid()
         if args.repeatability:
             phase_repeatability(model, x)
     print(json.dumps(record), flush=True)

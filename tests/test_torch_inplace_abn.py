@@ -1,0 +1,300 @@
+"""The port's in-place activated batch norm (plain PyTorch path, which is what
+runs on a CPU tensor) against the JAX package's, on the same numpy inputs made
+from a seed: the op on the CPU (its XLA path), the two Pallas kernel bodies in
+interpret mode, ``jax.grad`` through the op with the moments as functions of
+x, eval mode, bf16 storage, the elu clamp, and the ``InPlaceABN`` / ``ABN``
+modules with their running statistics.
+
+Tolerances: forward 1e-5 (fp32, one product and one add in another order);
+gradients rtol 2e-4 / atol 2e-5, what the JAX package holds its own vjp to
+against autodiff (``tests/test_inplace_abn.py``); bf16 outputs one bf16 step
+(2^-8 relative) apart at most, where a rounding of the fp32 result can land on
+either side.  The CUDA kernels cannot run here: ``chip_smoke.py`` holds them
+against the same plain version on the card.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vqvae2_tpu.models import abn as jabn
+from vqvae2_tpu_torch.models.abn import ABN, InPlaceABN
+from vqvae2_tpu_torch.ops import inplace_abn as ta
+from vqvae2_tpu_torch.utils.jax_import import embed_net2_from_jax
+
+# the JAX package's ops/__init__ re-exports the function under the module's name
+ja = importlib.import_module("vqvae2_tpu.ops.inplace_abn")
+
+ACTS = [ta.ACT_LEAKY_RELU, ta.ACT_ELU, ta.ACT_NONE]
+TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+def _case(shape=(4, 5, 5, 16), seed=0, negative_weights=True):
+    g = np.random.default_rng(seed)
+    c = shape[-1]
+    x = g.normal(loc=0.3, size=shape).astype(np.float32)
+    w = g.normal(size=(c,)).astype(np.float32)
+    if not negative_weights:
+        w = np.abs(w) + 0.5
+    b = g.normal(size=(c,)).astype(np.float32)
+    return x, w, b
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_forward_matches_the_jax_op(activation):
+    x, w, b = _case()
+    mean, var = ja.batch_moments(jnp.asarray(x))
+    z = ja.inplace_abn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), mean, var, 1e-5,
+                       activation, 0.01, None, True)
+    tm, tv = ta.batch_moments(_t(x))
+    np.testing.assert_allclose(tm.numpy(), np.asarray(mean), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(var), **TOL)
+    ta.reset_counts()
+    got = ta.inplace_abn(_t(x), _t(w), _t(b), tm, tv, 1e-5, activation, 0.01, True)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(z), **TOL)
+    assert ta.plain_counts == {"abn_forward": 1, "abn_backward": 0}
+    assert ta.launch_counts == {"abn_forward": 0, "abn_backward": 0}
+
+
+def _interpret(fn, *args):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(fn(*args))
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("m,c", [(37, 16), (1030, 48), (5, 3)])
+def test_plain_versions_match_the_interpreted_pallas_kernels(activation, m, c):
+    """The plain forward and ``dx`` against ``_fwd_kernel`` / ``_bwd_kernel``
+    as Pallas interprets them (M not a multiple of the 1024-row block, C = 3)."""
+    g = np.random.default_rng(m + c)
+    x = g.normal(size=(m, c)).astype(np.float32)
+    mean = g.normal(scale=0.1, size=(c,)).astype(np.float32)
+    scale = g.normal(size=(c,)).astype(np.float32)
+    shift = g.normal(size=(c,)).astype(np.float32)
+    want = _interpret(ja._abn_fwd_launch, jnp.asarray(x), jnp.asarray(mean), jnp.asarray(scale),
+                      jnp.asarray(shift), activation, 0.01, jnp.float32)
+    z = ta.abn_forward_reference(_t(x), _t(mean), _t(scale), _t(shift), activation, 0.01)
+    np.testing.assert_allclose(z.numpy(), want, **TOL)
+
+    dz = g.normal(size=(m, c)).astype(np.float32)
+    w_t = (np.abs(scale) + 1e-5).astype(np.float32)
+    mul = (w_t * g.uniform(0.5, 2.0, size=(c,))).astype(np.float32)
+    dx, edz, eydz = ta.abn_backward_reference(z, _t(dz), _t(shift), _t(w_t), _t(mul), 1.0 / m,
+                                              True, activation, 0.01)
+    inv = np.float32(1.0 / m)
+    want = _interpret(ja._abn_bwd_launch, jnp.asarray(z.numpy()), jnp.asarray(dz),
+                      jnp.asarray(shift), jnp.asarray(1.0 / w_t), jnp.asarray(mul),
+                      jnp.asarray(edz.numpy() * inv), jnp.asarray(eydz.numpy() * inv),
+                      activation, 0.01)
+    np.testing.assert_allclose(dx.numpy(), want, **TOL)
+
+
+def _unfused(x, w, b, mean, var, activation, eps=1e-5, slope=0.01):
+    y = (x - mean) * jax.lax.rsqrt(var + eps) * (jnp.abs(w) + eps) + b
+    return ja._act_fwd(y, activation, slope)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_gradients_match_jax_grad_through_the_moments(activation):
+    """dx, dw, db from the autograd binding (the plain backward on the CPU)
+    against ``jax.grad`` of the JAX op and of autodiff through the unfused
+    expression with differentiable moments."""
+    x, w, b = _case((2, 3, 3, 8), seed=1)
+
+    def jax_loss(fused):
+        def loss(x, w, b):
+            mean, var = ja.batch_moments(x)
+            if fused:
+                z = ja.inplace_abn(x, w, b, jax.lax.stop_gradient(mean),
+                                   jax.lax.stop_gradient(var), 1e-5, activation, 0.01, None, True)
+            else:
+                z = _unfused(x, w, b, mean, var, activation)
+            return jnp.sum(jnp.sin(z))
+        return jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+
+    xt, wt, bt = (_t(a).clone().requires_grad_() for a in (x, w, b))
+    ta.reset_counts()
+    mean, var = ta.batch_moments(xt)
+    torch.sum(torch.sin(ta.inplace_abn(xt, wt, bt, mean, var, 1e-5, activation))).backward()
+    assert ta.plain_counts == {"abn_forward": 1, "abn_backward": 1}
+    for want in (jax_loss(True), jax_loss(False)):
+        for name, got, exp in zip("xwb", (xt.grad, wt.grad, bt.grad), want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(exp), **GRAD_TOL,
+                                       err_msg=f"d{name}")
+
+
+def test_eval_mode_gradient_has_zero_sums():
+    """Eval mode: the moments are constants, ``edz`` and ``eydz`` are zero and
+    so are ``dw`` and ``db``."""
+    x, w, b = _case((2, 3, 3, 4), seed=2, negative_weights=False)
+    g = np.random.default_rng(3)
+    mean = g.normal(size=(4,)).astype(np.float32)
+    var = g.uniform(0.5, 2.0, size=(4,)).astype(np.float32)
+
+    def loss(x):
+        return jnp.sum(jnp.sin(ja.inplace_abn(x, jnp.asarray(w), jnp.asarray(b),
+                                              jnp.asarray(mean), jnp.asarray(var), 1e-5,
+                                              ta.ACT_LEAKY_RELU, 0.01, None, False)))
+
+    want = jax.grad(loss)(jnp.asarray(x))
+    xt, wt, bt = (_t(a).clone().requires_grad_() for a in (x, w, b))
+    torch.sum(torch.sin(ta.inplace_abn(xt, wt, bt, _t(mean), _t(var), training=False))).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert not wt.grad.any() and not bt.grad.any()
+    z2d = _t(x).reshape(-1, 4)
+    _, edz, eydz = ta.abn_backward_reference(z2d, z2d, _t(b), _t(w), _t(w), 0.0, False)
+    assert not edz.any() and not eydz.any()
+
+
+@pytest.mark.parametrize("activation", [ta.ACT_LEAKY_RELU, ta.ACT_ELU])
+def test_bf16_storage_matches_the_jax_op(activation):
+    """bf16 in, fp32 channel math, bf16 out; the gradient sums in fp32 and dx
+    back in bf16 — against the JAX op on the same bf16 values."""
+    x, w, b = _case((4, 3, 5, 16), seed=4)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    mean, var = ja.batch_moments(xb)
+    z = ja.inplace_abn(xb, jnp.asarray(w), jnp.asarray(b), mean, var, 1e-5, activation, 0.01,
+                       None, True)
+    xt = _t(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    tm, tv = ta.batch_moments(xt)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(mean), **TOL)
+    got = ta.inplace_abn(xt, _t(w), _t(b), tm, tv, 1e-5, activation)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(z.astype(jnp.float32)), **BF16_TOL)
+
+    # the backward from the same stored z and dz: dx in bf16, sums in fp32
+    g = np.random.default_rng(5)
+    z2d = _t(np.asarray(z.astype(jnp.float32))).reshape(-1, 16).to(torch.bfloat16)
+    dz2d = _t(g.normal(size=(60, 16)).astype(np.float32)).to(torch.bfloat16)
+    w_t = np.abs(w) + np.float32(1e-5)
+    mul = w_t * np.asarray(jax.lax.rsqrt(var + 1e-5))
+    inv = np.float32(1.0 / 60)
+    dx, edz, eydz = ta.abn_backward_reference(z2d, dz2d, _t(b), _t(w_t), _t(mul), 1.0 / 60,
+                                              True, activation)
+    assert dx.dtype == torch.bfloat16 and edz.dtype == eydz.dtype == torch.float32
+    want = _interpret(ja._abn_bwd_launch, jnp.asarray(z2d.float().numpy()).astype(jnp.bfloat16),
+                      jnp.asarray(dz2d.float().numpy()).astype(jnp.bfloat16), jnp.asarray(b),
+                      jnp.asarray(1.0 / w_t), jnp.asarray(mul), jnp.asarray(edz.numpy() * inv),
+                      jnp.asarray(eydz.numpy() * inv), activation, 0.01)
+    np.testing.assert_allclose(dx.float().numpy(), want.astype(np.float32), **BF16_TOL)
+
+
+def test_elu_clamp_keeps_the_asymptote_finite():
+    """bf16 storage rounds elu outputs near -1 onto -1 exactly, where log1p is
+    -inf; the clamp at -1 + 1e-6 gives finite y, dx and sums, as in the JAX
+    package."""
+    z = torch.tensor([[-1.0, -0.5, 0.25], [-1.0, 2.0, -1.0]], dtype=torch.bfloat16)
+    dz = torch.ones_like(z)
+    ones = torch.ones(3)
+    dx, edz, eydz = ta.abn_backward_reference(z, dz, torch.zeros(3), ones, ones, 0.5, True,
+                                              ta.ACT_ELU)
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(edz).all()
+    assert torch.isfinite(eydz).all()
+    y, dy = ta.act_invert(z.float(), dz.float(), ta.ACT_ELU, 0.01)
+    jy, jdy = ja._act_invert(jnp.asarray(z.float().numpy()), jnp.asarray(dz.float().numpy()),
+                             ta.ACT_ELU, 0.01)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(dy.numpy(), np.asarray(jdy))
+    assert float(y[0, 0]) == pytest.approx(np.log1p(np.float32(ta.ELU_CLAMP)), rel=1e-6)
+
+
+def _flax_vars(module, x, seed):
+    v = jax.tree_util.tree_map(np.asarray, module.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    g = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(lambda a: (a + g.normal(scale=0.3, size=a.shape))
+                                    .astype(np.float32), v["params"])
+    return {"params": params, "batch_stats": v["batch_stats"]}
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_inplace_abn_module_and_its_running_stats(activation):
+    """Train mode twice (the running statistics with the unbiased
+    ``count / (count - 1)``), then eval mode on the moved statistics, against
+    the flax module; one gradient of the train-mode output."""
+    x = np.random.default_rng(6).normal(loc=2.0, scale=3.0, size=(4, 5, 5, 8)).astype(np.float32)
+    jm = jabn.InPlaceABN(num_features=8, activation=activation)
+    variables = _flax_vars(jm, x, 7)
+    tm = InPlaceABN(8, activation=activation)
+    tm.load_state_dict(embed_net2_from_jax(variables))
+    xt = _t(x).requires_grad_()
+    for _ in range(2):
+        z, new = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        variables = {**variables, **jax.tree_util.tree_map(np.asarray, new)}
+        got = tm.train()(xt)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(z), **TOL)
+    for name in ("running_mean", "running_var"):
+        np.testing.assert_allclose(getattr(tm, name).numpy(),
+                                   variables["batch_stats"][name], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tm.eval()(xt).detach().numpy(),
+                               np.asarray(jm.apply(variables, jnp.asarray(x), train=False)), **TOL)
+
+    def loss(p):
+        z, _ = jm.apply({**variables, "params": p}, jnp.asarray(x), train=True,
+                        mutable=["batch_stats"])
+        return jnp.sum(jnp.cos(z))
+
+    want = jax.grad(loss)(variables["params"])
+    tm.train()
+    torch.sum(torch.cos(tm(_t(x)))).backward()
+    np.testing.assert_allclose(tm.weight.grad.numpy(), np.asarray(want["weight"]), **GRAD_TOL)
+    np.testing.assert_allclose(tm.bias.grad.numpy(), np.asarray(want["bias"]), **GRAD_TOL)
+
+
+def test_count_of_one_row_divides_by_zero_as_the_jax_package_does():
+    """One row a channel (the PSP 1x1 stage at batch 1): ``count - 1 = 0``."""
+    x = np.ones((1, 1, 1, 4), np.float32)
+    with pytest.raises(ZeroDivisionError):
+        jabn.InPlaceABN(4).apply(jabn.InPlaceABN(4).init(jax.random.PRNGKey(0), jnp.asarray(x)),
+                                 jnp.asarray(x), train=True, mutable=["batch_stats"])
+    with pytest.raises(ZeroDivisionError):
+        InPlaceABN(4).train()(_t(x))
+
+
+@pytest.mark.parametrize("activation", [ta.ACT_LEAKY_RELU, ta.ACT_ELU, ta.ACT_NONE, "relu"])
+def test_plain_abn_module(activation):
+    """``ABN`` (flax BatchNorm + activation) in train and eval mode."""
+    x = np.random.default_rng(8).normal(size=(3, 4, 4, 6)).astype(np.float32)
+    jm = jabn.ABN(num_features=6, activation=activation)
+    variables = _flax_vars(jm, x, 9)
+    tm = ABN(6, activation=activation)
+    tm.load_state_dict({f"bn.{k}": v for k, v in embed_net2_from_jax(
+        {"params": variables["params"]["BatchNorm_0"],
+         "batch_stats": variables["batch_stats"]["BatchNorm_0"]}).items()})
+    z, new = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    np.testing.assert_allclose(tm.train()(_t(x)).detach().numpy(), np.asarray(z), **TOL)
+    np.testing.assert_allclose(tm.bn.running_var.numpy(),
+                               np.asarray(new["batch_stats"]["BatchNorm_0"]["var"]), rtol=1e-6)
+    variables = {**variables, "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                                    new["batch_stats"])}
+    np.testing.assert_allclose(tm.eval()(_t(x)).detach().numpy(),
+                               np.asarray(jm.apply(variables, jnp.asarray(x))), **TOL)
+
+
+def test_the_wrappers_refuse_other_devices_and_activations():
+    x = torch.zeros(4, 8)
+    v = torch.zeros(8)
+    ta.reset_counts()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ta.abn_forward(x.to("meta"), v, v, v)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ta.abn_backward(x.to("meta"), x.to("meta"), v, v, v, 0.25)
+    with pytest.raises(ValueError, match="activation"):
+        ta.abn_forward(x, v, v, v, activation="gelu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ta._abn_forward_cuda(x, v, v, v, ta.ACT_LEAKY_RELU, 0.01)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ta._abn_backward_cuda(x, x, v, v, v, 0.25, True, ta.ACT_LEAKY_RELU, 0.01)
+    assert not any(ta.plain_counts.values()) and not any(ta.launch_counts.values())

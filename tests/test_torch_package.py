@@ -45,7 +45,12 @@ def test_the_walk_sees_the_port():
             "vqvae2_tpu_torch/train/pixelsnail.py", "vqvae2_tpu_torch/train/sample.py",
             "vqvae2_tpu_torch/utils/image.py", "vqvae2_tpu_torch/train/vqvae.py",
             "vqvae2_tpu_torch/utils/schedules.py", "vqvae2_tpu_torch/utils/metrics.py",
-            "vqvae2_tpu_torch/utils/checkpoint.py"} <= names
+            "vqvae2_tpu_torch/utils/checkpoint.py", "vqvae2_tpu_torch/ops/inplace_abn.py",
+            "vqvae2_tpu_torch/models/abn.py", "vqvae2_tpu_torch/models/layers.py",
+            "vqvae2_tpu_torch/models/resnet.py", "vqvae2_tpu_torch/part/part_model.py",
+            "vqvae2_tpu_torch/part/lovasz.py", "vqvae2_tpu_torch/part/criterion.py",
+            "vqvae2_tpu_torch/data/sysu.py", "vqvae2_tpu_torch/eval/reid.py",
+            "vqvae2_tpu_torch/losses.py", "vqvae2_tpu_torch/train/reid.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -85,7 +90,7 @@ print("BUILT", _build.build_info, os.path.isdir(_build.BUILD_DIR) and os.listdir
     assert built.endswith(("False", "[]")), built
 
 
-@pytest.mark.parametrize("name", ["quantize", "flash_attention"])
+@pytest.mark.parametrize("name", ["quantize", "flash_attention", "inplace_abn"])
 def test_sources_of_the_kernels_are_in_the_package(name):
     from vqvae2_tpu_torch.ops import _build
 
@@ -381,15 +386,68 @@ def test_trainers_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     assert os.listdir(str(tmp_path)) == []
 
 
-@pytest.mark.parametrize("trainer", ["vqvae", "pixelsnail"])
+@pytest.mark.parametrize("trainer", ["vqvae", "pixelsnail", "reid"])
 def test_bf16_is_refused_not_ignored(trainer, tmp_path):
-    """``--bf16`` stays in both parsers, and raises: the bf16 compute mode is
-    not ported."""
+    """``--bf16`` stays in the three parsers, and raises: the bf16 compute mode
+    is not ported."""
     from vqvae2_tpu_torch.train import pixelsnail as tp
+    from vqvae2_tpu_torch.train import reid as tr
     from vqvae2_tpu_torch.train import vqvae as tv
 
-    argv = (["--synthetic", "--steps", "1", "--size", "32"] if trainer == "vqvae"
-            else [str(tmp_path / "codes.vq2")])
-    module = tv if trainer == "vqvae" else tp
+    argv = {"vqvae": ["--synthetic", "--steps", "1", "--size", "32"],
+            "pixelsnail": [str(tmp_path / "codes.vq2")],
+            "reid": ["--synthetic", "--steps", "1"]}[trainer]
+    module = {"vqvae": tv, "pixelsnail": tp, "reid": tr}[trainer]
     with pytest.raises(NotImplementedError, match="bf16"):
         module.main(argv + ["--bf16", "--device", "cpu"])
+
+
+def test_the_abn_kernel_path_never_takes_the_plain_version(monkeypatch):
+    """The ABN wrappers on a tensor that claims to be on the card go to the
+    launchers (here: to the build, which is refused), never to the plain
+    versions, forward and backward, and through the autograd binding; a real
+    CPU tensor raises in the launchers."""
+    from vqvae2_tpu_torch.ops import inplace_abn as ia
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+        device = property(lambda self: torch.device("cuda:0"))
+
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(ia, "_library", refuse)
+    for plain in ("abn_forward_reference", "abn_backward_reference"):
+        monkeypatch.setattr(ia, plain, lambda *a, **k: pytest.fail("a CUDA tensor reached the plain version"))
+    ia.reset_counts()
+    x, v = torch.zeros(4, 8).as_subclass(OnCard), torch.zeros(8).as_subclass(OnCard)
+    with pytest.raises(Refused):
+        ia.abn_forward(x, v, v, v)
+    with pytest.raises(Refused):
+        ia.abn_backward(x, x, v, v, v, 0.25)
+    with pytest.raises(Refused):
+        ia.inplace_abn(torch.zeros(2, 2, 8).as_subclass(OnCard), v, v, v, v + 1, training=False)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ia._abn_forward_cuda(torch.zeros(4, 8), torch.zeros(8), torch.zeros(8), torch.zeros(8),
+                             ia.ACT_LEAKY_RELU, 0.01)
+    assert not any(ia.plain_counts.values()) and not any(ia.launch_counts.values())
+
+
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: (torch.zeros(4, 8, dtype=torch.float16), torch.zeros(8)), TypeError, "float32 or bfloat16"),
+    (lambda: (torch.zeros(4, 8), torch.zeros(8, dtype=torch.bfloat16)), TypeError, "channel vectors"),
+    (lambda: (torch.zeros(4, 8), torch.zeros(9)), TypeError, "channel vectors"),
+    (lambda: (torch.zeros(4, 4097), torch.zeros(4097)), ValueError, "C <= 2048"),
+    (lambda: (torch.zeros(0, 8), torch.zeros(8)), ValueError, "M >= 1"),
+    (lambda: (torch.zeros(4, 16)[:, :8], torch.zeros(8)), ValueError, "contiguous"),
+    (lambda: (torch.zeros(2, 4, 8), torch.zeros(8)), ValueError, "must be"),
+], ids=["float16", "bf16 vector", "vector length", "C too wide", "M == 0", "strided", "3-d"])
+def test_the_abn_launcher_refuses_what_the_kernel_does_not_take(make, error, match):
+    from vqvae2_tpu_torch.ops import inplace_abn as ia
+
+    rows, vec = make()
+    with pytest.raises(error, match=match):
+        ia._check_cuda_rows(_on_card(rows), (_on_card(vec),) * 3, "x")

@@ -178,3 +178,60 @@ def iterate_batches(
         done.set()
         if pool is not None:
             pool.shutdown(wait=False)
+
+
+def prefetch_iter(make_iter, depth: int = 2):
+    """Run any batch-producing iterable in a background thread with a bounded
+    queue, so host-side collation (augmentation, numpy stacking) overlaps the
+    device's work.  ``make_iter`` is a zero-argument callable returning the
+    iterable, so the work happens on the producer thread.  An error of the
+    producer is raised to the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: List[BaseException] = []
+    done = threading.Event()     # the consumer stopped: the producer must too
+
+    def put(item) -> bool:
+        while not done.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for item in make_iter():
+                if not put(item):
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            err.append(e)
+        put(sentinel)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        done.set()
+
+
+def epoch_row_batches(dataset, loader_batch: int, depth: int = 2):
+    """Prefetched sequential row batches for one epoch of an identity-sampled
+    dataset (call after ``samplize()``): ``[dataset[i], ...]`` lists of
+    ``loader_batch`` rows for each full window, gathered on one background
+    thread, so the augmentations draw from the dataset's generator in the same
+    order as inline gathering would."""
+
+    def gen():
+        for s in range(0, len(dataset) - loader_batch + 1, loader_batch):
+            yield [dataset[int(i)] for i in range(s, s + loader_batch)]
+
+    return prefetch_iter(gen, depth=depth)

@@ -1,0 +1,83 @@
+"""ABN modules (port of ``vqvae2_tpu/models/abn.py``): ``InPlaceABN``, the
+fused op of ``ops/inplace_abn.py`` behind a module, and ``ABN``, plain batch
+norm + activation.  Inputs are ``(..., C)`` with channels last.
+
+Running statistics are buffers with torch's semantics, as in the JAX package:
+``running = (1 - m) * running + m * batch`` with ``m = 0.1``, the variance
+corrected to unbiased by ``count / (count - 1)``.  At ``count == 1`` (one row a
+channel) that raises ``ZeroDivisionError``, as the JAX package does.  ``InPlaceABNSync``
+(moments over several devices) is not ported: it comes with
+``torch.distributed``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vqvae2_tpu_torch.models.resnet import BatchNorm
+from vqvae2_tpu_torch.ops.inplace_abn import (ACT_ELU, ACT_LEAKY_RELU, ACT_NONE, batch_moments,
+                                              inplace_abn)
+
+
+class InPlaceABN(nn.Module):
+    """Fused activated batch norm: in training mode it normalises with the
+    batch's moments and advances the running statistics, in eval mode it uses
+    them."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01):
+        super().__init__()
+        self.num_features, self.eps, self.momentum = num_features, eps, momentum
+        self.activation, self.slope = activation, slope
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.num_features
+        if x.shape[-1] != c:
+            raise ValueError(f"expected {c} channels, got {tuple(x.shape)}")
+        if self.training:
+            mean, var = batch_moments(x)
+            count = x.numel() // c
+            with torch.no_grad():
+                self.running_mean.copy_((1 - self.momentum) * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_((1 - self.momentum) * self.running_var
+                                       + self.momentum * var * (count / (count - 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        return inplace_abn(x, self.weight, self.bias, mean, var, self.eps, self.activation,
+                           self.slope, self.training)
+
+
+class ABN(nn.Module):
+    """Plain batch norm + activation (flax ``BatchNorm`` semantics: biased
+    batch variance ``E[x^2] - E[x]^2`` clipped at 0, the gradient through the
+    moments by autograd), kept as the ground truth the fused op is held to."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01):
+        super().__init__()
+        self.bn = BatchNorm(num_features, momentum=1 - momentum, eps=eps, use_scale=affine,
+                            use_bias=affine)
+        self.activation, self.slope = activation, slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(x)
+        if self.activation == ACT_LEAKY_RELU:
+            return F.leaky_relu(x, self.slope)
+        if self.activation == ACT_ELU:
+            return F.elu(x)
+        if self.activation == ACT_NONE:
+            return x
+        if self.activation == "relu":
+            return F.relu(x)
+        raise ValueError(self.activation)

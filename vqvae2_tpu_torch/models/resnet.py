@@ -1,0 +1,282 @@
+"""ResNet backbone (18/34/50) of the ReID nets (port of
+``vqvae2_tpu/models/resnet.py``).
+
+Split into :class:`ResNetStem` (conv1 -> bn -> maxpool -> layer1, with no ReLU
+after the batch norm: the reference's modality stems omit it) and
+:class:`ResNetTrunk` (layer2-4, layer4 at stride 1 when ``last_stride_1``),
+because the ReID nets build one stem per modality over a shared trunk.  The
+stride of a bottleneck block is on its 3x3 convolution (torchvision's
+ResNet-B).
+
+Every module takes and returns ``(B, H, W, C)``.  Parameters carry
+torchvision's names (``conv1.weight``, ``layer2.0.downsample.1.running_var``),
+so :func:`import_torchvision_resnet` copies a torchvision ``state_dict`` key for
+key, without torchvision.
+
+:class:`BatchNorm` is flax's ``BatchNorm``, not torch's: the batch variance is
+the biased ``E[x^2] - E[x]^2`` (clipped at 0) in the normalisation *and* in the
+running variance, which moves with momentum 0.99; torch's ``batch_norm``
+writes the unbiased variance.  The fused ABN (``models/abn.py``) keeps its own
+unbiased update: the two are not interchangeable.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+CONFIGS = {
+    "resnet18": {"block": "basic", "layers": (2, 2, 2, 2), "width": 512},
+    "resnet34": {"block": "basic", "layers": (3, 4, 6, 3), "width": 512},
+    "resnet50": {"block": "bottleneck", "layers": (3, 4, 6, 3), "width": 2048},
+}
+
+# flax's default kernel initialiser (LeCun normal: a normal truncated at two
+# standard deviations, scaled to variance 1 / fan_in)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    fan_in = weight.shape[1] * math.prod(weight.shape[2:]) if weight.ndim > 1 else 1
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` on ``(B, H, W, C)``, flax's initialisers (LeCun normal,
+    zero bias).  The permutes are views: a ``(B, H, W, C)`` tensor is NCHW in
+    ``channels_last`` memory, which the convolution takes as it is."""
+
+    def __init__(self, in_features: int, features: int, kernel_size=1, stride=1, padding=0,
+                 dilation=1, bias: bool = True):
+        super().__init__(in_features, features, kernel_size, stride=stride, padding=padding,
+                         dilation=dilation, bias=bias)
+        with torch.no_grad():
+            lecun_normal_(self.weight)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's initialisers (LeCun normal, zero bias)."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True):
+        super().__init__(in_features, features, bias=bias)
+        with torch.no_grad():
+            lecun_normal_(self.weight)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` over the last axis of ``(..., C)``.
+
+    Training mode normalises with the batch's mean and biased variance
+    ``max(E[x^2] - E[x]^2, 0)`` (the gradient flows through both) and moves
+    the buffers ``running = momentum * running + (1 - momentum) * batch``; eval
+    mode uses the buffers.  ``scale_init`` is the scale's initial value."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 use_scale: bool = True, use_bias: bool = True, scale_init: float = 1.0):
+        super().__init__()
+        self.num_features, self.momentum, self.eps = num_features, momentum, eps
+        self.weight = (nn.Parameter(torch.full((num_features,), float(scale_init)))
+                       if use_scale else None)
+        self.bias = nn.Parameter(torch.zeros(num_features)) if use_bias else None
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            x32 = x.to(torch.float32)
+            mean = torch.mean(x32, dim=dims)
+            mean2 = torch.mean(torch.square(x32), dim=dims)
+            var = torch.maximum(mean2 - torch.square(mean), torch.zeros_like(mean))
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = x - mean
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = y * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding).permute(0, 2, 3, 1)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(in_features, features, 3, stride, padding=1, bias=False)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(features)
+        self.downsample = (nn.Sequential(Conv2d(in_features, features, 1, stride, bias=False),
+                                         BatchNorm(features)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        residual = self.downsample(x) if self.downsample is not None else x
+        return F.relu(h + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        out = features * 4
+        self.conv1 = Conv2d(in_features, features, 1, bias=False)
+        self.bn1 = BatchNorm(features)
+        # the stride sits on the 3x3 (ResNet-B); last-stride surgery zeroes it
+        self.conv2 = Conv2d(features, features, 3, stride, padding=1, bias=False)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = Conv2d(features, out, 1, bias=False)
+        self.bn3 = BatchNorm(out)
+        self.downsample = (nn.Sequential(Conv2d(in_features, out, 1, stride, bias=False),
+                                         BatchNorm(out)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(h))
+        residual = self.downsample(x) if self.downsample is not None else x
+        return F.relu(h + residual)
+
+
+def _make_layer(block_type: str, features: int, n_blocks: int, stride: int,
+                in_features: int) -> nn.ModuleList:
+    block = BasicBlock if block_type == "basic" else Bottleneck
+    out_features = features * block.expansion
+    need_ds = stride != 1 or in_features != out_features
+    blocks = [block(in_features, features, stride, downsample=need_ds)]
+    blocks += [block(out_features, features) for _ in range(1, n_blocks)]
+    return nn.ModuleList(blocks)
+
+
+def expansion(arch: str) -> int:
+    return 1 if CONFIGS[arch]["block"] == "basic" else 4
+
+
+class ResNetStem(nn.Module):
+    """conv1 + bn1 + maxpool + layer1, with no ReLU after bn1."""
+
+    def __init__(self, arch: str = "resnet50"):
+        super().__init__()
+        cfg = CONFIGS[arch]
+        self.conv1 = Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.bn1 = BatchNorm(64)
+        self.layer1 = _make_layer(cfg["block"], 64, cfg["layers"][0], 1, 64)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.bn1(self.conv1(x))
+        h = max_pool(h, 3, 2, 1)
+        for blk in self.layer1:
+            h = blk(h)
+        return h
+
+
+class ResNetTrunk(nn.Module):
+    """layer2-4, layer4 at stride 1 when ``last_stride_1``.  Returns
+    ``(x3, x4)``: the features of layer3 and of layer4."""
+
+    def __init__(self, arch: str = "resnet50", last_stride_1: bool = True):
+        super().__init__()
+        cfg, e = CONFIGS[arch], expansion(arch)
+        self.layer2 = _make_layer(cfg["block"], 128, cfg["layers"][1], 2, 64 * e)
+        self.layer3 = _make_layer(cfg["block"], 256, cfg["layers"][2], 2, 128 * e)
+        self.layer4 = _make_layer(cfg["block"], 512, cfg["layers"][3],
+                                  1 if last_stride_1 else 2, 256 * e)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = x
+        for blk in (*self.layer2, *self.layer3):
+            h = blk(h)
+        x3 = h
+        for blk in self.layer4:
+            h = blk(h)
+        return x3, h
+
+
+def pool_dim(arch: str) -> int:
+    return CONFIGS[arch]["width"]
+
+
+def _torchvision_tensors(sd) -> Dict[str, torch.Tensor]:
+    """A torch ``state_dict`` (or a checkpoint wrapping one) as {torchvision
+    key: tensor}: ``module.`` wrappers and any common prefix in front of the
+    canonical names (``backbone.body.`` of a detection model) are stripped."""
+    for key in ("state_dict", "model", "net"):
+        if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
+            sd = sd[key]
+    tensors = {}
+    for k, v in sd.items():
+        tensors[k[7:] if k.startswith("module.") else k] = torch.as_tensor(v).detach().cpu()
+    if "conv1.weight" not in tensors:
+        tails = [k for k in tensors if k.endswith("conv1.weight") and ".layer" not in k]
+        if tails:
+            prefix = tails[0][: -len("conv1.weight")]
+            tensors = {k[len(prefix):]: v for k, v in tensors.items() if k.startswith(prefix)}
+    return tensors
+
+
+def import_torchvision_resnet(model: nn.Module,
+                              state_dict: Union[str, Mapping[str, torch.Tensor]]) -> int:
+    """Fill every ResNet stem and trunk of ``model`` from a torchvision
+    ``state_dict`` (or the path of a file holding one), in place.
+
+    Any sub-module with ``conv1``, ``bn1`` and ``layer1`` is a stem, filled
+    from ``conv1``/``bn1``/``layer1``; any with ``layer2``-``layer4`` is a
+    trunk, filled from those.  Several stems (the ReID modality stems) all get
+    the same weights, as the reference's deep copies of one pretrained base do.
+    Keys the checkpoint lacks are left as they are; a shape that differs
+    raises.  Returns the number of tensors copied."""
+    if isinstance(state_dict, str):
+        state_dict = torch.load(state_dict, map_location="cpu", weights_only=True)
+    sd = _torchvision_tensors(state_dict)
+    copied = 0
+    with torch.no_grad():
+        for _, module in model.named_modules():
+            groups: List[str] = []
+            if all(hasattr(module, a) for a in ("conv1", "bn1", "layer1")):
+                groups += ["conv1", "bn1", "layer1"]
+            if all(isinstance(getattr(module, a, None), nn.ModuleList)
+                   for a in ("layer2", "layer3", "layer4")):
+                groups += ["layer2", "layer3", "layer4"]
+            for group in groups:
+                for key, dst in getattr(module, group).state_dict(
+                        prefix=f"{group}.", keep_vars=True).items():
+                    if key not in sd:
+                        continue
+                    src = sd[key]
+                    if tuple(src.shape) != tuple(dst.shape):
+                        raise ValueError(
+                            f"shape mismatch importing {key}: model {tuple(dst.shape)} vs "
+                            f"checkpoint {tuple(src.shape)} — wrong arch?")
+                    dst.copy_(src.to(dst.dtype))
+                    copied += 1
+    if copied == 0:
+        raise ValueError("no ResNet stem/trunk pattern found in the model: nothing imported")
+    return copied

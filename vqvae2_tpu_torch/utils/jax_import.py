@@ -14,6 +14,11 @@ original PyTorch reference's ``state_dict`` layout.  The inverse of
   onto the indices of the port's ``blocks`` Sequential, which are the
   reference's.
 
+* ``EmbedNet2`` and the modules of the ReID path: :func:`embed_net2_from_jax`
+  (flax ``BatchNorm`` ``scale``/``mean``/``var`` -> ``weight``/``running_mean``/
+  ``running_var``, Dense ``(I, O)`` -> ``(O, I)``, list-like flax names such as
+  ``layer2_0`` -> ``layer2.0``).
+
 * ``PixelSNAIL``: a ``WNConv``'s ``v (kh, kw, I, O)`` → ``(O, I, kh, kw)``; a
   ``WNDense``'s ``v`` stays ``(I, O)`` (the port applies it as ``x @ w``); ``g``
   and ``b`` as they are.  flax wraps a causal convolution's parameters in
@@ -27,6 +32,7 @@ Inputs are nested dicts of **numpy** arrays (the caller does the
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -177,3 +183,74 @@ def from_reference_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.
             key = "upsample_t." + key[len("upsample_t.0."):]
         renamed[key] = torch.as_tensor(value)
     return _transpose_codebooks(renamed)
+
+
+# ---------------------------------------------------------------------------
+# The ReID + parsing path (EmbedNet2, its stems, trunk and parsing head)
+# ---------------------------------------------------------------------------
+
+# flax module names whose port counterpart sits in a list or under another name
+_REID_RENAMES = (
+    (re.compile(r"^(layer[1-4])_(\d+)$"), r"\1.\2"),          # ResNet blocks
+    (re.compile(r"^(NL[23])_(\d+)$"), r"\1.\2"),              # non-local blocks of the trunk
+    (re.compile(r"^stage(\d+)$"), r"stages.\1"),             # PSP stages
+    (re.compile(r"^pd(\d+)_(\d+)$"), r"pd.\1.\2"),           # part descriptors
+    (re.compile(r"^clsP(\d+)_(bn|fc)$"), r"clsP_\2.\1"),      # per-part classifiers
+    (re.compile(r"^ds_conv$"), "downsample.0"),
+    (re.compile(r"^ds_bn$"), "downsample.1"),
+    (re.compile(r"^Conv_0$"), "conv"),                        # inside a ConvABN
+    (re.compile(r"^InPlaceABN_0$"), "abn"),
+)
+_REID_LEAVES = {"scale": "weight", "bias": "bias", "weight": "weight",
+                "mean": "running_mean", "var": "running_var",
+                "running_mean": "running_mean", "running_var": "running_var"}
+
+
+def _reid_name(path) -> str:
+    parts = []
+    for name in path:
+        for pattern, repl in _REID_RENAMES:
+            if pattern.match(name):
+                name = pattern.sub(repl, name)
+                break
+        parts.append(name)
+    return ".".join(parts)
+
+
+def _reid_leaf(name: str, value: np.ndarray) -> torch.Tensor:
+    if name == "kernel":
+        value = np.asarray(value)
+        if value.ndim == 4:
+            return conv_weight(value)                  # Conv (kH, kW, I, O) -> (O, I, kH, kW)
+        return torch.from_numpy(np.ascontiguousarray(value.T))   # Dense (I, O) -> (O, I)
+    return _array(value)
+
+
+def _walk(tree: Mapping[str, Any], path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, path + (key,))
+        else:
+            yield path, key, value
+
+
+def embed_net2_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EmbedNet2`` ``{"params": ..., "batch_stats": ...}``
+    (nested dicts of numpy arrays) as a ``state_dict`` of the port's
+    ``EmbedNet2``; also any module of its path on its own (``ResNetStem``,
+    ``ResNetTrunk``, ``NLTrunk``, ``PartModel`` and its parts, ``InPlaceABN``).
+
+    * Conv kernels ``(kH, kW, I, O)`` -> ``(O, I, kH, kW)``; Dense ``(I, O)`` -> ``(O, I)``
+    * flax ``BatchNorm``: ``scale``, ``bias``, ``mean``, ``var`` -> ``weight``,
+      ``bias``, ``running_mean``, ``running_var``; ``InPlaceABN`` keeps its names
+    * ``layer2_0`` -> ``layer2.0``, ``ds_conv`` / ``ds_bn`` -> ``downsample.0`` /
+      ``downsample.1`` (torchvision's names), ``NL3_1`` -> ``NL3.1``,
+      ``stage2`` -> ``stages.2``, ``pd3_1`` -> ``pd.3.1``, ``clsP0_bn`` ->
+      ``clsP_bn.0``, a ConvABN's ``Conv_0`` / ``InPlaceABN_0`` -> ``conv`` / ``abn``
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf, value in _walk(variables.get(collection, {})):
+            name = ".".join(filter(None, (_reid_name(path), _REID_LEAVES.get(leaf, "weight"))))
+            out[name] = _reid_leaf(leaf, value)
+    return out
