@@ -53,6 +53,16 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               tree, the losses falling; one step held against the CPU
 8. times_reid — K7/K8 times against bound, plain and library; a ReID train
               step and the eval forward
+9. cudnn_grads — each convolution's weight gradient of one ReID step with
+              cuDNN as the port sets it and with cuDNN disabled, against a
+              float64 backward on the CPU, at the toy size of the card-vs-CPU
+              step and at 288x144 (resnet50; 12 images for the float64
+              backward); the kernels of each layer by profiler ranges (which
+              run cuDNN's FFT or Winograd algorithms); the ReID step at its
+              command line's batch with cuDNN disabled for the layers found
+10. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
+              throughput, the TF32 split's rounding by cvt against integer
+              operations, and the rounding of the tensor cores' fp32 sums
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -62,10 +72,12 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +134,9 @@ LOGITS_TOL = dict(atol=2e-5, rtol=2e-4)
 # cores, and device memory.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# dense TF32 on the tensor cores (the yardstick of the attention kernels'
+# bound_tc_ms)
+PEAK_TF32_FLOPS = 494.7e12
 
 # Kernel and plain version sum the same terms in different orders, so an id may
 # differ where the best two codes of a row are equidistant to rounding: a
@@ -186,7 +201,7 @@ KERNELS = {
         "replaces": "vqvae2_tpu/ops/inplace_abn.py:89",
     },
 }
-SOURCES = ("quantize", "flash_attention", "inplace_abn")
+SOURCES = ("quantize", "flash_attention", "inplace_abn", "tc_probe")
 
 
 def emit(phase: str, **fields) -> None:
@@ -369,13 +384,14 @@ def phase_build() -> None:
         built[name] = {"library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
                        "ptxas": ptxas_summary(info["log"])}
     emit("build", seconds=time.perf_counter() - t0, sources=built)
+    spills = {k: v for k, v in built["flash_attention"]["ptxas"].items()
+              if k.startswith("flash_bwd_dkv_kernel") and v.get("spill_store_bytes", 0)}
+    check(not spills, f"the dk/dv kernel spills registers: {spills}")
 
 
 def ptxas_summary(log: str) -> dict:
     """Registers and spilled bytes of each compiled kernel variant, from
     ``-Xptxas -v``, by a short name (``flash_bwd_dkv_kernel<float,16,2,1>``)."""
-    import re
-
     def short(mangled: str) -> str:
         m = re.search(r"\d+([A-Za-z_]*kernel)(?:I(.*?)EEv|E)", mangled)
         if not m:
@@ -719,6 +735,34 @@ def backward_causality_on_the_card(gen: torch.Generator) -> dict:
     return {"case": "backward causality", "n": n, "i": i, "keys_at_or_after_i_untouched": True}
 
 
+def huge_scores_backward_on_the_card(gen: torch.Generator) -> dict:
+    """q and k of size 1e4, as a few train steps of the top prior bring them:
+    scores of about 1e9, a one-hot softmax.  The backward kernels recompute
+    p = exp(s - lse) from the forward's lse, so they must round each score as
+    the forward did, or p overflows and the gradients turn to inf and NaN.
+    All three gradients must be finite; dv (each key's sum of the upstream
+    gradients of the queries that pick it) must agree with the plain version.
+    dq and dk are rounding noise times 1e4 on both sides (dp - dsum cancels
+    to zero in exact arithmetic) and are held to be finite only."""
+    bh, n, d = 8, 300, HEAD_DIM
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(4))
+    q, k = q * 1e4, k * 1e4
+    for rate in (0.0, PRIOR_CONFIG["dropout"]):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            o, _ = fa.causal_flash_attention_lse(*leaves, dropout_rate=rate, seed=13)
+            dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        check(all(bool(torch.isfinite(g).all()) for g in (o, dq, dk, dv)),
+              f"huge scores (rate {rate}): non-finite output or gradient")
+        keep = fa.dropout_keep_mask(bh, n, rate, 13) if rate > 0 else None
+        want = plain_grads_in_chunks(q, k, v, do, keep=keep, dropout_rate=rate)[2]
+        err = float((dv - want).abs().max())
+        check(bool(torch.allclose(dv, want, **FA_TOL)),
+              f"huge scores (rate {rate}): dv differs from the plain version by {err}")
+    return {"case": "huge scores (q, k * 1e4)", "bh": bh, "n": n, "finite": True,
+            "dv_max_abs_err": err, "dv_abs_max": float(want.abs().max())}
+
+
 def attention_backward_awkward_cases(gen: torch.Generator):
     def normal(bh, n, d, dtype=torch.float32):
         return [torch.randn(bh, n, d, generator=gen, device="cuda").to(dtype) for _ in range(4)]
@@ -792,6 +836,7 @@ def phase_attention_kernel(top, codes: torch.Tensor):
     for label, (q, k, v, g), rate in attention_backward_awkward_cases(gen):
         backward.append(compare_attention_backward(q, k, v, g, label, dropout_rate=rate, seed=5))
     backward.append(backward_causality_on_the_card(gen))
+    backward.append(huge_scores_backward_on_the_card(gen))
     emit("attention_backward", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16, cases=backward)
     return seen[0], cases, do, backward
 
@@ -1181,14 +1226,31 @@ def kernel_work(name: str, n: int, d: int, k: int, itemsize: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def attention_work(bh: int, n: int, d: int, itemsize: int) -> dict:
+def attention_work(bh: int, n: int, d: int, itemsize: int, dropout: bool = False) -> dict:
     """Least bytes and operations of one call: q, k, v read once, o and lse
-    written once; the two products over the causal half of the score matrix."""
+    written once; the two products over the causal half of the score matrix.
+    ``bound_ms`` holds the products to the fp32 rate of the CUDA cores (the
+    yardstick of the earlier rows); ``bound_tc_ms`` is the largest of the
+    bytes' time, three TF32 passes of both products (3 x 2 x 2D flops a
+    visible pair, N(N-1)/2 pairs a head) at the tensor cores' TF32 rate, and
+    the softmax's CUDA-core work at the fp32 rate: 8 operations a visible pair
+    (scale, mask, maximum, subtraction, exponential, sum, the TF32 split of
+    p), and under dropout 27 more (a Philox-4x32-10 draw, 100 integer
+    operations, serves 4 pairs; then the compare and the scaling).  The term
+    ``scores_fma`` (2D fp32 flops a visible pair on the CUDA cores, not part
+    of the bound) is what the kernel pays for keeping the scores in the plain
+    version's rounding."""
     nbytes = 4 * bh * n * d * itemsize + bh * n * 4
     flops = 4 * bh * n * n * d // 2
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    pairs = bh * n * (n - 1) // 2
+    t_tc = 3 * 2 * 2 * d * pairs / PEAK_TF32_FLOPS * 1e3
+    t_cuda = (8 + (27 if dropout else 0)) * pairs / PEAK_FP32_FLOPS * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "visible_pairs": pairs, "bound_tc_ms": max(t_bytes, t_tc, t_cuda),
+            "bound_tc_terms_ms": {"bytes": t_bytes, "tensor_cores": t_tc, "cuda_cores": t_cuda,
+                                  "scores_fma": 2 * d * pairs / PEAK_FP32_FLOPS * 1e3}}
 
 
 def library_attention(q, k, v, mask):
@@ -1202,7 +1264,9 @@ def library_attention(q, k, v, mask):
 
 def attention_record(qkv, launches: dict, cases) -> dict:
     """Times of the attention kernel at the shape the top prior's forward gives
-    it at batch 32, on the prior's own q, k, v."""
+    it at batch 32, on the prior's own q, k, v, without and with the training
+    forward's dropout; and its time at the shape of the full-forward sampler at
+    256 px."""
     bh, n, d = qkv[0].shape
     # rotate over copies larger together than the 50 MB L2
     copies = [qkv] + [tuple(t.clone() for t in qkv) for _ in range(2)]
@@ -1214,20 +1278,45 @@ def attention_record(qkv, launches: dict, cases) -> dict:
     lib_err = float((library(*qkv)[:32] - fa.causal_attention_reference(
         *(t[:32] for t in qkv))).abs().max())
     ms = cuda_ms(rotating(fa.causal_flash_attention_lse), reps=20)
+    rate = PRIOR_CONFIG["dropout"]
+    dropout_ms = cuda_ms(rotating(lambda q, k, v: fa.causal_flash_attention_lse(
+        q, k, v, dropout_rate=rate, seed=0xC0FFEE)), reps=20)
     work = attention_work(bh, n, d, qkv[0].element_size())
+    work_drop = attention_work(bh, n, d, qkv[0].element_size(), dropout=True)
     case = cases[0]
     return {
         "name": "causal_flash_attention", **KERNELS["causal_flash_attention"],
         "launches": launches["causal_flash_attention"],
         "max_abs_err": max(case["o_max_abs_err"], case["lse_max_abs_err"]),
         "shape": {"bh": bh, "n": n, "d": d}, "ms": ms, "kernel_ms": ms,
+        f"ms_with_dropout_{rate}": dropout_ms,
         "plain_ms": cuda_ms(rotating(plain_attention_in_chunks), reps=3, warmup=1),
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+        "bound_tc_ms": work["bound_tc_ms"], "bound_tc_terms_ms": work["bound_tc_terms_ms"],
+        f"bound_tc_ms_with_dropout_{rate}": work_drop["bound_tc_ms"],
         "library_ms": cuda_ms(rotating(library), reps=5),
         "library": "F.scaled_dot_product_attention with the strict mask, row 0 zeroed",
         "library_max_abs_err_vs_plain": lib_err,
-        "share_of_bound": work["bound_ms"] / ms, "bytes": work["bytes"], "flops": work["flops"],
+        "share_of_bound": work["bound_ms"] / ms, "share_of_bound_tc": work["bound_tc_ms"] / ms,
+        "bytes": work["bytes"], "flops": work["flops"],
+        "full_forward_sampler": full_forward_sampler_times(),
     }
+
+
+def full_forward_sampler_times() -> dict:
+    """K4 at the shape ``sample.py --full_forward`` gives it at 256 px, batch
+    8: one full top-prior forward a position (``models/sampling.py``), four
+    attention blocks a forward, 32 x 32 positions; per-launch time on unit
+    normal q, k, v of that shape."""
+    bh, n = SAMPLE_BATCH * N_HEAD, TOP_HW * TOP_HW
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda") for _ in range(3))
+    ms = cuda_ms(lambda: fa.causal_flash_attention_lse(q, k, v), reps=50)
+    work = attention_work(bh, n, HEAD_DIM, 4)
+    launches = 4 * n
+    return {"shape": {"bh": bh, "n": n, "d": HEAD_DIM}, "ms": ms, "bound_ms": work["bound_ms"],
+            "bound_tc_ms": work["bound_tc_ms"], "launches_per_top_grid": launches,
+            "kernel_ms_per_top_grid": launches * ms}
 
 
 def stats_work(n: int, d: int, k: int, itemsize: int) -> dict:
@@ -1287,16 +1376,31 @@ def stats_record(flat_t, flat_b, model, launches, stats_cases, gen) -> dict:
     }
 
 
-def backward_work(name: str, bh: int, n: int, d: int, itemsize: int) -> dict:
+def backward_work(name: str, bh: int, n: int, d: int, itemsize: int,
+                  dropout: bool = False) -> dict:
     """Least bytes and operations of one backward launch over the causal
     half: K5 reads q, k, v, o, do and lse and writes dq and dsum, three
-    products; K6 reads q, k, v, do, lse and dsum and writes dk and dv, four."""
+    products; K6 reads q, k, v, do, lse and dsum and writes dk and dv, four.
+    ``bound_ms`` at the fp32 rate of the CUDA cores, as for the forward;
+    ``bound_tc_ms`` (K6) the largest of the bytes' time, three TF32 passes of
+    the four products (3 x 4 x 2D flops a visible pair) at the TF32 rate, and
+    13 CUDA-core operations a visible pair (the probability: scale,
+    subtraction, exponential, mask; dp times the mask, minus dsum, times p,
+    times the scale; p times the mask; the TF32 splits of p and ds), and
+    under dropout 27 more, as in the forward; ``scores_fma`` as in the
+    forward (K6 rounds its scores as the forward does)."""
     nbytes = 6 * bh * n * d * itemsize + 2 * bh * n * 4      # the same count for both
     products = 3 if name == "causal_flash_attention_dq" else 4
     flops = products * 2 * bh * n * n * d // 2
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    pairs = bh * n * (n - 1) // 2
+    t_tc = 3 * products * 2 * d * pairs / PEAK_TF32_FLOPS * 1e3
+    t_cuda = (13 + (27 if dropout else 0)) * pairs / PEAK_FP32_FLOPS * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "visible_pairs": pairs, "bound_tc_ms": max(t_bytes, t_tc, t_cuda),
+            "bound_tc_terms_ms": {"bytes": t_bytes, "tensor_cores": t_tc, "cuda_cores": t_cuda,
+                                  "scores_fma": 2 * d * pairs / PEAK_FP32_FLOPS * 1e3}}
 
 
 def backward_launchers(q, k, v, do, dropout_rate: float = 0.0, seed: int = 0):
@@ -1342,7 +1446,7 @@ def backward_records(qkv, do, launches, backward_cases) -> list:
     for name, errs in (("causal_flash_attention_dq", ("dq",)),
                        ("causal_flash_attention_dkv", ("dk", "dv"))):
         work = backward_work(name, bh, n, d, q.element_size())
-        out.append({
+        record = {
             "name": name, **KERNELS[name], "launches": launches[name],
             "max_abs_err": max(case[f"{e}_max_abs_err"] for e in errs),
             "shape": {"bh": bh, "n": n, "d": d}, "ms": ms[name], "kernel_ms": ms[name],
@@ -1353,7 +1457,14 @@ def backward_records(qkv, do, launches, backward_cases) -> list:
             "library": "backward of F.scaled_dot_product_attention with the strict mask "
                        "(dq, dk and dv together; forward outside the timer)",
             "share_of_bound": work["bound_ms"] / ms[name], "bytes": work["bytes"],
-            "flops": work["flops"]})
+            "flops": work["flops"]}
+        if name == "causal_flash_attention_dkv":     # on the tensor cores
+            drop = backward_work(name, bh, n, d, q.element_size(), dropout=True)
+            record.update({"bound_tc_ms": work["bound_tc_ms"],
+                           "bound_tc_terms_ms": work["bound_tc_terms_ms"],
+                           "bound_tc_ms_with_dropout_0.1": drop["bound_tc_ms"],
+                           "share_of_bound_tc": work["bound_tc_ms"] / ms[name]})
+        out.append(record)
     return out
 
 
@@ -1914,43 +2025,24 @@ def count_forwards(cls):
 
 def reid_step_against_cpu() -> dict:
     """One ReID train step of resnet18 at 128x64, P = K = 2, on the card and
-    on the CPU from the same weights and batch, the parsing head's dropout
-    replaced by the identity on both (the two generators draw differently):
-    the metrics within LOGITS_TOL; the gradient of each learning-rate group,
-    as one vector, within REID_GRAD_NORM_RTOL of its norm.  Reports the
-    tensors that differ most beside the CPU's own distance from a float64
-    backward, which shows how ill-conditioned they are."""
+    on the CPU from the same weights and batch (``reid_grads``): the metrics
+    within LOGITS_TOL; the gradient of each learning-rate group, as one
+    vector, within REID_GRAD_NORM_RTOL of its norm.  Reports the tensors that
+    differ most beside the CPU's own distance from a float64 backward, which
+    shows how ill-conditioned they are."""
     from vqvae2_tpu_torch.part import part_model as pm
-    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train.reid import param_group
 
     batch = reid_batch(5, 2, 2, REID_SMALL_HW, 3)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(5)
         cpu = pm.EmbedNet2(class_num=3, arch="resnet18")
-
-    def step(model, dtype, device):
-        model = copy.deepcopy(model).to(device=device, dtype=dtype)
-        b = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
-             for k, v in batch.items()}
-        sgd = tr.make_optimizer(0.1, 10)
-        with torch.enable_grad():
-            _, metrics = tr.make_train_step(model, sgd, 2, 2, REID_SMALL_HW)(
-                tr.create_state(model, sgd), b)
-        return ({k: float(v) for k, v in metrics.items()},
-                {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()})
-
-    saved = pm.dropout
-    pm.dropout = lambda x, *a, **k: x
-    try:
-        (m_gpu, g_gpu), (m_cpu, g_cpu) = step(cpu, torch.float32, "cuda"), step(cpu, torch.float32, "cpu")
-        _, g64 = step(cpu, torch.float64, "cpu")
-    finally:
-        pm.dropout = saved
+    step = lambda dtype, device: reid_grads(cpu, batch, 2, 2, REID_SMALL_HW, dtype, device)  # noqa: E731
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = step(torch.float32, "cuda"), step(torch.float32, "cpu")
+    _, g64 = step(torch.float64, "cpu")
     for k in m_cpu:
         check(bool(np.isclose(m_gpu[k], m_cpu[k], rtol=LOGITS_TOL["rtol"], atol=LOGITS_TOL["atol"])),
               f"ReID card vs CPU step: {k} {m_gpu[k]} vs {m_cpu[k]}")
-    from vqvae2_tpu_torch.train.reid import param_group
-
     groups = {}
     for name in g_cpu:
         groups.setdefault(param_group(name), []).append(name)
@@ -1961,12 +2053,317 @@ def reid_step_against_cpu() -> dict:
         norm_err[group] = err / norm
         check(err <= REID_GRAD_NORM_RTOL * norm,
               f"ReID card vs CPU step: the {group} gradient differs by {err / norm} of its norm")
-    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-    worst = sorted(((rel(g_gpu[n], g_cpu[n]), n) for n in g_cpu), reverse=True)[:5]
+    worst = sorted(((relative_error(g_gpu[n], g_cpu[n]), n) for n in g_cpu), reverse=True)[:5]
     return {"arch": "resnet18", "hw": list(REID_SMALL_HW), "p": 2, "k": 2,
             "metrics_card": m_gpu, "metrics_cpu": m_cpu, "grad_norm_rel_err": norm_err,
-            "worst_tensors": [{"name": n, "card_vs_cpu": e, "cpu_fp32_vs_float64": rel(g_cpu[n], g64[n]),
-                               "card_vs_float64": rel(g_gpu[n], g64[n])} for e, n in worst]}
+            "worst_tensors": [{"name": n, "card_vs_cpu": e,
+                               "cpu_fp32_vs_float64": relative_error(g_cpu[n], g64[n]),
+                               "card_vs_float64": relative_error(g_gpu[n], g64[n])}
+                              for e, n in worst]}
+
+
+# ---------------------------------------------------------------------------
+# cuDNN's convolution algorithms and the ReID weight gradients
+# ---------------------------------------------------------------------------
+
+# The float64 backward on the CPU takes a smaller batch at the full image size
+# (P = K = 2: 12 images, not the command line's 72; in float64 the full batch
+# would need about twice the card's 47.6 GB fp32 peak).
+REID_F64_P, REID_F64_K = 2, 2
+# A convolution's weight gradient counts as one that cuDNN's route puts off
+# when, against the float64 backward, it lies further than GRAD_RTOL and more
+# than CUDNN_FACTOR times as far as the same step with cuDNN disabled (PyTorch's
+# own im2col + cuBLAS route in true fp32) puts it.
+CUDNN_FACTOR = 4.0
+# kernel names of cuDNN's convolution engines (none of PyTorch's native route)
+CUDNN_KERNEL = r"fft|cudnn|convolve|wgrad|dgrad|fprop|DSE::"
+
+
+class _RangeEdge(torch.autograd.Function):
+    """The identity, whose backward opens (``opens``) or closes a profiler
+    range: one pair around a convolution spans its backward.  The autograd
+    engine runs nodes by falling sequence number, so the convolution's
+    backward node runs right after the opening edge, and the closing edge (on
+    its weight, made just before it) right after that."""
+
+    @staticmethod
+    def forward(ctx, x, ranges: dict, name: str, opens: bool):
+        ctx.ranges, ctx.name, ctx.opens = ranges, name, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        stack = ctx.ranges.setdefault(ctx.name, [])
+        if ctx.opens:
+            rf = torch.profiler.record_function(ctx.name)
+            rf.__enter__()
+            stack.append(rf)
+        elif stack:
+            stack.pop().__exit__(None, None, None)
+        return grad, None, None, None
+
+
+class _ConvWithoutCudnn(torch.autograd.Function):
+    """``F.conv2d`` on NCHW whose forward and backward both run with cuDNN
+    disabled.  The backward picks its route when it runs, so a scope around
+    the forward alone would leave the weight gradient to cuDNN."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        ctx.save_for_backward(x, weight)
+        ctx.conv, ctx.has_bias = conv, bias is not None
+        with cudnn_disabled():
+            return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        c = ctx.conv
+        with cudnn_disabled():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if ctx.has_bias else None, c.stride,
+                c.padding, c.dilation, False, [0, 0], c.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                 ctx.has_bias and ctx.needs_input_grad[2]])
+        return gx, gw, gb, None
+
+
+class cudnn_disabled:
+    """``torch.backends.cudnn.enabled = False`` inside, restored after; the
+    other cuDNN and TF32 flags are left as they are."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.enabled = self.saved
+
+
+def reid_convs(model) -> dict:
+    from vqvae2_tpu_torch.models.resnet import Conv2d
+
+    return {name: m for name, m in model.named_modules() if isinstance(m, Conv2d)}
+
+
+def patch_convs(model, ranges=None, without_cudnn=(), shapes=None) -> None:
+    """Every convolution of ``model`` labelled for the profiler (``forward
+    <name>`` around its forward, ``backward <name>`` around its backward) when
+    ``ranges`` is a dict, and run with cuDNN disabled when its name is in
+    ``without_cudnn``; ``shapes`` collects each one's input shape."""
+
+    def forward(conv, name, x):
+        if shapes is not None:
+            shapes.setdefault(name, list(x.shape))
+        w = conv.weight
+        if ranges is not None:
+            w = _RangeEdge.apply(w, ranges, f"backward {name}", False)
+        with torch.profiler.record_function(f"forward {name}"):
+            xp = x.permute(0, 3, 1, 2)
+            if name in without_cudnn:
+                y = _ConvWithoutCudnn.apply(xp, w, conv.bias, conv)
+            else:
+                y = F.conv2d(xp, w, conv.bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+            y = y.permute(0, 2, 3, 1)
+        if ranges is not None:
+            y = _RangeEdge.apply(y, ranges, f"backward {name}", True)
+        return y
+
+    for name, conv in reid_convs(model).items():
+        if ranges is not None or shapes is not None or name in without_cudnn:
+            conv.forward = (lambda c, n: lambda x: forward(c, n, x))(conv, name)
+
+
+def reid_grads(model, batch, p: int, k: int, hw, dtype, device, cudnn: bool = True,
+               patch=None) -> tuple:
+    """One ReID train step of a copy of ``model`` on ``batch`` (P x K rows at
+    ``hw``), the parsing head's dropout replaced by the identity (the card's
+    and the CPU's generators draw differently): ``(metrics, {name: gradient as
+    float64 on the CPU})``.  ``cudnn=False`` disables cuDNN around the step;
+    ``patch(model)`` edits the copy first."""
+    from vqvae2_tpu_torch.part import part_model as pm
+    from vqvae2_tpu_torch.train import reid as tr
+
+    model = copy.deepcopy(model).to(device=device, dtype=dtype)
+    if patch is not None:
+        patch(model)
+    b = {key: val.to(device=device, dtype=dtype if val.is_floating_point() else val.dtype)
+         for key, val in batch.items()}
+    sgd = tr.make_optimizer(0.1, 10)
+    saved = pm.dropout
+    pm.dropout = lambda x, *a, **kw: x
+    try:
+        with torch.enable_grad(), (contextlib.nullcontext() if cudnn else cudnn_disabled()):
+            _, metrics = tr.make_train_step(model, sgd, k, p, hw)(tr.create_state(model, sgd), b)
+    finally:
+        pm.dropout = saved
+    return ({key: float(val) for key, val in metrics.items()},
+            {n: w.grad.detach().cpu().double() for n, w in model.named_parameters()})
+
+
+def relative_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest element error over the largest element of ``want``."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def kernels_by_range(prof, prefix: str) -> dict:
+    """The device kernels launched inside each profiler range whose name
+    starts with ``prefix``, by the range's name."""
+    out = {}
+
+    def walk(ev, names):
+        names.update(kr.name for kr in ev.kernels)
+        for child in ev.cpu_children:
+            walk(child, names)
+
+    for ev in prof.events():
+        if ev.name.startswith(prefix):
+            walk(ev, out.setdefault(ev.name, set()))
+    return {name: sorted(v) for name, v in out.items()}
+
+
+def profiled_conv_kernels(model, batch, p: int, k: int, hw, without_cudnn=()) -> dict:
+    """One ReID step on the card with every convolution labelled: each
+    layer's forward and backward kernels, ``{layer: {"forward": [...],
+    "backward": [...]}}``."""
+    ranges = {}
+    patch = lambda m: patch_convs(m, ranges=ranges, without_cudnn=without_cudnn)   # noqa: E731
+    reid_grads(model, batch, p, k, hw, torch.float32, "cuda", patch=patch)       # warm-up
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        reid_grads(model, batch, p, k, hw, torch.float32, "cuda", patch=patch)
+        torch.cuda.synchronize()
+    check(not any(ranges.values()), f"profiler ranges left open: {[n for n, s in ranges.items() if s]}")
+    out = {}
+    for which in ("forward", "backward"):
+        for name, names in kernels_by_range(prof, f"{which} ").items():
+            out.setdefault(name.split(" ", 1)[1], {})[which] = names
+    return out
+
+
+def transform_of(kernel_names: list):
+    """``"fft"`` or ``"winograd"`` when a convolution ran cuDNN's transform
+    algorithms, else None."""
+    low = " ".join(kernel_names).lower()
+    return "fft" if "fft" in low else "winograd" if "winograd" in low else None
+
+
+def conv_grad_report(model, batch, p: int, k: int, hw, label: str) -> dict:
+    """Each convolution's weight gradient from one ReID step on the card, with
+    cuDNN as ``set_reference_precision()`` leaves it and with cuDNN disabled,
+    against the float64 backward on the CPU; the layers that cuDNN's route puts
+    off, the kernels each of them runs, and the layers that run cuDNN's FFT or
+    Winograd algorithms."""
+    t0 = time.perf_counter()
+    _, g64 = reid_grads(model, batch, p, k, hw, torch.float64, "cpu")
+    cpu_seconds = time.perf_counter() - t0
+    shapes = {}
+    _, g_on = reid_grads(model, batch, p, k, hw, torch.float32, "cuda",
+                         patch=lambda m: patch_convs(m, shapes=shapes))
+    _, g_off = reid_grads(model, batch, p, k, hw, torch.float32, "cuda", cudnn=False)
+    kernels = profiled_conv_kernels(model, batch, p, k, hw)
+    norm = lambda g: sum(float(((g[n] - g64[n]) ** 2).sum()) for n in g64) ** 0.5 / sum(   # noqa: E731
+        float((g64[n] ** 2).sum()) for n in g64) ** 0.5
+    layers = []
+    for name, conv in reid_convs(model).items():
+        w = f"{name}.weight"
+        ks = kernels.get(name, {})
+        layers.append({"layer": name, "weight": list(conv.weight.shape), "input": shapes.get(name),
+                       "cudnn_on": relative_error(g_on[w], g64[w]),
+                       "cudnn_off": relative_error(g_off[w], g64[w]),
+                       "forward_transform": transform_of(ks.get("forward", [])),
+                       "backward_transform": transform_of(ks.get("backward", []))})
+    offending = [r["layer"] for r in layers
+                 if r["cudnn_on"] > GRAD_RTOL and r["cudnn_on"] > CUDNN_FACTOR * r["cudnn_off"]]
+    transforms = {}
+    for r in layers:
+        for which in ("forward", "backward"):
+            if r[f"{which}_transform"]:
+                transforms.setdefault(f"{which} {r[f'{which}_transform']}", []).append(r["layer"])
+    worst = sorted(layers, key=lambda r: r["cudnn_on"] / max(r["cudnn_off"], 1e-30), reverse=True)[:8]
+    return {"case": label, "p": p, "k": k, "images": 3 * p * k, "hw": list(hw),
+            "float64_cpu_seconds": cpu_seconds,
+            "grad_norm_rel_err": {"cudnn_on": norm(g_on), "cudnn_off": norm(g_off)},
+            "largest_on_off_ratios": worst, "offending": offending,
+            "offending_backward_kernels": {n: kernels.get(n, {}).get("backward", [])
+                                           for n in offending},
+            "layers_by_transform": transforms, "convolutions": len(layers)}
+
+
+def reid_step_without_cudnn(layer_sets: dict) -> dict:
+    """The ReID train step at the command line's batch (72 images at
+    288x144) as it is and with cuDNN disabled for the layers of each set
+    alone, in turns (as is, without, without, as is); and a profile of each
+    that shows whether those layers' backward left cuDNN."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+    from vqvae2_tpu_torch.train import reid as tr
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+    batch = reid_batch(8, REID_P, REID_K, REID_HW, REID_IDS)
+    small = reid_batch(8, REID_F64_P, REID_F64_K, REID_HW, REID_IDS)
+
+    def timed(without):
+        m = copy.deepcopy(model)
+        patch_convs(m, without_cudnn=without)
+        tx = tr.make_optimizer(0.1, 10)
+        state = tr.create_state(m, tx)
+        step = tr.make_train_step(m, tx, REID_K, REID_P, REID_HW, seed=1)
+        with torch.enable_grad():
+            ms = host_ms(lambda: step(state, batch), 5)
+        del m, state, step
+        torch.cuda.empty_cache()
+        return ms
+
+    out = {}
+    for label, layers in layer_sets.items():
+        runs = [("as is", timed(())), ("without", timed(layers)), ("without", timed(layers)),
+                ("as is", timed(()))]
+        as_is = [ms for what, ms in runs if what == "as is"]
+        without = [ms for what, ms in runs if what == "without"]
+        kernels = profiled_conv_kernels(model, small, REID_F64_P, REID_F64_K, REID_HW,
+                                        without_cudnn=layers)
+        left = {n: [kn for kn in kernels.get(n, {}).get("backward", [])
+                    if re.search(CUDNN_KERNEL, kn, re.I)] for n in layers}
+        check(not any(left.values()), f"cuDNN kernels still in the backward of {left}")
+        out[label] = {"layers": layers, "turns_ms": runs,
+                      "cost_ms": (sum(without) - sum(as_is)) / 2,
+                      "cost_share": (sum(without) - sum(as_is)) / sum(as_is),
+                      "backward_left_cudnn": True}
+    return out
+
+
+def phase_cudnn_grads() -> dict:
+    """Which convolutions of the ReID step cuDNN's algorithms put off the
+    float64 backward, at the toy size of the card-vs-CPU step and at the
+    image size users run, and what the step costs with cuDNN disabled for
+    those layers alone."""
+    from vqvae2_tpu_torch.part import part_model as pm
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        toy = pm.EmbedNet2(class_num=3, arch="resnet18")
+    reports = [conv_grad_report(toy, reid_batch(5, 2, 2, REID_SMALL_HW, 3), 2, 2, REID_SMALL_HW,
+                                "resnet18 at 128x64 (the card-vs-CPU step)")]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        full = pm.EmbedNet2(class_num=REID_IDS, arch=REID_ARCH)
+    reports.append(conv_grad_report(
+        full, reid_batch(7, REID_F64_P, REID_F64_K, REID_HW, REID_IDS), REID_F64_P, REID_F64_K,
+        REID_HW, f"{REID_ARCH} at {REID_HW[0]}x{REID_HW[1]}, batch cut to "
+                 f"{3 * REID_F64_P * REID_F64_K} images for the float64 backward"))
+    names = set(reid_convs(full))
+    transformed = sorted({n for key, layers in reports[1]["layers_by_transform"].items()
+                          if key.startswith("backward") for n in layers})
+    sets = {"offending at full size": reports[1]["offending"],
+            "offending at the toy size, in the full model": [n for n in reports[0]["offending"]
+                                                             if n in names],
+            "FFT or Winograd in the backward at full size": transformed}
+    result = {"grad_rtol": GRAD_RTOL, "cudnn_factor": CUDNN_FACTOR, "reports": reports,
+              "step_without_cudnn": reid_step_without_cudnn({k: v for k, v in sets.items() if v})}
+    emit("cudnn_grads", **result)
+    return result
 
 
 def phase_main_reid(tmp: str) -> dict:
@@ -2201,6 +2598,47 @@ def phase_breakdown_reid() -> None:
          profiled_step_top_aten_ops=top_ops)
 
 
+def phase_probe() -> None:
+    """What the card offers the attention kernels' tensor-core products, by
+    ``csrc/tc_probe.cu`` — ``mma.sync`` m16n8k8 TF32 throughput
+    with 4 independent accumulators a warp at 4, 16 and 32 warps an SM; the
+    TF32 split's rounding by ``cvt.rna.tf32.f32`` against an integer
+    add-and-mask; and whether the tensor cores' fp32 accumulation rounds to
+    nearest (1 + 9e-8 and 1 + 6e-8 round up to nearest, down toward zero)."""
+    import ctypes
+
+    lib = ctypes.CDLL(_build.build("tc_probe"))
+    for fn in (lib.tcp_mma, lib.tcp_split):
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib.tcp_accumulate.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(sms * 32 * 256, device="cuda")
+    iters = 4000
+
+    def run(fn, *args):
+        check(fn(out.data_ptr(), *args) == 0, f"probe launch failed: {fn.__name__}")
+
+    mma = {}
+    for warps in (4, 16, 32):
+        blocks = sms * warps // 4
+        ms = cuda_ms(lambda: run(lib.tcp_mma, blocks, 128, iters, 4), reps=5, warmup=1)
+        mma[f"{warps} warps an SM"] = {"ms": ms, "tflops": blocks * 4 * iters * 4 * 2048 / ms / 1e9}
+    split = {}
+    for which, name in ((1, "cvt.rna.tf32.f32"), (0, "integer add and mask")):
+        blocks = sms * 8
+        ms = cuda_ms(lambda: run(lib.tcp_split, blocks, 256, iters, which), reps=5, warmup=1)
+        split[name] = {"ms": ms, "g_values_per_s": blocks * 256 * iters * 8 / ms / 1e6}
+    acc = torch.zeros(2, device="cuda")
+    rounding = []
+    for big, tiny in ((1.0, 9e-8), (1.0, 6e-8), (1.0, -1.7e-7), (3.0, 2.5e-7)):
+        check(lib.tcp_accumulate(acc.data_ptr(), big, tiny) == 0, "probe launch failed")
+        torch.cuda.synchronize()
+        rounding.append({"big": big, "tiny": tiny, "tensor_cores": float(acc[0]),
+                         "fp32_round_to_nearest": float(acc[1])})
+    emit("probe", mma_tf32_m16n8k8=mma, tf32_split=split, accumulation=rounding,
+         truncates=any(r["tensor_cores"] != r["fp32_round_to_nearest"] for r in rounding))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
@@ -2252,6 +2690,9 @@ def main(argv=None) -> int:
              kernels={r["name"]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
                                   "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
                       for r in abn})
+        torch.cuda.empty_cache()
+        phase_cudnn_grads()
+        phase_probe()
         if args.breakdown:
             phase_breakdown(model, x)
             phase_breakdown_stage2(top)

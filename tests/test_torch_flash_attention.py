@@ -296,3 +296,64 @@ def test_the_autograd_binding_on_cpu_tensors_counts_plain_calls(rate):
     for a, b in zip(flat, same):
         torch.testing.assert_close(a.grad, b.grad, **TOL)
     assert not lse.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# Why the tensor-core kernels take three TF32 passes (the arithmetic of
+# mma.sync m16n8k8 TF32 with fp32 accumulation, emulated in plain torch)
+# ---------------------------------------------------------------------------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32: to nearest, ties away from zero, at 13 dropped
+    mantissa bits (``cvt.rna.tf32.f32``)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``a @ b`` with TF32 operands and fp32 sums (a product of two TF32
+    values is exact in fp32): one pass ``hi·hi``, or three, ``lo·hi + hi·lo +
+    hi·hi``, with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def attention_by(q, k, v, scores, values):
+    """Strictly-causal attention with the two products given as functions."""
+    n, d = q.shape[-2:]
+    s = scores(q, k.transpose(-1, -2)) / np.sqrt(d)
+    seen = torch.arange(n)[None, :] < torch.arange(n)[:, None]
+    p = torch.softmax(torch.where(seen, s, torch.full_like(s, fa.NEG_INF)), dim=-1)
+    return values(p * (torch.arange(n)[:, None] > 0), v)
+
+
+def test_three_tf32_passes_keep_fp32_accuracy_and_one_does_not():
+    """At B·H = 4, N = 256, D = 16, unit-normal inputs: both products in three
+    TF32 passes stay within FA_TOL of the fp32 plain version, a single pass
+    misses it many times over."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(40, 4, 256, 16))
+    want = fa.causal_attention_reference(q, k, v)
+    three = attention_by(q, k, v, *(lambda a, b: tf32_product(a, b, 3),) * 2)
+    one = attention_by(q, k, v, *(lambda a, b: tf32_product(a, b, 1),) * 2)
+    torch.testing.assert_close(three, want, **TOL)
+    assert not torch.allclose(one, want, **TOL)
+    assert float((one - want).abs().max()) > 20 * float((three - want).abs().max())
+
+
+def test_large_scores_need_the_plain_versions_rounding_of_the_scores():
+    """Why the forward kernel forms its scores by fp32 FMAs in the plain
+    version's order and takes P·V, not Q·Kᵀ, on the tensor cores: with q
+    scaled by 50 (chip_smoke.py's large-score case) the scores reach a few
+    hundred, and the plain fp32 version's own rounding of them moves o further
+    than FA_TOL.  Scores more exact than fp32 (here exact, rounded once) then
+    miss FA_TOL against the plain version, while the plain version's scores
+    with P·V in three TF32 passes stay within it."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(41, 8, 512, 16))
+    q = q * 50.0
+    want = fa.causal_attention_reference(q, k, v)
+    exact = lambda a, b: (a.double() @ b.double()).float()           # noqa: E731
+    three = lambda a, b: tf32_product(a, b, 3)                        # noqa: E731
+    assert not torch.allclose(attention_by(q, k, v, exact, three), want, **TOL)
+    torch.testing.assert_close(attention_by(q, k, v, torch.matmul, three), want, **TOL)

@@ -16,30 +16,53 @@
 // (N, N) is written anywhere.
 //
 // What bounds it on this card: operations.  The two products are 4*N*N*D/2
-// flops a head in plain fp32 (no TF32: the priors' logits are held to 2e-5),
-// while q, k, v in and o, lse out are 4*N*D*4 bytes: at N = 1024, D = 16 the
-// FMAs need about six times the time the memory does.
+// flops a head, while q, k, v in and o, lse out are 4*N*D*4 bytes: at N = 1024,
+// D = 16 the products need about six times the memory's time on the CUDA
+// cores.  The priors' logits are held to 2e-5, so a product in one TF32 pass
+// (about 1e-3 off) is out.
 //
-// What the design does about it: one thread owns R query rows outright (R = 2
-// up to D = 16, else 1) with q, the running (m, l) and the D-wide accumulator
-// in registers, so the online softmax needs no exchange between threads.  A
-// block of 64 threads owns 64*R consecutive rows; it walks the keys in tiles
-// of 64 staged in shared memory (K and V, zero-padded to the template's D, at
-// most 32 KB static) and stops at the diagonal, so the work is half of N*N.
-// Every thread of a warp reads the same key at the same time: the 16-byte
-// shared loads are broadcasts and serve R rows each.  Keys are folded in chunks
-// of 8: one maximum, one rescale of the accumulator and eight exponentials a
-// chunk.  A warp skips the key tiles that lie wholly above its own rows.  N is
-// a runtime value and the ragged tails are masked: rows >= N are never
-// written, and keys >= N are never seen because j < i < N.  Blocks with the
-// longest key loops are scheduled first.
+// The forward (K4) and the dk/dv kernel (K6) run their products other than the
+// scores on the tensor cores by mma.sync m16n8k8 TF32 in three passes: x = hi +
+// lo, both TF32, and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with fp32
+// accumulation, which keeps fp32's accuracy (tests/test_torch_flash_attention.py
+// emulates it).  The split takes four integer and fp32 operations
+// (cvt.rna.tf32 runs at about a quarter of the fp32 rate; chip_smoke.py's
+// phase probe measures both).  The tensor cores' fp32 accumulation rounds
+// toward zero: summed over a thousand keys in one accumulator, dv drifted an
+// order of magnitude further from the plain version than the CUDA-core
+// kernel's did.  So each (sub-)tile's products go into a fresh accumulator that
+// is added to the running sum by a rounded fp32 add.  Each warp splits the
+// fragments it loads from the raw staged tiles: a split pass through shared
+// memory would double the fragment loads, and those loads, not the splits'
+// integer operations, set the kernels' pace.  wgmma is not used: D = 16 is one
+// k-step of a TF32 wgmma, and a TF32 wgmma takes both operands K-major, which V
+// (and dO, Q in the backward's second products) is not.
+//
+// K4: a block of four warps owns 64 query rows, 16 a warp (the M of its mma
+// tiles), each thread two rows.  It walks tiles of 64 keys (32 at D = 64),
+// staged two deep in shared memory by cp.async, up to the diagonal; a warp
+// skips the key columns wholly above its rows.  The scores stay on the CUDA
+// cores: s[i, j] is an fp32 FMA chain over d in order, as the plain version's
+// product rounds it, in the layout of an mma accumulator.  Scores computed
+// more exactly leave o further from the plain version than FA_TOL once they
+// reach a few hundred (q * 50 in chip_smoke.py), because the plain version's
+// own rounding of them moves o that far.  The online softmax runs on those
+// fragments (row maximum and sum over the four lanes of a quad), and
+// O += P.V runs on the tensor cores with P straight from the registers: the
+// accumulator layout (a lane holds columns 2t, 2t + 1) is not the A operand's
+// (k = t, t + 4), so the keys are reordered instead, k = t being key 2t and
+// k = t + 4 key 2t + 1, and V's B fragment is read from those two rows.
 //
 // Dropout is a counter-based draw: Philox-4x32-10 keyed on the seed, with the
 // absolute (bh, i, j / 4) as the counter and word j % 4 of the result as the
 // element's bits, so the mask does not depend on any tiling and a backward
 // kernel regenerates it from the same function (dropout_bits4 below).  An
-// element is kept when its bits >= rate * 2^32.  fa_keep_mask writes the same
-// draw out as a (BH, N, N) byte mask for comparisons at small N.
+// element is kept when its bits >= rate * 2^32.  Each draw is made once: in
+// K4 the two lanes that hold a quad's halves each draw it for one of their two
+// rows and exchange two words; in K6 each lane draws one (query, key quad) and
+// the keep bits go to the lanes that hold them by shuffles.  fa_keep_mask
+// writes the same draw out as a (BH, N, N) byte mask for comparisons at small
+// N.
 //
 // Backward.  With lse from the forward and m = keep / (1 - rate) (1 without
 // dropout), for every visible pair j < i:
@@ -47,30 +70,32 @@
 //   dp[i, j] = <do[i], v[j]> * m[i, j]
 //   ds[i, j] = p * (dp - dsum[i]) * (1 / sqrt(D)),   dsum[i] = <do[i], o[i]>
 //   dq[i] = sum_j ds * k[j];  dk[j] = sum_i ds * q[i];  dv[j] = sum_i p * m * do[i]
-// The dq kernel (K5) is the forward's shape with the roles kept: one thread
-// owns R query rows (q, do, dq in registers), the block walks key tiles up to
-// the diagonal; it also computes dsum for its rows from do and o and writes it
-// out (no separate reduction).  The dk/dv kernel (K6) swaps them: one thread
-// owns R key rows (k, v, dk, dv in registers), the block walks query tiles from
-// the diagonal to N with q, do, lse and dsum staged in shared memory.  It runs
-// after K5 on the same stream and reads K5's dsum.  Both are bound by
-// operations as the forward is: three (K5) and four (K6) products of
-// N*N*D/2 FMAs a head in plain fp32, fp32 accumulators.  The mask is a factor:
-// row 0 contributes and receives exactly nothing, and no key j >= i is touched
-// by row i.  Dropout is regenerated by dropout_bits4 on the absolute (bh, i, j),
-// so the backward's mask is the forward's bit for bit whatever the tiling, and
-// nothing of size N*N is stored.
+// The dq kernel (K5) runs on the CUDA cores: one thread owns R query rows (q,
+// do, dq in registers), the block walks key tiles up to the diagonal; it also
+// computes dsum for its rows from do and o and writes it out.  The dk/dv
+// kernel (K6) runs after it on the same stream and reads its dsum: a block of
+// four warps owns 64 keys, 16 a warp, each thread two keys with dk and dv (and
+// at D = 16 k and v) in registers; it walks query tiles (64, or 32 at D = 64) from the
+// diagonal to N with q, do, lse and dsum staged two deep by cp.async.  Of its
+// four products, S^T = K.Q^T stays fp32 FMA chains rounded as the forward's
+// scores are (K5 rounds them so too): p = exp(s - lse) recomputed from scores
+// rounded otherwise overflows once training has grown the scores to 1e10.
+// dP^T = V.dO^T, dV += (P^T m).dO and dK += dS^T.Q are three-pass TF32 mma,
+// the last two with the same reordering of the accumulators as K4's P.V.  The
+// mask is a factor: row 0 contributes and receives exactly nothing, and no key
+// j >= i is touched by row i.
 
 #include <cmath>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NT = 64;            // threads of a block
-constexpr int KT = 64;            // keys in a shared tile
-constexpr int KC = 8;             // keys folded per rescale
+constexpr int NT = 64;            // threads of a K5 block
+constexpr int KT = 64;            // keys in a shared tile of K5
+constexpr int KC = 8;             // keys folded per step of K5
 constexpr float NEG = -1e30f;     // the fill of masked scores; not -inf (NaN from inf - inf)
 constexpr float TINY = 1e-30f;    // floor of the normaliser
 static_assert(KT % KC == 0 && KC % 4 == 0, "a chunk is whole Philox quads");
@@ -128,150 +153,347 @@ __device__ __forceinline__ uint4 dropout_bits4(unsigned long long seed, long lon
   return philox4x32_10(ctr, key);
 }
 
-template <typename T, int DP, int R, bool DROP>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int n, int d, int nq, float scale,
-                 unsigned int threshold, float inv_keep, unsigned long long seed) {
-  constexpr int TQ = NT * R;                   // rows a block owns
-  __shared__ __align__(16) float ks[KT][DP];
-  __shared__ __align__(16) float vs[KT][DP];
+// ---------------------------------------------------------------------------
+// Tensor-core pieces shared by K4 and K6
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const long long bh = blockIdx.x / nq;
-  const int qt = nq - 1 - static_cast<int>(blockIdx.x % nq);   // longest loops first
-  const int row0 = qt * TQ + tid * R;          // first of this thread's rows
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_ROWS = 16 * TC_WARPS;   // query rows of a K4 block, keys of a K6 block
+constexpr unsigned int FULL = 0xffffffffu;
+
+// Rows of the other operand's tile (keys in K4, queries in K6): 64, or 32 at
+// DP = 64, so that two stages of two tiles stay within 48 KB of static shared
+// memory.
+template <int DP>
+constexpr int kTcTile = DP >= 64 ? 32 : 64;
+
+// Row stride of a staged tile in floats: with DP + 4 the 32 lanes of every
+// fragment load (rows g, columns t; or rows 2t, 2t + 1, columns g) fall on 32
+// different banks, and rows stay 16-byte aligned for cp.async.
+template <int DP>
+constexpr int kTcLd = DP + 4;
+
+// A bf16 value is exact in TF32: its low part is zero and the passes that
+// would multiply it are skipped.
+template <typename T>
+struct ExactInTf32 : std::false_type {};
+template <>
+struct ExactInTf32<__nv_bfloat16> : std::true_type {};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// x = hi + lo as TF32 operands.  hi is x rounded to TF32 (to nearest, ties
+// away from zero): half a TF32 unit added to the magnitude's bits, the 13 bits
+// below TF32's mantissa cleared.  lo is the remainder x - hi (exact in fp32)
+// with half a unit added: the tensor cores read only an operand's top 19 bits,
+// so it is rounded the same way.  Four operations, integer and fp32, at full
+// rate (cvt.rna.tf32.f32 runs at about a quarter of it).
+__device__ __forceinline__ void split_tf32(float x, unsigned int& hi, unsigned int& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a * b on one 16x8x8 tile: TF32 operands, fp32 accumulation.  Fragments
+// (g = lane / 4, t = lane % 4): a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k t, column g), b1 (t + 4, g); c0 (row g, column
+// 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned int (&a)[4],
+                                         const unsigned int (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b to about fp32's accuracy in three TF32 passes, the small terms
+// first: a_lo * b_hi + a_hi * b_lo + a_hi * b_hi (a_lo * b_lo lies below fp32's
+// rounding).  An operand that is exact in TF32 has no low part: its pass is
+// skipped.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned int (&ah)[4],
+                                           const unsigned int (&al)[4], const unsigned int (&bh)[2],
+                                           const unsigned int (&bl)[2]) {
+  if (!A_EXACT) mma_tf32(c, al, bh);
+  if (!B_EXACT) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// Asynchronous copies global -> shared; a copy whose `in` is false reads
+// nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most one group (the tile staged last) is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Rows row0 .. row0 + ROWS - 1 of a (n, d) matrix into a (ROWS, LD) fp32 tile,
+// zero past row n and column d.  fp32 goes by cp.async; bf16 is widened on the
+// way (plain loads, stored at once).
+template <typename T, int ROWS, int DP, int LD>
+__device__ __forceinline__ void stage_rows(float (*dst)[LD], const T* __restrict__ src, int row0,
+                                           int n, int d) {
+  for (int f = threadIdx.x; f < ROWS * (DP / 4); f += TC_THREADS) {
+    const int r = f / (DP / 4);
+    const int c = (f % (DP / 4)) * 4;
+    const bool in = row0 + r < n && c < d;
+    const T* p = in ? src + static_cast<long long>(row0 + r) * d + c : src;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(&dst[r][c], p, in);
+    } else {
+      *reinterpret_cast<float4*>(&dst[r][c]) = in ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// K4: o and lse.  One block of four warps owns 64 query rows, 16 a warp (the
+// rows of its mma tiles), each thread two rows (g and g + 8 of its warp's).
+// It walks KT-key tiles of K and V, staged two deep by cp.async, up to the
+// diagonal.  Blocks are ordered by the length of their key loop, longest
+// first, across all heads.
+template <typename T, int DP, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, long long bh_count, int n, int d,
+                 int nq, float scale, unsigned int threshold, float inv_keep,
+                 unsigned long long seed) {
+  constexpr int KT = kTcTile<DP>;
+  constexpr int LD = kTcLd<DP>;
+  constexpr int DS = DP / 8;     // 8-wide column tiles of O
+  constexpr int JT = KT / 8;     // 8-key column tiles of S; k-steps of O += P.V
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  __shared__ __align__(16) float k_tile[2][KT][LD];
+  __shared__ __align__(16) float v_tile[2][KT][LD];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int row0 = qt * TC_ROWS + warp * 16;   // first row of this warp
+  const int ra = row0 + g;                     // this thread's two rows
+  const int rb = ra + 8;
   const long long base = bh * n * d;
-  const T* qb = q + base;
   const T* kb = k + base;
   const T* vb = v + base;
 
-  float qr[R][DP], acc[R][DP], m[R], l[R];
+  float qa[DP], qb[DP];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DP; c += 4) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < n && c < d) x = load4(qb + static_cast<long long>(row0 + r) * d + c);
-      qr[r][c + 0] = x.x;
-      qr[r][c + 1] = x.y;
-      qr[r][c + 2] = x.z;
-      qr[r][c + 3] = x.w;
-      acc[r][c + 0] = acc[r][c + 1] = acc[r][c + 2] = acc[r][c + 3] = 0.f;
-    }
+  for (int c = 0; c < DP; ++c) {
+    qa[c] = (ra < n && c < d) ? to_float(q[base + static_cast<long long>(ra) * d + c]) : 0.f;
+    qb[c] = (rb < n && c < d) ? to_float(q[base + static_cast<long long>(rb) * d + c]) : 0.f;
   }
+  float acc[DS][4];   // O: rows ra (0, 1) and rb (2, 3), columns 8s + 2t and 8s + 2t + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+  // the running maximum, and this lane's part of the normaliser (its 2 columns
+  // of every 8), of rows ra and rb
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
 
-  // The last row of the block sees keys below key_end; the last row of this
-  // warp sees keys below warp_last (0 for a warp whose rows all lie beyond N).
-  const int key_end = min(n, qt * TQ + TQ) - 1;
-  const int warp_row0 = qt * TQ + (tid / 32) * 32 * R;
-  const int warp_last = warp_row0 < n ? min(n, warp_row0 + 32 * R) - 1 : 0;
+  // The block's rows see keys below key_end; this warp's rows see keys below
+  // warp_last (0 for a warp whose rows all lie beyond N).
+  const int key_end = min(n, qt * TC_ROWS + TC_ROWS) - 1;
+  const int warp_last = row0 < n ? min(n, row0 + 16) - 1 : 0;
+  const int tiles = (key_end + KT - 1) / KT;
 
-  for (int k0 = 0; k0 < key_end; k0 += KT) {
-    __syncthreads();   // the previous tile has been consumed
-    for (int f = tid; f < KT * (DP / 4); f += NT) {
-      const int r = f / (DP / 4);
-      const int c = (f % (DP / 4)) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n && c < d) {
-        a = load4(kb + static_cast<long long>(k0 + r) * d + c);
-        b = load4(vb + static_cast<long long>(k0 + r) * d + c);
-      }
-      *reinterpret_cast<float4*>(&ks[r][c]) = a;
-      *reinterpret_cast<float4*>(&vs[r][c]) = b;
+  if (tiles > 0) {
+    stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
+    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d);
+  }
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * KT;
+    const int st = it & 1;
+    if (it + 1 < tiles) {   // the next tile loads while this one is computed
+      stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
+      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d);
     }
+    cp_async_commit();
+    cp_async_wait_one();
     __syncthreads();
-    if (k0 >= warp_last) continue;   // wholly above this warp's rows (warp-uniform)
 
-    const int kmax = min(KT, warp_last - k0);
-    for (int c0 = 0; c0 < kmax; c0 += KC) {
-      float s[R][KC];
+    // Column tile j (keys k0 + 8j .. + 7) is seen by this warp when 8j < kmax
+    // (warp-uniform); a warp with kmax <= 0 skips the tile.
+    const int kmax = warp_last - k0;
+    if (kmax > 0) {
+      // S = Q.K^T: s[j][c] is (ra, key k0 + 8j + 2t + c), s[j][2 + c] is (rb,
+      // the same key), each an fp32 FMA chain over d in order, as the plain
+      // version's product rounds it.  (Scores on the tensor cores, even exact
+      // ones, leave o further from the plain version than FA_TOL once the
+      // scores reach a few hundred: tests/test_torch_flash_attention.py.)
+      float s[JT][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
 #pragma unroll
-        for (int c = 0; c < KC; ++c) s[r][c] = 0.f;
+        for (int c = 0; c < 2; ++c) {
+          const float* kr = &k_tile[st][j * 8 + 2 * t + c][0];
+          float sa = 0.f, sb = 0.f;
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-#pragma unroll
-        for (int dd = 0; dd < DP; dd += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&ks[c0 + c][dd]);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            s[r][c] = fmaf(qr[r][dd + 0], kk.x, s[r][c]);
-            s[r][c] = fmaf(qr[r][dd + 1], kk.y, s[r][c]);
-            s[r][c] = fmaf(qr[r][dd + 2], kk.z, s[r][c]);
-            s[r][c] = fmaf(qr[r][dd + 3], kk.w, s[r][c]);
+          for (int dd = 0; dd < DP; dd += 4) {
+            const float4 kk = *reinterpret_cast<const float4*>(kr + dd);
+            sa = fmaf(qa[dd + 0], kk.x, sa);
+            sa = fmaf(qa[dd + 1], kk.y, sa);
+            sa = fmaf(qa[dd + 2], kk.z, sa);
+            sa = fmaf(qa[dd + 3], kk.w, sa);
+            sb = fmaf(qb[dd + 0], kk.x, sb);
+            sb = fmaf(qb[dd + 1], kk.y, sb);
+            sb = fmaf(qb[dd + 2], kk.z, sb);
+            sb = fmaf(qb[dd + 3], kk.w, sb);
           }
+          s[j][c] = sa;
+          s[j][2 + c] = sb;
         }
       }
 
-      const int j0 = k0 + c0;   // a multiple of KC
+      // Online softmax on the fragments; a row's maximum is reduced over the
+      // four lanes of its quad.
+      float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = row0 + r;
-        float m_new = m[r];
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
 #pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          s[r][c] = (j0 + c < i) ? s[r][c] * scale : NEG;
-          m_new = fmaxf(m_new, s[r][c]);
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + j * 8 + 2 * t + c;
+          s[j][c] = key < ra ? s[j][c] * scale : NEG;
+          s[j][2 + c] = key < rb ? s[j][2 + c] * scale : NEG;
+          mx_a = fmaxf(mx_a, s[j][c]);
+          mx_b = fmaxf(mx_b, s[j][2 + c]);
         }
-        const float alpha = __expf(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= alpha;
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+      const float alpha_a = __expf(m_a - mx_a);
+      const float alpha_b = __expf(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+      // p = exp(s - m) * mask: a row that has seen nothing yet has m == NEG and
+      // exp(NEG - NEG) == 1, so the mask is a factor, not only a fill
 #pragma unroll
-        for (int c = 0; c < DP; ++c) acc[r][c] *= alpha;
-        // p = exp(s - m) * mask: a row that has seen nothing yet has m == NEG
-        // and exp(NEG - NEG) == 1, so the mask must be a factor, not only a fill
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
 #pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          const float p = (j0 + c < i) ? __expf(s[r][c] - m_new) : 0.f;
-          l[r] += p;   // the normaliser takes the undropped p
-          s[r][c] = p;
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + j * 8 + 2 * t + c;
+          const float pa = key < ra ? __expf(s[j][c] - mx_a) : 0.f;
+          const float pb = key < rb ? __expf(s[j][2 + c] - mx_b) : 0.f;
+          l_a += pa;   // the normaliser takes the undropped p
+          l_b += pb;
+          s[j][c] = pa;
+          s[j][2 + c] = pb;
         }
-        if (DROP) {
+      }
+      if (DROP) {
+        // Keys 8j + 2t, 8j + 2t + 1 are words 2(t & 1), 2(t & 1) + 1 of the
+        // Philox quad k0 / 4 + 2j + t / 2.  Of the two lanes that share a quad,
+        // the even one draws it for row ra and the odd one for row rb; each
+        // sends the other the two words it holds for the other's keys.
 #pragma unroll
-          for (int c = 0; c < KC; c += 4) {
-            const uint4 bits = dropout_bits4(seed, bh, i, (j0 + c) >> 2);
-            s[r][c + 0] = (bits.x >= threshold) ? s[r][c + 0] * inv_keep : 0.f;
-            s[r][c + 1] = (bits.y >= threshold) ? s[r][c + 1] * inv_keep : 0.f;
-            s[r][c + 2] = (bits.z >= threshold) ? s[r][c + 2] * inv_keep : 0.f;
-            s[r][c + 3] = (bits.w >= threshold) ? s[r][c + 3] * inv_keep : 0.f;
-          }
+        for (int j = 0; j < JT; ++j) {
+          if (j * 8 >= kmax) continue;
+          const bool odd = t & 1;
+          const uint4 bits = dropout_bits4(seed, bh, odd ? rb : ra, (k0 + j * 8) / 4 + (t >> 1));
+          const unsigned int r0 = __shfl_xor_sync(FULL, odd ? bits.x : bits.z, 1);
+          const unsigned int r1 = __shfl_xor_sync(FULL, odd ? bits.y : bits.w, 1);
+          const unsigned int wa0 = odd ? r0 : bits.x, wa1 = odd ? r1 : bits.y;   // row ra
+          const unsigned int wb0 = odd ? bits.z : r0, wb1 = odd ? bits.w : r1;   // row rb
+          s[j][0] = wa0 >= threshold ? s[j][0] * inv_keep : 0.f;
+          s[j][1] = wa1 >= threshold ? s[j][1] * inv_keep : 0.f;
+          s[j][2] = wb0 >= threshold ? s[j][2] * inv_keep : 0.f;
+          s[j][3] = wb1 >= threshold ? s[j][3] * inv_keep : 0.f;
         }
       }
 
+      // O += P.V in three TF32 passes.  The score fragment of column tile j
+      // is used as the A fragment of k-step j with its keys reordered: k = t is
+      // key 8j + 2t, k = t + 4 is key 8j + 2t + 1, and V's B fragment is read
+      // from those two rows.  The same permutation of P's columns and V's rows
+      // leaves the product as it is, and P never leaves the registers.  The
+      // tile's products go into a fresh accumulator, added to the running one
+      // (rescaled) by a rounded fp32 FMA: the tensor cores' own fp32 sums
+      // round toward zero, and over a thousand keys that drift shows.
+      float part[DS][4];
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
+      for (int ds = 0; ds < DS; ++ds) part[ds][0] = part[ds][1] = part[ds][2] = part[ds][3] = 0.f;
 #pragma unroll
-        for (int dd = 0; dd < DP; dd += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[c0 + c][dd]);
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
+        unsigned int ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            acc[r][dd + 0] = fmaf(s[r][c], vv.x, acc[r][dd + 0]);
-            acc[r][dd + 1] = fmaf(s[r][c], vv.y, acc[r][dd + 1]);
-            acc[r][dd + 2] = fmaf(s[r][c], vv.z, acc[r][dd + 2]);
-            acc[r][dd + 3] = fmaf(s[r][c], vv.w, acc[r][dd + 3]);
-          }
+        for (int ds = 0; ds < DS; ++ds) {
+          const int r = j * 8 + 2 * t;
+          const int c = ds * 8 + g;
+          unsigned int vh[2], vl[2];
+          split_tf32(v_tile[st][r][c], vh[0], vl[0]);
+          split_tf32(v_tile[st][r + 1][c], vh[1], vl[1]);
+          mma_3xtf32<false, EXACT>(part[ds], ph, pl, vh, vl);
         }
+      }
+#pragma unroll
+      for (int ds = 0; ds < DS; ++ds) {
+        acc[ds][0] = fmaf(acc[ds][0], alpha_a, part[ds][0]);
+        acc[ds][1] = fmaf(acc[ds][1], alpha_a, part[ds][1]);
+        acc[ds][2] = fmaf(acc[ds][2], alpha_b, part[ds][2]);
+        acc[ds][3] = fmaf(acc[ds][3], alpha_b, part[ds][3]);
+      }
+    }
+    __syncthreads();   // this tile is consumed before the next stage overwrites it
+  }
+
+  l_a += __shfl_xor_sync(FULL, l_a, 1);
+  l_a += __shfl_xor_sync(FULL, l_a, 2);
+  l_b += __shfl_xor_sync(FULL, l_b, 1);
+  l_b += __shfl_xor_sync(FULL, l_b, 2);
+  const float den_a = fmaxf(l_a, TINY);
+  const float den_b = fmaxf(l_b, TINY);
+  if (ra < n) {
+    if (t == 0) lse[bh * n + ra] = m_a + logf(den_a);
+#pragma unroll
+    for (int ds = 0; ds < DS; ++ds) {
+      const int col = ds * 8 + 2 * t;
+      if (col < d) {
+        store2(o + base + static_cast<long long>(ra) * d + col, acc[ds][0] / den_a,
+               acc[ds][1] / den_a);
       }
     }
   }
-
+  if (rb < n) {
+    if (t == 0) lse[bh * n + rb] = m_b + logf(den_b);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = row0 + r;
-    if (i >= n) continue;
-    const float denom = fmaxf(l[r], TINY);
-    lse[bh * n + i] = m[r] + logf(denom);
-#pragma unroll
-    for (int c = 0; c < DP; c += 4) {
-      if (c < d) {
-        store4(o + base + static_cast<long long>(i) * d + c,
-               make_float4(acc[r][c + 0] / denom, acc[r][c + 1] / denom, acc[r][c + 2] / denom,
-                           acc[r][c + 3] / denom));
+    for (int ds = 0; ds < DS; ++ds) {
+      const int col = ds * 8 + 2 * t;
+      if (col < d) {
+        store2(o + base + static_cast<long long>(rb) * d + col, acc[ds][2] / den_b,
+               acc[ds][3] / den_b);
       }
     }
   }
@@ -296,12 +518,11 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, long long bh_
   }
 }
 
-template <typename T, int DP, int R>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long bh, int n,
            int d, unsigned int threshold, float inv_keep, unsigned long long seed,
            cudaStream_t stream) {
-  constexpr int TQ = NT * R;
-  const int nq = (n + TQ - 1) / TQ;
+  const int nq = (n + TC_ROWS - 1) / TC_ROWS;
   const long long blocks = bh * nq;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
@@ -311,11 +532,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, lon
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (threshold > 0) {
-    flash_fwd_kernel<T, DP, R, true><<<grid, NT, 0, stream>>>(
-        qp, kp, vp, op, lse, n, d, nq, scale, threshold, inv_keep, seed);
+    flash_fwd_kernel<T, DP, true><<<grid, TC_THREADS, 0, stream>>>(
+        qp, kp, vp, op, lse, bh, n, d, nq, scale, threshold, inv_keep, seed);
   } else {
-    flash_fwd_kernel<T, DP, R, false><<<grid, NT, 0, stream>>>(
-        qp, kp, vp, op, lse, n, d, nq, scale, 0u, 1.0f, 0ull);
+    flash_fwd_kernel<T, DP, false><<<grid, TC_THREADS, 0, stream>>>(
+        qp, kp, vp, op, lse, bh, n, d, nq, scale, 0u, 1.0f, 0ull);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -324,23 +545,15 @@ template <typename T>
 int launch_by_depth(const void* q, const void* k, const void* v, void* o, float* lse,
                     long long bh, int n, int d, unsigned int threshold, float inv_keep,
                     unsigned long long seed, cudaStream_t stream) {
-  if (d <= 16) return launch<T, 16, 2>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
-  if (d <= 32) return launch<T, 32, 1>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
-  return launch<T, 64, 1>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
+  if (d <= 16) return launch<T, 16>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
+  return launch<T, 64>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
 }
 
 
 // ---------------------------------------------------------------------------
 // Backward
 // ---------------------------------------------------------------------------
-
-constexpr int QT = 64;            // queries in a shared tile of the dk/dv kernel
-constexpr int QC = 8;             // queries folded per step of the dk/dv kernel
-static_assert(QT % QC == 0, "a query tile is whole steps");
-
-__device__ __forceinline__ unsigned int word_of(uint4 bits, int w) {
-  return w == 0 ? bits.x : w == 1 ? bits.y : w == 2 ? bits.z : bits.w;
-}
 
 // K5: dq, and dsum for the same rows.  Blocks are ordered by the length of
 // their key loop, longest first, across all heads.
@@ -502,158 +715,297 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// K6: dk and dv.  One thread owns R consecutive keys, which lie in one Philox
-// quad (R divides 4 and the block's first key is a multiple of 4), so one draw
-// a query serves all of them.  Blocks are ordered by the length of their query
-// loop, longest (the first key tile) first, across all heads.
-template <typename T, int DP, int R, bool DROP>
-__global__ void __launch_bounds__(NT)
+// K6: dk and dv.  One block of four warps owns 64 keys, 16 a warp (the rows
+// of its mma tiles), each thread two keys, with the dk, dv accumulators (and
+// at D = 16 k and v) in registers; it walks QT-query tiles from the diagonal to N
+// with q, do, lse and dsum staged two deep by cp.async.  A tile is computed in
+// sub-tiles of JS 8-query columns (fewer registers: at D = 64 one column).
+// Blocks are ordered by the length of their query loop, longest (the first key
+// tile) first, across all heads.
+template <typename T, int DP, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
                      long long bh_count, int n, int d, float scale, unsigned int threshold,
                      float inv_keep, unsigned long long seed) {
-  constexpr int TK = NT * R;                   // keys a block owns
-  static_assert(4 % R == 0, "a thread's keys lie in one Philox quad");
-  __shared__ __align__(16) float qs[QT][DP];
-  __shared__ __align__(16) float gs[QT][DP];   // do
-  __shared__ float ls[QT];
-  __shared__ float sums[QT];
+  constexpr int QT = kTcTile<DP>;
+  constexpr int LD = kTcLd<DP>;
+  constexpr int DS = DP / 8;           // k-steps of S^T and dP^T; column tiles of dK, dV
+  constexpr int JT = QT / 8;           // 8-query column tiles of a query tile
+  constexpr int JS = DP >= 64 ? 1 : 4;  // ... of a sub-tile
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  __shared__ __align__(16) float q_tile[2][QT][LD];
+  __shared__ __align__(16) float g_tile[2][QT][LD];   // do
+  __shared__ __align__(16) float l_tile[2][QT];
+  __shared__ __align__(16) float sum_tile[2][QT];
 
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int kt = static_cast<int>(blockIdx.x / bh_count);
-  const int key0 = kt * TK + tid * R;          // first of this thread's keys
+  const int key0 = kt * TC_ROWS + warp * 16;   // first key of this warp, a multiple of 16
+  const int ka = key0 + g;                     // this thread's two keys
+  const int kb = ka + 8;
   const long long base = bh * n * d;
   const T* qb = q + base;
   const T* gb = dout + base;
 
-  float kr[R][DP], vr[R][DP], dkr[R][DP], dvr[R][DP];
+  // The keys' rows, for the scores' FMA chains, and V as A fragments, kept as
+  // fp32 and split at each use (element r of k-step s is key ka or kb, column
+  // 8s + t or 8s + t + 4).  At D = 16 they stay in registers; at larger D they
+  // would not fit beside the accumulators, and each use reads them again (from
+  // L1: the warp's keys and values are at most 8 KB).
+  constexpr bool KV_IN_REGS = DP <= 16;
+  const T* ka_row = k + base + static_cast<long long>(ka) * d;
+  const T* kb_row = k + base + static_cast<long long>(kb) * d;
+  auto v_at = [&](int s, int r, long long& at) {
+    const int row = (r & 1) ? kb : ka;
+    const int col = s * 8 + t + (r >> 1) * 4;
+    at = base + static_cast<long long>(row) * d + col;
+    return row < n && col < d;
+  };
+  float kra[KV_IN_REGS ? DP : 1], krb[KV_IN_REGS ? DP : 1], vf[KV_IN_REGS ? DS : 1][4];
+  if (KV_IN_REGS) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+    for (int c = 0; c < DP; ++c) {
+      kra[c] = (ka < n && c < d) ? to_float(ka_row[c]) : 0.f;
+      krb[c] = (kb < n && c < d) ? to_float(kb_row[c]) : 0.f;
+    }
 #pragma unroll
-    for (int c = 0; c < DP; c += 4) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (key0 + r < n && c < d) {
-        a = load4(k + base + static_cast<long long>(key0 + r) * d + c);
-        b = load4(v + base + static_cast<long long>(key0 + r) * d + c);
+    for (int s = 0; s < DS; ++s) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        long long at;
+        const bool in = v_at(s, r, at);
+        vf[s][r] = in ? to_float(v[at]) : 0.f;
       }
-      kr[r][c + 0] = a.x;
-      kr[r][c + 1] = a.y;
-      kr[r][c + 2] = a.z;
-      kr[r][c + 3] = a.w;
-      vr[r][c + 0] = b.x;
-      vr[r][c + 1] = b.y;
-      vr[r][c + 2] = b.z;
-      vr[r][c + 3] = b.w;
-      dkr[r][c + 0] = dkr[r][c + 1] = dkr[r][c + 2] = dkr[r][c + 3] = 0.f;
-      dvr[r][c + 0] = dvr[r][c + 1] = dvr[r][c + 2] = dvr[r][c + 3] = 0.f;
     }
   }
+  float dka[DS][4], dva[DS][4];   // rows ka (0, 1) and kb (2, 3), columns 8s + 2t, 8s + 2t + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) {
+    dka[s][0] = dka[s][1] = dka[s][2] = dka[s][3] = 0.f;
+    dva[s][0] = dva[s][1] = dva[s][2] = dva[s][3] = 0.f;
+  }
 
-  // The queries that see a key of this warp are those after its first key.
-  const int warp_key0 = kt * TK + (tid / 32) * 32 * R;
-
-  for (int q0 = kt * TK; q0 < n; q0 += QT) {
-    __syncthreads();   // the previous tile has been consumed
-    for (int f = tid; f < QT * (DP / 4); f += NT) {
-      const int r = f / (DP / 4);
-      const int c = (f % (DP / 4)) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < n && c < d) {
-        a = load4(qb + static_cast<long long>(q0 + r) * d + c);
-        b = load4(gb + static_cast<long long>(q0 + r) * d + c);
+  const int q_first = kt * TC_ROWS;   // no query before the block's first key sees it
+  const int tiles = (n - q_first + QT - 1) / QT;
+  auto stage = [&](int buf, int q0) {
+    stage_rows<T, QT, DP, LD>(q_tile[buf], qb, q0, n, d);
+    stage_rows<T, QT, DP, LD>(g_tile[buf], gb, q0, n, d);
+    for (int r = threadIdx.x; r < 2 * QT; r += TC_THREADS) {
+      const int i = r % QT;
+      const bool in = q0 + i < n;
+      const long long at = in ? bh * n + q0 + i : 0;
+      if (r < QT) {
+        cp_async4(&l_tile[buf][i], lse + at, in);
+      } else {
+        cp_async4(&sum_tile[buf][i], dsum + at, in);
       }
-      *reinterpret_cast<float4*>(&qs[r][c]) = a;
-      *reinterpret_cast<float4*>(&gs[r][c]) = b;
     }
-    for (int r = tid; r < QT; r += NT) {
-      const bool in = q0 + r < n;
-      ls[r] = in ? lse[bh * n + q0 + r] : 0.f;
-      sums[r] = in ? dsum[bh * n + q0 + r] : 0.f;
-    }
+  };
+
+  stage(0, q_first);
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = q_first + it * QT;
+    const int st = it & 1;
+    if (it + 1 < tiles) stage(st ^ 1, q0 + QT);   // the next tile loads while this one is computed
+    cp_async_commit();
+    cp_async_wait_one();
     __syncthreads();
-    if (warp_key0 >= n) continue;   // this warp's keys all lie beyond N (warp-uniform)
 
-    for (int c0 = 0; c0 < QT; c0 += QC) {
-      if (q0 + c0 + QC - 1 <= warp_key0) continue;   // no query here sees this warp's keys
-      float s[R][QC], dp[R][QC];
+    // Column tile j (queries q0 + 8j .. + 7) holds a query that sees a key of
+    // this warp when q0 + 8j + 7 > key0 (warp-uniform).
+    for (int j0 = 0; j0 < JT; j0 += JS) {
+      if (key0 >= n || q0 + j0 * 8 + JS * 8 - 1 <= key0) continue;
+      float s[JS][4], dp[JS][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int j = 0; j < JS; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+      // S^T = K.Q^T: s[j][2h + c] is (key ka or kb for h = 0, 1, query
+      // q0 + 8(j0 + j) + 2t + c), an fp32 FMA chain over d in order, so that it
+      // rounds as the forward's score of the same pair does.  p = exp(s - lse)
+      // then stays at most 1 whatever the scores' size: from scores rounded
+      // otherwise (the tensor cores'), p overflows once the scores reach
+      // 1e10, as a few steps of training bring them to.
 #pragma unroll
-        for (int c = 0; c < QC; ++c) s[r][c] = dp[r][c] = 0.f;
+      for (int j = 0; j < JS; ++j) {
+        const int r0 = (j0 + j) * 8;
+        if (q0 + r0 + 7 <= key0) continue;
 #pragma unroll
-      for (int c = 0; c < QC; ++c) {
+        for (int c = 0; c < 2; ++c) {
+          const float* qr = &q_tile[st][r0 + 2 * t + c][0];
+          float sa = 0.f, sb = 0.f;
+          auto chain = [&](const float4& qq, const float4& xa, const float4& xb) {
+            sa = fmaf(qq.x, xa.x, sa);
+            sa = fmaf(qq.y, xa.y, sa);
+            sa = fmaf(qq.z, xa.z, sa);
+            sa = fmaf(qq.w, xa.w, sa);
+            sb = fmaf(qq.x, xb.x, sb);
+            sb = fmaf(qq.y, xb.y, sb);
+            sb = fmaf(qq.z, xb.z, sb);
+            sb = fmaf(qq.w, xb.w, sb);
+          };
+          if (KV_IN_REGS) {
 #pragma unroll
-        for (int dd = 0; dd < DP; dd += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(&qs[c0 + c][dd]);
-          const float4 gg = *reinterpret_cast<const float4*>(&gs[c0 + c][dd]);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            s[r][c] = fmaf(kr[r][dd + 0], qq.x, s[r][c]);
-            s[r][c] = fmaf(kr[r][dd + 1], qq.y, s[r][c]);
-            s[r][c] = fmaf(kr[r][dd + 2], qq.z, s[r][c]);
-            s[r][c] = fmaf(kr[r][dd + 3], qq.w, s[r][c]);
-            dp[r][c] = fmaf(vr[r][dd + 0], gg.x, dp[r][c]);
-            dp[r][c] = fmaf(vr[r][dd + 1], gg.y, dp[r][c]);
-            dp[r][c] = fmaf(vr[r][dd + 2], gg.z, dp[r][c]);
-            dp[r][c] = fmaf(vr[r][dd + 3], gg.w, dp[r][c]);
+            for (int dd = 0; dd < DP; dd += 4) {
+              chain(*reinterpret_cast<const float4*>(qr + dd),
+                    make_float4(kra[dd], kra[dd + 1], kra[dd + 2], kra[dd + 3]),
+                    make_float4(krb[dd], krb[dd + 1], krb[dd + 2], krb[dd + 3]));
+            }
+          } else {
+            const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+            // one step at a time: hoisted, the loads would not fit the registers
+#pragma unroll 1
+            for (int dd = 0; dd < DP; dd += 4) {
+              chain(*reinterpret_cast<const float4*>(qr + dd),
+                    (ka < n && dd < d) ? load4(ka_row + dd) : zero,
+                    (kb < n && dd < d) ? load4(kb_row + dd) : zero);
+            }
           }
+          s[j][c] = sa;
+          s[j][2 + c] = sb;
+        }
+      }
+      // dP^T = V.dO^T in three TF32 passes
+#pragma unroll
+      for (int ds = 0; ds < DS; ++ds) {
+        unsigned int vh[4], vl[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float vx;
+          if (KV_IN_REGS) {
+            vx = vf[ds][r];
+          } else {
+            long long at;
+            const bool in = v_at(ds, r, at);
+            vx = in ? to_float(v[at]) : 0.f;
+          }
+          split_tf32(vx, vh[r], vl[r]);
+        }
+#pragma unroll
+        for (int j = 0; j < JS; ++j) {
+          const int row = (j0 + j) * 8 + g;
+          if (q0 + row - g + 7 <= key0) continue;
+          const int c = ds * 8 + t;
+          unsigned int bh_[2], bl_[2];
+          split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
+          split_tf32(g_tile[st][row][c + 4], bh_[1], bl_[1]);
+          mma_3xtf32<EXACT, EXACT>(dp[j], vh, vl, bh_, bl_);
         }
       }
 
+      // Element c of column tile j is (key ka for c < 2 else kb, query
+      // q0 + 8(j0 + j) + 2t + (c & 1)).
 #pragma unroll
-      for (int c = 0; c < QC; ++c) {
-        const int i = q0 + c0 + c;
-        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-        if (DROP) bits = dropout_bits4(seed, bh, i, key0 >> 2);
+      for (int j = 0; j < JS; ++j) {
+        const int col = (j0 + j) * 8 + 2 * t;   // within the tile
+        if (q0 + col - 2 * t + 7 <= key0) continue;
+        const int i0 = q0 + col;
+        const float2 lq = *reinterpret_cast<const float2*>(&l_tile[st][col]);
+        const float2 sq = *reinterpret_cast<const float2*>(&sum_tile[st][col]);
+        unsigned int keep = 0xFu;   // bit c: element c is kept
+        if (DROP) {
+          // The warp's 16 keys are four Philox quads, and its lanes of one t
+          // hold two queries: 8 draws, one a lane.  Lane (g, t) draws quad
+          // key0 / 4 + g / 2 of query i0 + (g & 1) and turns it into four keep
+          // bits; a lane reads the bits of its two keys (word g & 3 of quads
+          // g / 4 and 2 + g / 4) from the four lanes that drew them.
+          const uint4 bits = dropout_bits4(seed, bh, i0 + (g & 1), (key0 >> 2) + (g >> 1));
+          const unsigned int mine = static_cast<unsigned int>(bits.x >= threshold) |
+                                    static_cast<unsigned int>(bits.y >= threshold) << 1 |
+                                    static_cast<unsigned int>(bits.z >= threshold) << 2 |
+                                    static_cast<unsigned int>(bits.w >= threshold) << 3;
+          const int h = g >> 2;
+          const unsigned int m0 = __shfl_sync(FULL, mine, (2 * h) * 4 + t);       // ka, i0
+          const unsigned int m1 = __shfl_sync(FULL, mine, (2 * h + 1) * 4 + t);   // ka, i0 + 1
+          const unsigned int m2 = __shfl_sync(FULL, mine, (2 * h + 4) * 4 + t);   // kb, i0
+          const unsigned int m3 = __shfl_sync(FULL, mine, (2 * h + 5) * 4 + t);   // kb, i0 + 1
+          const int w = g & 3;
+          keep = ((m0 >> w) & 1u) | ((m1 >> w) & 1u) << 1 | ((m2 >> w) & 1u) << 2 |
+                 ((m3 >> w) & 1u) << 3;
+        }
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int j = key0 + r;
-          const bool seen = j < i && i < n;
-          const float p = seen ? __expf(s[r][c] * scale - ls[c0 + c]) : 0.f;
+        for (int c = 0; c < 4; ++c) {
+          const int key = c < 2 ? ka : kb;
+          const int i = i0 + (c & 1);
+          const bool seen = key < i && i < n;
+          const float p = seen ? __expf(s[j][c] * scale - ((c & 1) ? lq.y : lq.x)) : 0.f;
           float m = 1.f;
-          if (DROP) m = (word_of(bits, j & 3) >= threshold) ? inv_keep : 0.f;
-          s[r][c] = p * m;                                      // multiplies do into dv
-          dp[r][c] = p * (dp[r][c] * m - sums[c0 + c]) * scale;  // multiplies q into dk
+          if (DROP) m = ((keep >> c) & 1u) ? inv_keep : 0.f;
+          s[j][c] = p * m;                                                          // into dv
+          dp[j][c] = p * (dp[j][c] * m - ((c & 1) ? sq.y : sq.x)) * scale;        // into dk
         }
       }
 
+      // dV += (P^T m).dO and dK += dS^T.Q in three TF32 passes: the score
+      // fragments of column j are the A fragments of k-step j with the queries
+      // reordered (k = t is query 8j + 2t, k = t + 4 is 8j + 2t + 1), and the B
+      // fragments of dO and Q are read from those two rows.  The sub-tile's
+      // products go into fresh accumulators, added to the running ones by
+      // rounded fp32 adds (the tensor cores' fp32 sums round toward zero).
+      float pv[DS][4], pk[DS][4];
 #pragma unroll
-      for (int c = 0; c < QC; ++c) {
+      for (int ds = 0; ds < DS; ++ds) {
+        pv[ds][0] = pv[ds][1] = pv[ds][2] = pv[ds][3] = 0.f;
+        pk[ds][0] = pk[ds][1] = pk[ds][2] = pk[ds][3] = 0.f;
+      }
 #pragma unroll
-        for (int dd = 0; dd < DP; dd += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(&qs[c0 + c][dd]);
-          const float4 gg = *reinterpret_cast<const float4*>(&gs[c0 + c][dd]);
+      for (int j = 0; j < JS; ++j) {
+        const int row = (j0 + j) * 8 + 2 * t;
+        if (q0 + row - 2 * t + 7 <= key0) continue;
+        unsigned int ph[4], pl[4], dh[4], dl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        split_tf32(dp[j][0], dh[0], dl[0]);
+        split_tf32(dp[j][2], dh[1], dl[1]);
+        split_tf32(dp[j][1], dh[2], dl[2]);
+        split_tf32(dp[j][3], dh[3], dl[3]);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            dvr[r][dd + 0] = fmaf(s[r][c], gg.x, dvr[r][dd + 0]);
-            dvr[r][dd + 1] = fmaf(s[r][c], gg.y, dvr[r][dd + 1]);
-            dvr[r][dd + 2] = fmaf(s[r][c], gg.z, dvr[r][dd + 2]);
-            dvr[r][dd + 3] = fmaf(s[r][c], gg.w, dvr[r][dd + 3]);
-            dkr[r][dd + 0] = fmaf(dp[r][c], qq.x, dkr[r][dd + 0]);
-            dkr[r][dd + 1] = fmaf(dp[r][c], qq.y, dkr[r][dd + 1]);
-            dkr[r][dd + 2] = fmaf(dp[r][c], qq.z, dkr[r][dd + 2]);
-            dkr[r][dd + 3] = fmaf(dp[r][c], qq.w, dkr[r][dd + 3]);
-          }
+        for (int ds = 0; ds < DS; ++ds) {
+          const int c = ds * 8 + g;
+          unsigned int bh_[2], bl_[2];
+          split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
+          split_tf32(g_tile[st][row + 1][c], bh_[1], bl_[1]);
+          mma_3xtf32<false, EXACT>(pv[ds], ph, pl, bh_, bl_);
+          split_tf32(q_tile[st][row][c], bh_[0], bl_[0]);
+          split_tf32(q_tile[st][row + 1][c], bh_[1], bl_[1]);
+          mma_3xtf32<false, EXACT>(pk[ds], dh, dl, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int ds = 0; ds < DS; ++ds) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[ds][e] += pv[ds][e];
+          dka[ds][e] += pk[ds][e];
         }
       }
     }
+    __syncthreads();   // this tile is consumed before the next stage overwrites it
   }
 
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = key0 + r;
-    if (j >= n) continue;
-#pragma unroll
-    for (int c = 0; c < DP; c += 4) {
-      if (c < d) {
-        const long long at = base + static_cast<long long>(j) * d + c;
-        store4(dk + at, make_float4(dkr[r][c + 0], dkr[r][c + 1], dkr[r][c + 2], dkr[r][c + 3]));
-        store4(dv + at, make_float4(dvr[r][c + 0], dvr[r][c + 1], dvr[r][c + 2], dvr[r][c + 3]));
-      }
+  for (int ds = 0; ds < DS; ++ds) {
+    const int col = ds * 8 + 2 * t;
+    if (col >= d) continue;
+    if (ka < n) {
+      const long long at = base + static_cast<long long>(ka) * d + col;
+      store2(dk + at, dka[ds][0], dka[ds][1]);
+      store2(dv + at, dva[ds][0], dva[ds][1]);
+    }
+    if (kb < n) {
+      const long long at = base + static_cast<long long>(kb) * d + col;
+      store2(dk + at, dka[ds][2], dka[ds][3]);
+      store2(dv + at, dva[ds][2], dva[ds][3]);
     }
   }
 }
@@ -679,33 +1031,39 @@ struct BwdArgs {
 };
 
 template <typename T, int DP, int R, bool DROP>
-int launch_bwd(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
   constexpr int TQ = NT * R;
-  const int tiles = (a.n + TQ - 1) / TQ;   // query tiles of K5 and key tiles of K6 alike
+  const int tiles = (a.n + TQ - 1) / TQ;
   const long long blocks = a.bh * tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(a.d));
-  const unsigned int grid = static_cast<unsigned int>(blocks);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  if (dq_pass) {
-    flash_bwd_dq_kernel<T, DP, R, DROP><<<grid, NT, 0, stream>>>(
-        q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.dsum, static_cast<T*>(a.dq), a.bh,
-        a.n, a.d, tiles, scale, a.threshold, a.inv_keep, a.seed);
-  } else {
-    flash_bwd_dkv_kernel<T, DP, R, DROP><<<grid, NT, 0, stream>>>(
-        q, k, v, dout, a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bh, a.n,
-        a.d, scale, a.threshold, a.inv_keep, a.seed);
-  }
+  flash_bwd_dq_kernel<T, DP, R, DROP><<<static_cast<unsigned int>(blocks), NT, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
+      static_cast<T*>(a.dq), a.bh, a.n, a.d, tiles, scale, a.threshold, a.inv_keep, a.seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP, bool DROP>
+int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
+  const int tiles = (a.n + TC_ROWS - 1) / TC_ROWS;
+  const long long blocks = a.bh * tiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.d));
+  flash_bwd_dkv_kernel<T, DP, DROP><<<static_cast<unsigned int>(blocks), TC_THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.bh, a.n, a.d, scale, a.threshold, a.inv_keep, a.seed);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DP, int R>
 int launch_bwd_drop(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
-  return a.threshold > 0 ? launch_bwd<T, DP, R, true>(a, dq_pass, stream)
-                         : launch_bwd<T, DP, R, false>(a, dq_pass, stream);
+  const bool drop = a.threshold > 0;
+  if (dq_pass) {
+    return drop ? launch_dq<T, DP, R, true>(a, stream) : launch_dq<T, DP, R, false>(a, stream);
+  }
+  return drop ? launch_dkv<T, DP, true>(a, stream) : launch_dkv<T, DP, false>(a, stream);
 }
 
 template <typename T>
