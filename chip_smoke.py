@@ -21,7 +21,11 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               flavour also with every row on one code, and run twice to show
               that its sums repeat bit for bit), then the causal
               flash-attention forward and its two backward kernels (also with
-              dropout on)
+              dropout on); and at shapes the JAX package
+              runs that the kernels once refused (embed_dim 30, 1 and 66; head
+              widths 6, 72 and 128 in fp32 and bf16, with and without dropout,
+              at N = 1024 and 777; ABN channels 2049 and 4096), each shown by
+              the launch counters to have gone through its kernel
 4. main     — stage 1: ``VQVAE()`` at full width, 256 px: ``forward`` and
               ``encode_ids`` at batch 128, then ``extract_codes.main`` into a
               temporary directory, read back and compared with a direct
@@ -40,8 +44,10 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               and ``sample.main`` from the three checkpoints; the losses fall;
               one step of each trainer is held against the CPU
 5. times    — CUDA-event times of each kernel, its plain version and the
-              nearest library route; ``encode_ids`` in img/s, the top prior's
-              forward in ms, a train step of stage 1 and of both priors
+              nearest library route; the kernels at the shapes they once
+              refused, with plain and library times; ``encode_ids`` in
+              img/s, the top prior's forward in ms, a train step of stage 1
+              and of both priors
 6. abn_kernels — the in-place ABN forward (K7) and backward (K8) against their
               plain versions at the inputs of the 13 ABNs of
               ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
@@ -202,6 +208,32 @@ KERNELS = {
     },
 }
 SOURCES = ("quantize", "flash_attention", "inplace_abn", "tc_probe")
+# Kernels of which no variant may spill registers (ptxas -v): both designs of
+# the dq kernel, the dk/dv kernel and the nearest-code search.
+NO_SPILL_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_kernel",
+                    "nearest_code_kernel")
+# Shapes the JAX package runs that the kernels once refused: head widths that
+# are no multiple of 4 (D = 6 is --channel 96) or above 64, embed_dim that is
+# no multiple of 4 (and 1, and 66), and ABN channels above 2048.
+ODD_HEAD_DIMS = (6, 72, 128)
+ODD_SEQ_LENS = (1024, 777)
+ODD_EMBED_DIMS = (30, 1, 66)
+WIDE_ABN_CHANNELS = (2049, 4096)
+
+
+def through_kernels(names, fn):
+    """``fn()`` with the launch counters read around it: each kernel in
+    ``names`` must have launched and no wrapper may have used its plain
+    version.  Returns ``fn``'s result (a dict) with the launches added."""
+    before = all_counts()
+    out = fn()
+    after = all_counts()
+    launched = {k: after["launches"][k] - before["launches"][k] for k in names}
+    plain = {k: v - before["plain_calls"][k] for k, v in after["plain_calls"].items()
+             if v != before["plain_calls"][k]}
+    check(all(launched.values()) and not plain,
+          f"{out.get('case')}: kernels launched {launched}, plain versions used {plain}")
+    return {**out, "kernel_launches": launched}
 
 
 def emit(phase: str, **fields) -> None:
@@ -384,9 +416,10 @@ def phase_build() -> None:
         built[name] = {"library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
                        "ptxas": ptxas_summary(info["log"])}
     emit("build", seconds=time.perf_counter() - t0, sources=built)
-    spills = {k: v for k, v in built["flash_attention"]["ptxas"].items()
-              if k.startswith("flash_bwd_dkv_kernel") and v.get("spill_store_bytes", 0)}
-    check(not spills, f"the dk/dv kernel spills registers: {spills}")
+    spills = {k: v for src in ("flash_attention", "quantize")
+              for k, v in built[src]["ptxas"].items()
+              if k.startswith(NO_SPILL_KERNELS) and v.get("spill_store_bytes", 0)}
+    check(not spills, f"a kernel that must not spill registers does: {spills}")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -473,7 +506,18 @@ def phase_kernels(model, x: torch.Tensor):
     stats.append(one)
     for label, flat, embed in stats_awkward_cases(gen):
         stats.append(compare_stats_with_plain(flat, embed, label))
-    emit("kernels", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=cases, stats_cases=stats)
+    odd = []
+    for d in ODD_EMBED_DIMS:
+        flat = torch.randn(20000, d, generator=gen, device="cuda")
+        embed = torch.randn(K, d, generator=gen, device="cuda")
+        odd.append(through_kernels(
+            ("nearest_code_ids", "nearest_code_lookup"),
+            lambda: compare_with_plain(flat, embed, f"embed_dim={d}")))
+        odd.append(through_kernels(
+            ("nearest_code_stats",),
+            lambda: compare_stats_with_plain(flat, embed, f"embed_dim={d}, statistics")))
+    emit("kernels", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=cases, stats_cases=stats,
+         odd_shape_cases=odd)
     return flat_t, flat_b, cases, stats
 
 
@@ -588,18 +632,22 @@ def phase_main(model, x: torch.Tensor) -> dict:
 # stage 2: the attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def plain_attention_in_chunks(q, k, v, chunk: int = 32, **kw):
+def plain_attention_in_chunks(q, k, v, chunk: int = 32, keep=None, **kw):
     """The plain version over ``chunk`` heads at a time: it materialises
     ``(heads, N, N)`` several times over, 1 GB each at 256 x 1024^2."""
-    outs = [fa.causal_attention_reference_lse(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], **kw)
+    outs = [fa.causal_attention_reference_lse(
+                q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+                keep=None if keep is None else keep[i:i + chunk], **kw)
             for i in range(0, q.shape[0], chunk)]
     return torch.cat([o for o, _ in outs]), torch.cat([l for _, l in outs])
 
 
-def compare_attention_with_plain(q, k, v, label: str) -> dict:
+def compare_attention_with_plain(q, k, v, label: str, dropout_rate: float = 0.0,
+                                 seed: int = 0) -> dict:
     """The kernel's ``o`` and ``lse`` on ``(BH, N, D)`` against the plain
-    version; row 0 must be bit-zero."""
-    o, lse = fa.causal_flash_attention_lse(q, k, v)
+    version (given the kernel's own mask under dropout); row 0 must be
+    bit-zero."""
+    o, lse = fa.causal_flash_attention_lse(q, k, v, dropout_rate=dropout_rate, seed=seed)
     torch.cuda.synchronize()
     bh, n, d = q.shape
     check(o.shape == q.shape and o.dtype == q.dtype, f"{label}: o shape/dtype")
@@ -607,7 +655,8 @@ def compare_attention_with_plain(q, k, v, label: str) -> dict:
     check(bool((o[:, 0] == 0).all()), f"{label}: row 0 of o is not bit-zero")
     check(bool((lse[:, 0] == fa.NEG_INF).all()), f"{label}: lse of row 0 is not -1e30")
     check(bool(torch.isfinite(o.float()).all()), f"{label}: non-finite o")
-    want_o, want_lse = plain_attention_in_chunks(q, k, v)
+    keep = fa.dropout_keep_mask(bh, n, dropout_rate, seed) if dropout_rate > 0 else None
+    want_o, want_lse = plain_attention_in_chunks(q, k, v, keep=keep, dropout_rate=dropout_rate)
     tol = FA_TOL_BF16 if q.dtype == torch.bfloat16 else FA_TOL
     o_err = float((o.float() - want_o.float()).abs().max())
     lse_err = float((lse[:, 1:] - want_lse[:, 1:]).abs().max()) if n > 1 else 0.0
@@ -616,7 +665,7 @@ def compare_attention_with_plain(q, k, v, label: str) -> dict:
     check(bool(torch.allclose(lse[:, 1:], want_lse[:, 1:], **FA_TOL)),
           f"{label}: lse differs from the plain version by {lse_err}")
     return {"case": label, "bh": bh, "n": n, "d": d, "dtype": str(q.dtype),
-            "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+            "dropout_rate": dropout_rate, "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
             "o_abs_max": float(want_o.float().abs().max())}
 
 
@@ -686,11 +735,20 @@ def plain_grads_in_chunks(q, k, v, do, keep=None, dropout_rate=0.0, chunk: int =
 
 
 def compare_attention_backward(q, k, v, do, label: str, dropout_rate: float = 0.0,
-                               seed: int = 0) -> dict:
+                               seed: int = 0, rounded_o: bool = False) -> dict:
     """The gradients through the kernels (``causal_flash_attention_lse`` with
     grad on: K4 forward, K5 and K6 backward) against autograd of the plain
     version on the same inputs; with dropout on, the plain version takes the
-    kernel's own exported mask.  Row 0 of ``dq`` must be bit-zero."""
+    kernel's own exported mask.  Row 0 of ``dq`` must be bit-zero.
+
+    ``rounded_o``: against the backward kernels' own plain version,
+    ``causal_attention_backward_reference`` in fp32, given the plain
+    forward's ``o`` rounded to the inputs' dtype and its ``lse``.  For bf16
+    inputs: both packages form dsum = <do, o> from the forward's bf16 ``o``
+    (the JAX package's backward takes it as its forward wrote it), which
+    autograd of the fp32 plain forward does not see; where a row's terms
+    cancel (a row that sees few keys) that moves dq by about 1e-2 at D = 128.
+    Nothing of the kernels' output enters the reference."""
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
         o, lse = fa.causal_flash_attention_lse(*leaves, dropout_rate=dropout_rate, seed=seed)
@@ -698,17 +756,26 @@ def compare_attention_backward(q, k, v, do, label: str, dropout_rate: float = 0.
     torch.cuda.synchronize()
     bh, n, d = q.shape
     keep = fa.dropout_keep_mask(bh, n, dropout_rate, seed) if dropout_rate > 0 else None
-    want = plain_grads_in_chunks(q, k, v, do, keep=keep, dropout_rate=dropout_rate)
+    if rounded_o:
+        plain_o, plain_lse = plain_attention_in_chunks(q, k, v, keep=keep,
+                                                       dropout_rate=dropout_rate)
+        want = fa.causal_attention_backward_reference(
+            *(t.float() for t in (q, k, v, plain_o)), plain_lse, do.float(), keep=keep,
+            dropout_rate=dropout_rate)
+    else:
+        want = plain_grads_in_chunks(q, k, v, do, keep=keep, dropout_rate=dropout_rate)
     tol = FA_TOL_BF16 if q.dtype == torch.bfloat16 else FA_TOL
     out = {"case": label, "bh": bh, "n": n, "d": d, "dtype": str(q.dtype),
-           "dropout_rate": dropout_rate}
+           "dropout_rate": dropout_rate,
+           "against": "the backward's plain version given the plain forward's o in "
+                      f"{str(q.dtype)[6:]} and its lse" if rounded_o
+           else "autograd of the plain forward"}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check(g.shape == q.shape and g.dtype == q.dtype and bool(torch.isfinite(g.float()).all()),
               f"{label}: {name} shape, dtype or non-finite")
         err = float((g.float() - w).abs().max())
         check(bool(torch.allclose(g.float(), w, **tol)),
-              f"{label}: {name} differs from autograd of the plain version by {err} "
-              f"(tolerance {tol})")
+              f"{label}: {name} differs from {out['against']} by {err} (tolerance {tol})")
         out[f"{name}_max_abs_err"] = err
         out[f"{name}_abs_max"] = float(w.abs().max())
     check(bool((got[0][:, 0] == 0).all()), f"{label}: row 0 of dq is not bit-zero")
@@ -779,6 +846,41 @@ def attention_backward_awkward_cases(gen: torch.Generator):
     yield "dropout 0.1, D=32, N=257", normal(8, 257, 32), 0.1
 
 
+def dq_tensor_core_cases():
+    """Shapes on which the dq kernel takes its tensor-core design without a
+    wide head (fp32 at 64 features under dropout, bf16 at 32 under dropout),
+    and bf16 at 32 without dropout, where it takes its CUDA-core design."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def normal(bh, n, d, dtype=torch.float32):
+        return [torch.randn(bh, n, d, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+    yield "dropout 0.1, D=64, N=300", normal(8, 300, 64), 0.1
+    yield "bf16, D=32, N=500", normal(8, 500, 32, torch.bfloat16), 0.0
+    yield "bf16, D=32, N=500, dropout 0.1", normal(8, 500, 32, torch.bfloat16), 0.1
+
+
+def attention_odd_shape_cases(gen: torch.Generator) -> list:
+    """The forward and both backward kernels at the head widths of
+    ``ODD_HEAD_DIMS``, fp32 and bf16, without and with dropout 0.1, at N = 1024
+    and a ragged N, each through its kernels (launch counters)."""
+    out = []
+    for d, n, dtype, rate in itertools.product(ODD_HEAD_DIMS, ODD_SEQ_LENS,
+                                               (torch.float32, torch.bfloat16), (0.0, 0.1)):
+        q, k, v, do = (torch.randn(4, n, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        label = f"odd shape D={d} N={n} {str(dtype)[6:]} dropout {rate}"
+        out.append(through_kernels(
+            ("causal_flash_attention",),
+            lambda: compare_attention_with_plain(q, k, v, label, dropout_rate=rate, seed=21)))
+        out.append(through_kernels(
+            ("causal_flash_attention", "causal_flash_attention_dq", "causal_flash_attention_dkv"),
+            lambda: compare_attention_backward(q, k, v, do, label + ", backward", dropout_rate=rate,
+                                               seed=21,
+                                               rounded_o=dtype == torch.bfloat16)))
+    return out
+
+
 def capture_attention_inputs(prior, codes: torch.Tensor):
     """The ``q, k, v (B*H, N, D)`` that the top prior's forward hands the
     attention kernel in each block."""
@@ -835,9 +937,14 @@ def phase_attention_kernel(top, codes: torch.Tensor):
                                            dropout_rate=PRIOR_CONFIG["dropout"], seed=0xC0FFEE)]
     for label, (q, k, v, g), rate in attention_backward_awkward_cases(gen):
         backward.append(compare_attention_backward(q, k, v, g, label, dropout_rate=rate, seed=5))
+    for label, (q, k, v, g), rate in dq_tensor_core_cases():
+        backward.append(compare_attention_backward(q, k, v, g, label, dropout_rate=rate, seed=5,
+                                                   rounded_o=q.dtype == torch.bfloat16))
     backward.append(backward_causality_on_the_card(gen))
     backward.append(huge_scores_backward_on_the_card(gen))
     emit("attention_backward", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16, cases=backward)
+    emit("attention_odd_shapes", tolerance=FA_TOL, tolerance_bf16=FA_TOL_BF16,
+         cases=attention_odd_shape_cases(gen))
     return seen[0], cases, do, backward
 
 
@@ -1382,13 +1489,13 @@ def backward_work(name: str, bh: int, n: int, d: int, itemsize: int,
     half: K5 reads q, k, v, o, do and lse and writes dq and dsum, three
     products; K6 reads q, k, v, do, lse and dsum and writes dk and dv, four.
     ``bound_ms`` at the fp32 rate of the CUDA cores, as for the forward;
-    ``bound_tc_ms`` (K6) the largest of the bytes' time, three TF32 passes of
-    the four products (3 x 4 x 2D flops a visible pair) at the TF32 rate, and
-    13 CUDA-core operations a visible pair (the probability: scale,
-    subtraction, exponential, mask; dp times the mask, minus dsum, times p,
-    times the scale; p times the mask; the TF32 splits of p and ds), and
-    under dropout 27 more, as in the forward; ``scores_fma`` as in the
-    forward (K6 rounds its scores as the forward does)."""
+    ``bound_tc_ms`` the largest of the bytes' time, three TF32 passes of the
+    products (3 x 3 x 2D flops a visible pair for K5, 3 x 4 x 2D for K6) at
+    the TF32 rate, and 13 CUDA-core operations a visible pair (the
+    probability: scale, subtraction, exponential, mask; dp times the mask,
+    minus dsum, times p, times the scale; p times the mask; the TF32 splits of
+    p and ds), and under dropout 27 more, as in the forward; ``scores_fma`` as
+    in the forward (both round their scores as the forward does)."""
     nbytes = 6 * bh * n * d * itemsize + 2 * bh * n * 4      # the same count for both
     products = 3 if name == "causal_flash_attention_dq" else 4
     flops = products * 2 * bh * n * n * d // 2
@@ -1407,9 +1514,38 @@ def backward_launchers(q, k, v, do, dropout_rate: float = 0.0, seed: int = 0):
     """The two backward kernels launched one at a time (for timing, after the
     paths' counts were read), from the forward kernel's ``o`` and ``lse``."""
     o, lse = fa._causal_flash_attention_cuda(q, k, v, dropout_rate, seed)
-    _, dsum = fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed)
-    return (lambda: fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed),
-            lambda: fa._backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed))
+    d = q.shape[-1]
+    q, k, v, o, do = _build.kernel_operands(q, k, v, o, do)  # padded as the wrapper pads them
+    _, dsum = fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed, d)
+    return (lambda: fa._backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed, d),
+            lambda: fa._backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed, d))
+
+
+def plain_backward_ms(q, k, v, do) -> float:
+    """The backward's plain version (dq, dk and dv together), over 32 heads
+    at a time, given the forward kernel's ``o`` and ``lse``."""
+    o, lse = fa._causal_flash_attention_cuda(q, k, v, 0.0, 0)
+
+    def plain():
+        for i in range(0, q.shape[0], 32):
+            fa.causal_attention_backward_reference(q[i:i + 32], k[i:i + 32], v[i:i + 32],
+                                                   o[i:i + 32], lse[i:i + 32], do[i:i + 32])
+
+    return cuda_ms(plain, reps=3, warmup=1)
+
+
+def library_backward_ms(q, k, v, do) -> float:
+    """The backward of ``scaled_dot_product_attention`` with the strict mask
+    (dq, dk and dv together; the forward outside the timer)."""
+    n = q.shape[1]
+    mask = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
+    mask[0, 0] = True
+    rows = torch.ones(n, 1, device="cuda")
+    rows[0] = 0.0                          # row 0 zeroed out of place, for the backward
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_o = F.scaled_dot_product_attention(*(t[None] for t in leaves), attn_mask=mask)[0] * rows
+        return cuda_ms(lambda: torch.autograd.grad(lib_o, leaves, do, retain_graph=True), reps=5)
 
 
 def backward_records(qkv, do, launches, backward_cases) -> list:
@@ -1424,23 +1560,8 @@ def backward_records(qkv, do, launches, backward_cases) -> list:
     drop_dq, drop_dkv = backward_launchers(q, k, v, do, PRIOR_CONFIG["dropout"], 0xC0FFEE)
     dropout_ms = {"causal_flash_attention_dq": cuda_ms(drop_dq, reps=20),
                   "causal_flash_attention_dkv": cuda_ms(drop_dkv, reps=20)}
-    o, lse = fa._causal_flash_attention_cuda(q, k, v, 0.0, 0)
-
-    def plain():
-        for i in range(0, bh, 32):
-            fa.causal_attention_backward_reference(q[i:i + 32], k[i:i + 32], v[i:i + 32],
-                                                   o[i:i + 32], lse[i:i + 32], do[i:i + 32])
-
-    plain_ms = cuda_ms(plain, reps=3, warmup=1)
-    mask = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
-    mask[0, 0] = True
-    rows = torch.ones(n, 1, device="cuda")
-    rows[0] = 0.0                          # row 0 zeroed out of place, for the backward
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    with torch.enable_grad():
-        lib_o = F.scaled_dot_product_attention(*(t[None] for t in leaves), attn_mask=mask)[0] * rows
-        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_o, leaves, do, retain_graph=True),
-                             reps=5)
+    plain_ms = plain_backward_ms(q, k, v, do)
+    library_ms = library_backward_ms(q, k, v, do)
     case = backward_cases[0]
     out = []
     for name, errs in (("causal_flash_attention_dq", ("dq",)),
@@ -1458,13 +1579,65 @@ def backward_records(qkv, do, launches, backward_cases) -> list:
                        "(dq, dk and dv together; forward outside the timer)",
             "share_of_bound": work["bound_ms"] / ms[name], "bytes": work["bytes"],
             "flops": work["flops"]}
-        if name == "causal_flash_attention_dkv":     # on the tensor cores
-            drop = backward_work(name, bh, n, d, q.element_size(), dropout=True)
-            record.update({"bound_tc_ms": work["bound_tc_ms"],
-                           "bound_tc_terms_ms": work["bound_tc_terms_ms"],
-                           "bound_tc_ms_with_dropout_0.1": drop["bound_tc_ms"],
-                           "share_of_bound_tc": work["bound_tc_ms"] / ms[name]})
+        drop = backward_work(name, bh, n, d, q.element_size(), dropout=True)
+        record.update({"bound_tc_ms": work["bound_tc_ms"],
+                       "bound_tc_terms_ms": work["bound_tc_terms_ms"],
+                       "bound_tc_ms_with_dropout_0.1": drop["bound_tc_ms"],
+                       "share_of_bound_tc": work["bound_tc_ms"] / ms[name]})
         out.append(record)
+    return out
+
+
+def odd_shape_times() -> dict:
+    """Times of the kernels at shapes they once refused, at the main path's
+    sizes otherwise: attention at the top prior's B*H = 256, N = 1024 with
+    D = 6 (--channel 96) and D = 128 (--channel 2048); the quantizer's three
+    kernels at embed_dim 30 (K1, K3 at N = 524,288; K2 at 131,072).  Each
+    beside its bound, as in the kernels' records; without dropout, also the
+    plain versions' and the library's times (the backward's: dq, dk and dv
+    together)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {"attention": [], "quantizer": []}
+    bh, n = PRIOR_BATCH * N_HEAD, TOP_HW * TOP_HW
+    for d in (6, 128):
+        q, k, v, do = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(4))
+        for rate in (0.0, PRIOR_CONFIG["dropout"]):
+            run_dq, run_dkv = backward_launchers(q, k, v, do, rate, 0xC0FFEE)
+            fwd = lambda: fa.causal_flash_attention_lse(q, k, v, dropout_rate=rate, seed=0xC0FFEE)
+            record = {
+                "shape": {"bh": bh, "n": n, "d": d}, "dropout_rate": rate,
+                "forward_ms": cuda_ms(fwd, reps=10),
+                "forward_bound_ms": attention_work(bh, n, d, 4, rate > 0)["bound_ms"],
+                "dq_ms": cuda_ms(run_dq, reps=10),
+                "dq_bound_ms": backward_work("causal_flash_attention_dq", bh, n, d, 4,
+                                             rate > 0)["bound_ms"],
+                "dkv_ms": cuda_ms(run_dkv, reps=10),
+                "dkv_bound_ms": backward_work("causal_flash_attention_dkv", bh, n, d, 4,
+                                              rate > 0)["bound_ms"]}
+            if rate == 0.0:
+                mask = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
+                mask[0, 0] = True
+                record.update({
+                    "forward_plain_ms": cuda_ms(lambda: plain_attention_in_chunks(q, k, v),
+                                                reps=3, warmup=1),
+                    "forward_library_ms": cuda_ms(lambda: library_attention(q, k, v, mask), reps=5),
+                    "backward_plain_ms": plain_backward_ms(q, k, v, do),
+                    "backward_library_ms": library_backward_ms(q, k, v, do)})
+            out["attention"].append(record)
+    d = 30
+    flat = torch.randn(BATCH * 64 * 64, d, generator=gen, device="cuda")
+    small = flat[:BATCH * 32 * 32].clone()
+    embed = torch.randn(K, d, generator=gen, device="cuda")
+    for name, rows, fn in (("nearest_code_ids", flat, lambda f: qz.nearest_code_ids(f, embed)),
+                           ("nearest_code_lookup", small,
+                            lambda f: qz.nearest_code(f, embed, with_stats=False)),
+                           ("nearest_code_stats", flat,
+                            lambda f: qz.nearest_code(f, embed, with_stats=True))):
+        work = (stats_work(rows.shape[0], d, K, 4) if name == "nearest_code_stats"
+                else kernel_work(name, rows.shape[0], d, K, 4))
+        out["quantizer"].append({"name": name, "shape": {"n": rows.shape[0], "d": d, "k": K},
+                                 "ms": cuda_ms(lambda: fn(rows), reps=20),
+                                 "bound_ms": work["bound_ms"]})
     return out
 
 
@@ -1570,6 +1743,7 @@ def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
     top_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     with torch.enable_grad():
         train_steps = train_step_times(dirs)
+    emit("times_odd_shapes", **odd_shape_times())
     emit("times", batch=BATCH, size=SIZE, encode_ids_ms=enc_ms,
          encode_ids_img_per_s=BATCH / enc_ms * 1e3, forward_ms=fwd_ms,
          forward_img_per_s=BATCH / fwd_ms * 1e3, peak_memory_gb=stage1_gb,
@@ -1985,6 +2159,11 @@ def phase_abn_kernels() -> list:
     cases = [compare_abn_with_plain(x, f"main path {name}", gen) for name, x in inputs]
     for label, x, act, training, offset in abn_awkward_cases(gen):
         cases.append(compare_abn_with_plain(x, label, gen, act, training, offset))
+    for c in WIDE_ABN_CHANNELS:
+        x = torch.randn(3000, c, generator=gen, device="cuda")
+        cases.append(through_kernels(
+            ("abn_forward", "abn_backward"),
+            lambda: compare_abn_with_plain(x, f"wide M=3000 C={c}", gen)))
     for cs in cases:
         if cs["case"].startswith("elu asymptote"):
             check(cs["z_max"] == -1.0, f"{cs['case']}: z did not saturate onto -1 ({cs['z_max']})")
@@ -2437,16 +2616,30 @@ def phase_main_reid(tmp: str) -> dict:
     return counts["launches"], result
 
 
+# What the card holds on chip: 50 MB of L2, 132 x 227 KB of shared memory and
+# 132 x 256 KB of registers.
+ON_CHIP_BYTES = 50e6 + 132 * 232448 + 132 * 262144
+
+
 def abn_work(name: str, m: int, c: int, itemsize: int) -> dict:
     """Least bytes and operations of one call: K7 reads x and writes z, about
     five operations an element; K8 reads z and dz and writes dx, about fifteen
-    (inversion, yhat, the two sums, dx); the channel vectors are noise."""
+    (inversion, yhat, the two sums, dx); the channel vectors are noise.
+
+    K8 also carries ``bound_two_pass_ms``: its per-channel sums must be
+    complete before any dx, so where z and dz together exceed what the card
+    holds on chip (``ON_CHIP_BYTES``, about 115 MB; 382 MB at M = 186,624,
+    C = 256) every design reads them twice: five tensors' bytes, not three."""
     rows = m * c * itemsize
     nbytes = (2 if name == "abn_forward" else 3) * rows + 5 * c * 4
     flops = (5 if name == "abn_forward" else 15) * m * c
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    out = {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if name == "abn_backward":
+        passes = 5 if 2 * rows > ON_CHIP_BYTES else 3
+        out["bound_two_pass_ms"] = max(passes * rows / PEAK_BYTES_PER_S * 1e3, t_ops)
+    return out
 
 
 def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
@@ -2488,7 +2681,31 @@ def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
                     "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
                     "library_ms": library[name][0], "library": library[name][1],
                     "share_of_bound": work["bound_ms"] / ms, "bytes": work["bytes"],
-                    "flops": work["flops"]})
+                    "flops": work["flops"],
+                    **({"bound_two_pass_ms": work["bound_two_pass_ms"],
+                        "share_of_bound_two_pass": work["bound_two_pass_ms"] / ms}
+                       if "bound_two_pass_ms" in work else {})})
+    return out
+
+
+def abn_wide_times(m_rows: int) -> dict:
+    """K7 and K8 at C = 4096 (channel vectors read from global memory), with
+    as many elements as the main path's largest shape, beside their bounds."""
+    c = 4096
+    m = m_rows * 256 // c
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(m, c, generator=gen, device="cuda")
+    v = abn_vectors(c, gen, x)
+    z = ia.abn_forward(x, v["mean"], v["scale"], v["shift"])
+    dz = 1e-3 * torch.randn(m, c, generator=gen, device="cuda")
+    out = {"shape": {"m": m, "c": c, "dtype": "torch.float32"}}
+    for name, fn in (("abn_forward", lambda: ia.abn_forward(x, v["mean"], v["scale"], v["shift"])),
+                     ("abn_backward", lambda: ia.abn_backward(z, dz, v["shift"], v["w_t"], v["mul"],
+                                                              1.0 / m))):
+        work = abn_work(name, m, c, 4)
+        out[name] = {"ms": cuda_ms(fn, reps=20), "bound_ms": work["bound_ms"],
+                     **({"bound_two_pass_ms": work["bound_two_pass_ms"]}
+                        if "bound_two_pass_ms" in work else {})}
     return out
 
 
@@ -2686,7 +2903,7 @@ def main(argv=None) -> int:
             reid_launches, _ = phase_main_reid(tmp)
         abn = abn_records(abn_rows, reid_launches, abn_cases)
         record["kernels"] += abn
-        emit("times_reid", **reid_step_times(),
+        emit("times_reid", **reid_step_times(), wide_channels=abn_wide_times(abn_rows.shape[0]),
              kernels={r["name"]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
                                   "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
                       for r in abn})

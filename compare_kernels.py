@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Times this checkout's hand-written kernels against another checkout's, in
+turns on one card: the yardstick for a kernel that is redesigned or routed
+anew.
+
+    python3 compare_kernels.py --against DIR
+
+``DIR`` holds a checkout of another commit, for example
+``mkdir -p _parent/head && git archive HEAD | tar -x -C _parent/head``
+(``_parent/`` is ignored by git).  Both checkouts' ``vqvae2_tpu_torch.ops`` are
+loaded side by side; each builds its own libraries under its own
+``ops/_built/``, every nvcc started together.  Each kernel runs on the same
+inputs and is timed by CUDA events in the order other, this, this, other:
+
+- the attention forward and the backward's dq and dk/dv kernels at the top
+  prior's B*H = 256, N = 1024, for head widths 16, 32 and 64, fp32 and bf16,
+  without and with dropout 0.1;
+- the three nearest-code kernels at the stage-1 train step's shapes
+  (N = 524,288 and 131,072 rows, D = 64, K = 512).
+
+Prints the registers and spilled bytes of both checkouts' kernel variants,
+one JSON line a shape (each kernel's two times a checkout, and the largest
+difference between the two checkouts' first outputs), and the card's name and
+power limit.  Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import importlib
+import itertools
+import json
+import os
+import sys
+
+import torch
+
+from chip_smoke import cuda_ms, ptxas_summary, run_text
+
+PACKAGE = "vqvae2_tpu_torch"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ATTENTION_BH, ATTENTION_N = 256, 1024
+HEAD_DIMS = (16, 32, 64)
+SEARCH_ROWS, SEARCH_D, SEARCH_K = (524288, 131072), 64, 512
+
+
+def load_ops(root: str) -> dict:
+    """``root``'s ``flash_attention`` and ``quantize`` modules, imported
+    beside whatever copy of the package is already loaded (which stays)."""
+    def ours(name):
+        return name == PACKAGE or name.startswith(PACKAGE + ".")
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
+    sys.path.insert(0, root)
+    try:
+        mods = {name: importlib.import_module(f"{PACKAGE}.ops.{name}")
+                for name in ("flash_attention", "quantize")}
+    finally:
+        sys.path.remove(root)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    for mod in mods.values():
+        if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root) + os.sep):
+            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not from {root}")
+    return mods
+
+
+def in_turns(other, this, reps: int) -> dict:
+    """Times of two callables by CUDA events, in the order other, this, this,
+    other, and the largest difference between their first outputs:
+    ``{"other_ms": [..], "this_ms": [..], "max_abs_diff": x}``."""
+    first = [out[0] if isinstance(out, tuple) else out for out in (other(), this())]
+    diff = float((first[0].float() - first[1].float()).abs().max())
+    t = [cuda_ms(other, reps), cuda_ms(this, reps), cuda_ms(this, reps), cuda_ms(other, reps)]
+    return {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]], "max_abs_diff": diff}
+
+
+def attention_launchers(fa, q, k, v, do, rate: float, seed: int = 0xC0FFEE):
+    """One checkout's forward, dq and dk/dv launchers on the same inputs
+    (widths that are multiples of 4, which every checkout takes as they are)."""
+    o, lse = fa._causal_flash_attention_cuda(q, k, v, rate, seed)
+    _, dsum = fa._backward_dq_cuda(q, k, v, o, lse, do, rate, seed)
+    return {"forward": lambda: fa._causal_flash_attention_cuda(q, k, v, rate, seed),
+            "dq": lambda: fa._backward_dq_cuda(q, k, v, o, lse, do, rate, seed),
+            "dkv": lambda: fa._backward_dkv_cuda(q, k, v, do, lse, dsum, rate, seed)}
+
+
+def compare_attention(other, this, gen: torch.Generator):
+    for d, dtype, rate in itertools.product(HEAD_DIMS, (torch.float32, torch.bfloat16),
+                                            (0.0, 0.1)):
+        q, k, v, do = (torch.randn(ATTENTION_BH, ATTENTION_N, d, generator=gen,
+                                   device="cuda").to(dtype) for _ in range(4))
+        a = attention_launchers(other["flash_attention"], q, k, v, do, rate)
+        b = attention_launchers(this["flash_attention"], q, k, v, do, rate)
+        print(json.dumps({"kernels": "attention", "bh": ATTENTION_BH, "n": ATTENTION_N, "d": d,
+                          "dtype": str(dtype)[6:], "dropout_rate": rate,
+                          **{name: in_turns(a[name], b[name], reps=10) for name in a}}),
+              flush=True)
+
+
+def compare_search(other, this, gen: torch.Generator):
+    embed = torch.randn(SEARCH_K, SEARCH_D, generator=gen, device="cuda")
+    for n in SEARCH_ROWS:
+        flat = torch.randn(n, SEARCH_D, generator=gen, device="cuda")
+        calls = {"ids": lambda qz: qz.nearest_code_ids(flat, embed),
+                 "lookup": lambda qz: qz.nearest_code(flat, embed, with_stats=False),
+                 "stats": lambda qz: qz.nearest_code(flat, embed, with_stats=True)}
+        print(json.dumps({"kernels": "nearest_code", "n": n, "d": SEARCH_D, "k": SEARCH_K,
+                          **{name: in_turns(lambda: fn(other["quantize"]),
+                                            lambda: fn(this["quantize"]), reps=20)
+                             for name, fn in calls.items()}}), flush=True)
+
+
+def build_all(checkouts: dict) -> dict:
+    """Every library of both checkouts, each nvcc started together; the
+    ptxas summary of each."""
+    jobs = [(who, name, mod) for who, mods in checkouts.items() for name, mod in mods.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: job[2]._library(), jobs))
+    out = {}
+    for who, name, mod in jobs:
+        info = mod._build.build_info[os.path.basename(mod.__file__)[:-3]]
+        out.setdefault(who, {})[name] = {"nvcc_seconds": info["seconds"],
+                                         "ptxas": ptxas_summary(info["log"])}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", required=True, help="a checkout of another commit")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    checkouts = {"other": load_ops(os.path.abspath(args.against)), "this": load_ops(ROOT)}
+    print(json.dumps({"against": args.against, "built": build_all(checkouts)}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    compare_attention(checkouts["other"], checkouts["this"], gen)
+    compare_search(checkouts["other"], checkouts["this"], gen)
+    print(run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,6 +20,7 @@ import torch
 
 from vqvae2_tpu.ops.flash_attention import causal_attention_reference as jax_reference
 from vqvae2_tpu.ops.flash_attention import causal_flash_attention as jax_flash
+from vqvae2_tpu_torch.ops import _build
 from vqvae2_tpu_torch.ops import flash_attention as fa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -357,3 +358,99 @@ def test_large_scores_need_the_plain_versions_rounding_of_the_scores():
     three = lambda a, b: tf32_product(a, b, 3)                        # noqa: E731
     assert not torch.allclose(attention_by(q, k, v, exact, three), want, **TOL)
     torch.testing.assert_close(attention_by(q, k, v, torch.matmul, three), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Head widths the kernels once refused (D = 6 is --channel 96; D = 72 is
+# above one 64-wide tile), and what the tensor-core dq arithmetic does
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [6, 72])
+def test_widths_the_jax_package_runs_match_its_reference_and_its_gradient(d):
+    """The plain version and the written-out backward (what the kernels are
+    held against on the card) against ``causal_attention_reference`` and
+    ``jax.grad`` of it at D = 6 and D = 72, with the upstream gradient of
+    ``sum(sin(o))``."""
+    q, k, v = qkv(60 + d, 1, 2, 64, d)
+    want_o = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v))))
+    o, lse = fa.causal_attention_reference_lse(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
+    do = np.cos(want_o).astype(np.float32)
+    got = reference_backward(q, k, v, o, lse, do)
+    want = jax.grad(lambda a, b, c: jnp.sum(jnp.sin(jax_reference(a, b, c))), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+def fma_chain_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q @ kᵀ`` as the kernels form the scores: one fp32 FMA chain over d in
+    order (each step's exact product, which fp64 holds, added to the running
+    fp32 sum and rounded once)."""
+    s = torch.zeros(q.shape[:-1] + (k.shape[-2],), dtype=torch.float32)
+    for c in range(q.shape[-1]):
+        s = (q[..., :, c, None].double() * k[..., None, :, c].double() + s.double()).float()
+    return s
+
+
+def toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """fp64 to fp32 rounded toward zero, as the tensor cores round their fp32
+    sums (``chip_smoke.py``'s phase probe)."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def mma_product(a: torch.Tensor, b: torch.Tensor, tile: int, fresh: bool) -> torch.Tensor:
+    """``a @ b`` as mma.sync m16n8k8 accumulates it: k-steps of 8, each in
+    three TF32 passes (``lo·hi``, ``hi·lo``, ``hi·hi``) whose sum is added to
+    the accumulator and rounded toward zero.  ``fresh``: every ``tile`` of k
+    goes into a fresh accumulator, added to the running sum by a rounded fp32
+    add; otherwise one accumulator takes all of k."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    total = part = torch.zeros(a.shape[:-1] + (b.shape[-1],), dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            part = toward_zero(part.double() + x[..., ks].double() @ y[..., ks, :].double())
+        if fresh and (k0 + 8) % tile == 0:
+            total, part = total + part, torch.zeros_like(part)
+    return total + part if fresh else part
+
+
+def test_tensor_core_dq_arithmetic_needs_a_fresh_accumulator_per_key_tile():
+    """The tensor-core dq kernel's arithmetic at B·H = 2, N = 1024, D = 16:
+    scores as fp32 FMA chains, dP = dO·Vᵀ and dq = dS·K in three TF32 passes
+    with truncating sums, each 64-key tile into a fresh accumulator.  It stays
+    within FA_TOL of the plain backward; one accumulator over all keys drifts
+    more than twice as far."""
+    q, k, v, do = (torch.from_numpy(a) for a in qkv(50, 2, 1024, 16) + qkv(51, 2, 1024, 16)[:1])
+    n, d = q.shape[-2:]
+    o, lse = fa.causal_attention_reference_lse(q, k, v)
+    want = fa.causal_attention_backward_reference(q, k, v, o, lse, do)[0]
+    scale = 1.0 / np.sqrt(d)
+    seen = torch.arange(n)[None, :] < torch.arange(n)[:, None]
+    p = torch.where(seen, torch.exp(fma_chain_scores(q, k) * scale - lse), torch.zeros(n, n))
+    dp = mma_product(do, v.transpose(-1, -2), 8, fresh=True)
+    ds = p * (dp - torch.sum(do * o, dim=-1, keepdim=True)) * scale
+    fresh = mma_product(ds, k, 64, fresh=True)
+    one = mma_product(ds, k, 64, fresh=False)
+    torch.testing.assert_close(fresh, want, **TOL)
+    assert float((one - want).abs().max()) > 2 * float((fresh - want).abs().max())
+
+
+@pytest.mark.parametrize("d", [6, 1, 13])
+def test_the_kernels_zero_pad_changes_no_score(d):
+    """What the wrapper hands the CUDA kernels for a width that is no multiple
+    of 4: q, k, v zero-padded to the next multiple of 4 (other widths pass
+    through as they are); FMA-chain scores over the padded rows have the same
+    bits as over the unpadded ones."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(70 + d, 3, 40, d))
+    pq, pk, pv = _build.kernel_operands(q, k, v)
+    assert pq.shape == (3, 40, -(-d // 4) * 4) and pk.shape == pv.shape == pq.shape
+    assert all(bool((t[..., d:] == 0).all()) and torch.equal(t[..., :d], u)
+               for t, u in ((pq, q), (pk, k), (pv, v)))
+    assert torch.equal(fma_chain_scores(pq, pk).view(torch.int32),
+                       fma_chain_scores(q, k).view(torch.int32))
+    aligned = torch.from_numpy(qkv(1, 2, 8, 16)[0])
+    assert _build.kernel_operands(aligned)[0] is aligned

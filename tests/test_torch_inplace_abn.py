@@ -298,3 +298,42 @@ def test_the_wrappers_refuse_other_devices_and_activations():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ta._abn_backward_cuda(x, x, v, v, v, 0.25, True, ta.ACT_LEAKY_RELU, 0.01)
     assert not any(ta.plain_counts.values()) and not any(ta.launch_counts.values())
+
+
+@pytest.mark.parametrize("activation", [ta.ACT_LEAKY_RELU, ta.ACT_ELU])
+def test_more_channels_than_a_shared_copy_holds_match_the_jax_op(activation):
+    """C = 2049, one past what the CUDA kernels stage in shared memory (above
+    it they read the channel vectors from global memory; the JAX op takes any
+    C): the forward and ``jax.grad`` through the op against the port's plain
+    path and its autograd binding.  ``dw`` is a sum over the 48 rows of a
+    channel, which cancels in a few of 2049 channels: it is held to GRAD_TOL's
+    rtol times the sum of its terms' magnitudes, as ``chip_smoke.py`` holds
+    the kernel's sums, and dx, db element by element."""
+    x, w, b = _case((3, 4, 4, 2049), seed=5)
+    mean, var = ja.batch_moments(jnp.asarray(x))
+    z = ja.inplace_abn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), mean, var, 1e-5,
+                       activation, 0.01, None, True)
+    tm, tv = ta.batch_moments(_t(x))
+    got = ta.inplace_abn(_t(x), _t(w), _t(b), tm, tv, 1e-5, activation, 0.01, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(z), **TOL)
+
+    def loss(x, w, b):
+        mean, var = ja.batch_moments(x)
+        z = ja.inplace_abn(x, w, b, jax.lax.stop_gradient(mean), jax.lax.stop_gradient(var),
+                           1e-5, activation, 0.01, None, True)
+        return jnp.sum(jnp.sin(z))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    xt, wt, bt = (_t(a).clone().requires_grad_() for a in (x, w, b))
+    ta.reset_counts()
+    mean_t, var_t = ta.batch_moments(xt)
+    torch.sum(torch.sin(ta.inplace_abn(xt, wt, bt, mean_t, var_t, 1e-5, activation))).backward()
+    assert ta.plain_counts == {"abn_forward": 1, "abn_backward": 1}
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want[0]), **GRAD_TOL, err_msg="dx")
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(want[2]), **GRAD_TOL, err_msg="db")
+    with torch.no_grad():
+        z2d = ta.inplace_abn(xt, wt, bt, mean_t, var_t, 1e-5, activation).reshape(-1, 2049)
+        y, dy = ta.act_invert(z2d, torch.cos(z2d), activation, 0.01)
+        terms = ((y - bt) / (wt.abs() + 1e-5) * dy).abs().sum(0).numpy()
+    err = np.abs(wt.grad.numpy() - np.asarray(want[1]))
+    assert np.all(err <= GRAD_TOL["rtol"] * terms + GRAD_TOL["atol"]), float(np.max(err / terms))

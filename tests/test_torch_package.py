@@ -5,6 +5,7 @@ the CPU."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -17,7 +18,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vqvae2_tpu"}
 
 
 def port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, name) for name in ("chip_smoke.py", "compare_kernels.py")]
     for root, _, names in os.walk(PACKAGE):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -37,7 +38,7 @@ def imported_roots(path):
 
 def test_the_walk_sees_the_port():
     names = {os.path.relpath(p, REPO) for p in port_files()}
-    assert {"chip_smoke.py", "vqvae2_tpu_torch/__init__.py", "vqvae2_tpu_torch/ops/quantize.py",
+    assert {"chip_smoke.py", "compare_kernels.py", "vqvae2_tpu_torch/__init__.py", "vqvae2_tpu_torch/ops/quantize.py",
             "vqvae2_tpu_torch/models/vqvae.py", "vqvae2_tpu_torch/data/codestore.py",
             "vqvae2_tpu_torch/train/extract_codes.py",
             "vqvae2_tpu_torch/ops/flash_attention.py", "vqvae2_tpu_torch/models/pixelsnail.py",
@@ -181,6 +182,31 @@ def test_chip_smoke_fails_without_cuda(no_cuda):
     assert "needs one card" in out.stderr
 
 
+def test_compare_kernels_fails_without_cuda(no_cuda):
+    out = subprocess.run([sys.executable, os.path.join(REPO, "compare_kernels.py"),
+                          "--against", REPO], capture_output=True, text=True, cwd=REPO,
+                         timeout=300)
+    assert out.returncode != 0 and "attention" not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_compare_kernels_loads_another_checkout_beside_this_one(tmp_path):
+    """The other checkout's ops modules come from its own files and build
+    into its own directory; the copy of the package already loaded stays."""
+    import compare_kernels
+    from vqvae2_tpu_torch.ops import flash_attention as fa
+
+    shutil.copytree(PACKAGE, str(tmp_path / "vqvae2_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_built", "__pycache__"))
+    other = compare_kernels.load_ops(str(tmp_path))
+    assert set(other) == {"flash_attention", "quantize"}
+    for mod in other.values():
+        assert os.path.dirname(mod.__file__) == str(tmp_path / "vqvae2_tpu_torch" / "ops")
+        assert mod._build.BUILD_DIR == str(tmp_path / "vqvae2_tpu_torch" / "ops" / "_built")
+    assert sys.modules["vqvae2_tpu_torch.ops.flash_attention"] is fa
+    assert other["flash_attention"] is not fa and fa._build.BUILD_DIR.startswith(PACKAGE)
+
+
 def test_the_kernel_path_never_takes_the_plain_version():
     """The launchers raise on tensors that are not on the card, and the public
     wrappers take the plain version for a CPU tensor only: any other device
@@ -206,8 +232,11 @@ def test_the_kernel_path_never_takes_the_plain_version():
 
 
 def test_the_launcher_refuses_what_the_kernel_does_not_take(monkeypatch):
-    """Shape, dtype and contiguity checks of the CUDA wrapper, reached here by
-    letting CPU tensors claim to be on the card; nothing is launched."""
+    """Shape and dtype checks of the CUDA wrapper, reached here by letting CPU
+    tensors claim to be on the card; nothing is launched.  A width that is no
+    multiple of 4 and a strided input are taken: the wrapper hands the kernels
+    a zero-padded or contiguous copy."""
+    from vqvae2_tpu_torch.ops import _build
     from vqvae2_tpu_torch.ops import quantize as qz
 
     monkeypatch.setattr(qz, "_library", lambda: pytest.fail("a refused input reached the build"))
@@ -223,13 +252,18 @@ def test_the_launcher_refuses_what_the_kernel_does_not_take(monkeypatch):
         (on_card(torch.zeros(4, 8, dtype=torch.float16)), embed, TypeError, "float32 or bfloat16"),
         (on_card(torch.zeros(4, 8)), on_card(torch.zeros(16, 8, dtype=torch.bfloat16)),
          TypeError, "embed must be float32"),
-        (on_card(torch.zeros(4, 6)), on_card(torch.zeros(16, 6)), ValueError, "multiple of 4"),
+        (on_card(torch.zeros(4, 0)), on_card(torch.zeros(16, 0)), ValueError, "D >= 1"),
         (on_card(torch.zeros(0, 8)), embed, ValueError, "N >= 1"),
-        (on_card(torch.zeros(4, 16)[:, :8]), embed, ValueError, "contiguous"),
+        (on_card(torch.zeros(4, 8)), on_card(torch.zeros(0, 8)), ValueError, "K >= 1"),
     ]
     for flat, e, error, match in cases:
         with pytest.raises(error, match=match):
             qz._check_cuda_inputs(flat, e)
+    for flat, e in ((torch.zeros(4, 6), torch.zeros(16, 6)), (torch.zeros(4, 16)[:, :8], embed)):
+        qz._check_cuda_inputs(on_card(flat), on_card(e))
+        kf, ke = _build.kernel_operands(flat, e)
+        assert kf.shape[1] % 4 == 0 and ke.shape[1] == kf.shape[1]
+        assert kf.is_contiguous() and kf.data_ptr() % 16 == 0 and ke.data_ptr() % 16 == 0
 
 
 def test_the_attention_kernel_path_never_takes_the_plain_version(monkeypatch):
@@ -296,20 +330,30 @@ def _on_card(t):
     (lambda: [torch.zeros(2, 5, 8), torch.zeros(2, 6, 8), torch.zeros(2, 5, 8)],
      ValueError, "share one"),
     (lambda: [torch.zeros(1, 2, 5, 8)] * 3, ValueError, "share one"),
-    (lambda: [torch.zeros(2, 5, 6)] * 3, ValueError, "multiple of 4"),
-    (lambda: [torch.zeros(2, 5, 128)] * 3, ValueError, "up to 64"),
+    (lambda: [torch.zeros(2, 5, 6)] * 3, None, None),
+    (lambda: [torch.zeros(2, 5, 128)] * 3, None, None),
     (lambda: [torch.zeros(2, 0, 8)] * 3, ValueError, "N >= 1"),
-    (lambda: [torch.zeros(2, 5, 16)[:, :, :8]] * 3, ValueError, "contiguous"),
-    (lambda: [torch.zeros(2 * 5 * 8 + 1)[1:].reshape(2, 5, 8)] * 3, ValueError, "16-byte"),
+    (lambda: [torch.zeros(2, 5, 16)[:, :, :8]] * 3, None, None),
+    (lambda: [torch.zeros(2 * 5 * 8 + 1)[1:].reshape(2, 5, 8)] * 3, None, None),
 ], ids=["float16", "mixed dtypes", "mixed shapes", "four dims", "D % 4", "D > 64", "N == 0",
         "strided", "misaligned"])
 def test_the_attention_launcher_refuses_what_the_kernel_does_not_take(make, error, match):
-    """Shape, dtype, contiguity and alignment checks of the CUDA wrapper,
-    reached here by letting CPU tensors claim to be on the card."""
+    """Shape and dtype checks of the CUDA wrapper, reached here by letting CPU
+    tensors claim to be on the card.  Any head width is taken (D = 6 is
+    zero-padded to 8 for the kernels, D = 128 runs in 64-wide chunks), and so
+    are strided and misaligned inputs: the kernels get contiguous copies on a
+    16-byte boundary."""
+    from vqvae2_tpu_torch.ops import _build
     from vqvae2_tpu_torch.ops import flash_attention as fa
 
+    tensors = make()
+    if error is None:
+        fa._check_cuda_inputs(*(_on_card(t) for t in tensors))
+        for t in _build.kernel_operands(*tensors):
+            assert t.shape[-1] % 4 == 0 and t.is_contiguous() and t.data_ptr() % 16 == 0
+        return
     with pytest.raises(error, match=match):
-        fa._check_cuda_inputs(*(_on_card(t) for t in make()))
+        fa._check_cuda_inputs(*(_on_card(t) for t in tensors))
 
 
 def test_no_build_without_nvcc(monkeypatch, tmp_path):
@@ -440,7 +484,7 @@ def test_the_abn_kernel_path_never_takes_the_plain_version(monkeypatch):
     (lambda: (torch.zeros(4, 8, dtype=torch.float16), torch.zeros(8)), TypeError, "float32 or bfloat16"),
     (lambda: (torch.zeros(4, 8), torch.zeros(8, dtype=torch.bfloat16)), TypeError, "channel vectors"),
     (lambda: (torch.zeros(4, 8), torch.zeros(9)), TypeError, "channel vectors"),
-    (lambda: (torch.zeros(4, 4097), torch.zeros(4097)), ValueError, "C <= 2048"),
+    (lambda: (torch.zeros(4, 32 * 65535 + 1), torch.zeros(32 * 65535 + 1)), ValueError, "C <= "),
     (lambda: (torch.zeros(0, 8), torch.zeros(8)), ValueError, "M >= 1"),
     (lambda: (torch.zeros(4, 16)[:, :8], torch.zeros(8)), ValueError, "contiguous"),
     (lambda: (torch.zeros(2, 4, 8), torch.zeros(8)), ValueError, "must be"),

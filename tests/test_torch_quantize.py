@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from vqvae2_tpu.ops import quantize as jq
+from vqvae2_tpu_torch.ops import _build
 from vqvae2_tpu_torch.ops import quantize as tq
 
 # (N, D, K): ragged N, N below one TPU sublane tile, the deep config's width,
@@ -198,3 +199,48 @@ def test_statistics_flavour_is_not_differentiable():
     embed = torch.randn(16, 8, requires_grad=True)
     out = tq.nearest_code(flat, embed, with_stats=True)
     assert not any(t.requires_grad for t in out)
+
+
+@pytest.mark.parametrize("d", [30, 1, 66])
+def test_widths_that_are_no_multiple_of_4_match_the_jax_reference(d):
+    """``embed_dim`` 30 (and 1 and 66), which the JAX launchers take and the
+    CUDA kernels take through a zero pad of the feature axis: ids bit-equal,
+    q bit-equal to the reference's, the statistics as for any width."""
+    flat, embed = _inputs(300, d, 64, seed=9)
+    want = jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))
+    tf, te = torch.from_numpy(flat), torch.from_numpy(embed)
+    _check_stats(tq.nearest_code(tf, te, with_stats=True), want, esum_rtol=1e-6)
+    np.testing.assert_array_equal(tq.nearest_code_ids(tf, te).numpy(), np.asarray(want[0]))
+    idx, q, _, _ = tq.nearest_code(tf, te, with_stats=False)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(q.numpy(), np.asarray(want[1]), rtol=0, atol=0)
+
+
+def _fma_chain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise ``sum_d a[d] * b[d]`` as one fp32 FMA chain over d in order,
+    the kernels' dot product: each step's exact product (fp64 holds it) added
+    to the running fp32 sum and rounded once to fp32."""
+    s = np.zeros(a.shape[0], dtype=np.float32)
+    for c in range(a.shape[1]):
+        s = (a[:, c].astype(np.float64) * b[:, c].astype(np.float64) + s).astype(np.float32)
+    return s
+
+
+@pytest.mark.parametrize("d", [30, 1, 66])
+def test_the_kernels_zero_pad_changes_no_dot_product(d):
+    """What the wrapper hands the CUDA kernels for a width that is no multiple
+    of 4: both operands zero-padded to the next multiple of 4 (a copy; other
+    widths pass through as they are), and an FMA chain over the padded rows
+    gives the same bits as over the unpadded ones."""
+    flat, embed = _inputs(50, d, 50, seed=10)
+    pf, pe = _build.kernel_operands(torch.from_numpy(flat), torch.from_numpy(embed))
+    assert pf.shape == (50, -(-d // 4) * 4) and pe.shape == (50, pf.shape[1])
+    assert pf.is_contiguous() and bool((pf[:, d:] == 0).all()) and bool((pe[:, d:] == 0).all())
+    np.testing.assert_array_equal(pf[:, :d].numpy(), flat)
+    for a, b in ((flat, embed), (flat, flat), (embed, embed)):
+        pa = np.pad(a, ((0, 0), (0, pf.shape[1] - d)))
+        pb = np.pad(b, ((0, 0), (0, pf.shape[1] - d)))
+        np.testing.assert_array_equal(_fma_chain(pa, pb).view(np.int32),
+                                      _fma_chain(a, b).view(np.int32))
+    aligned = torch.from_numpy(_inputs(8, 64, 4)[0])
+    assert _build.kernel_operands(aligned, aligned)[0] is aligned

@@ -6,6 +6,9 @@ directory git ignores) and loads it with :mod:`ctypes`.  The file name carries
 a hash of the source and the flags, so an edit rebuilds and an unchanged source
 is compiled once per checkout.  Nothing is built when the package is imported:
 the first launch of a kernel builds its library.  A failed build raises.
+
+It also holds the operand layout every kernel of ``csrc`` takes
+(:func:`kernel_operands`, :func:`unpad`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_OPS_DIR, "csrc")
@@ -92,3 +98,27 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libraries[name] = ctypes.CDLL(build(name))
     return lib
+
+
+def kernel_operands(*tensors: torch.Tensor) -> List[torch.Tensor]:
+    """The operands as the kernels take them: contiguous, on a 16-byte
+    boundary, with the last (feature) axis zero-padded to a multiple of 4
+    (16-byte loads); all of them share the first one's width.  The pad changes
+    no dot product, norm or score: each is an fp32 FMA chain over the features
+    in order, and an FMA of ``0 * 0`` onto ``s`` gives ``s`` bit for bit.  The
+    padded columns of the outputs are sliced off by :func:`unpad`.  Inputs
+    that need none of this pass without a copy."""
+    pad = -tensors[0].shape[-1] % 4
+    out = []
+    for t in tensors:
+        if pad:
+            t = F.pad(t, (0, pad))
+        elif not t.is_contiguous() or t.data_ptr() % 16:
+            t = t.clone(memory_format=torch.contiguous_format)
+        out.append(t)
+    return out
+
+
+def unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` feature columns of a kernel output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()

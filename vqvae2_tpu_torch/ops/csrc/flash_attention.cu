@@ -21,8 +21,8 @@
 // cores.  The priors' logits are held to 2e-5, so a product in one TF32 pass
 // (about 1e-3 off) is out.
 //
-// The forward (K4) and the dk/dv kernel (K6) run their products other than the
-// scores on the tensor cores by mma.sync m16n8k8 TF32 in three passes: x = hi +
+// All three kernels (K4, K5, K6) run their products other than the scores on
+// the tensor cores by mma.sync m16n8k8 TF32 in three passes: x = hi +
 // lo, both TF32, and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with fp32
 // accumulation, which keeps fp32's accuracy (tests/test_torch_flash_attention.py
 // emulates it).  The split takes four integer and fp32 operations
@@ -53,6 +53,14 @@
 // (k = t, t + 4), so the keys are reordered instead, k = t being key 2t and
 // k = t + 4 key 2t + 1, and V's B fragment is read from those two rows.
 //
+// Any head width.  D that is not a multiple of 4 is zero-padded to one by the
+// wrapper (an FMA of 0 * 0 onto a score leaves it bit for bit; the scale takes
+// the head's own D).  Up to 64 features a head is one tile wide (variants of
+// 16, 32 and 64 columns); above, it is cut into 64-wide chunks (WIDE): each
+// block owns one 64-wide group of its output's columns (a grid axis), and the
+// scores continue their FMA chains across the chunks in order, so they round
+// as one chain over d.  The score work is repeated for every column group.
+//
 // Dropout is a counter-based draw: Philox-4x32-10 keyed on the seed, with the
 // absolute (bh, i, j / 4) as the counter and word j % 4 of the result as the
 // element's bits, so the mask does not depend on any tiling and a backward
@@ -70,9 +78,13 @@
 //   dp[i, j] = <do[i], v[j]> * m[i, j]
 //   ds[i, j] = p * (dp - dsum[i]) * (1 / sqrt(D)),   dsum[i] = <do[i], o[i]>
 //   dq[i] = sum_j ds * k[j];  dk[j] = sum_i ds * q[i];  dv[j] = sum_i p * m * do[i]
-// The dq kernel (K5) runs on the CUDA cores: one thread owns R query rows (q,
-// do, dq in registers), the block walks key tiles up to the diagonal; it also
-// computes dsum for its rows from do and o and writes it out.  The dk/dv
+// Both backward kernels run on K4's design where the dq kernel's CUDA-core
+// design (below) does not run: see dq_on_cuda_cores.  The dq kernel (K5): a block of
+// four warps owns 64 query rows, 16 a warp, with dq in registers; it walks key
+// tiles (64, or 32 at D = 64) up to the diagonal with k and v staged two deep
+// by cp.async; the scores are fp32 FMA chains rounded as K4's, dP = dO.V^T and
+// dq += dS.K are three-pass TF32 mma (dS from the registers as K4's P); it
+// also computes dsum for its rows from do and o and writes it out.  The dk/dv
 // kernel (K6) runs after it on the same stream and reads its dsum: a block of
 // four warps owns 64 keys, 16 a warp, each thread two keys with dk and dv (and
 // at D = 16 k and v) in registers; it walks query tiles (64, or 32 at D = 64) from the
@@ -93,12 +105,10 @@
 
 namespace {
 
-constexpr int NT = 64;            // threads of a K5 block
-constexpr int KT = 64;            // keys in a shared tile of K5
-constexpr int KC = 8;             // keys folded per step of K5
+constexpr int FMA_THREADS = 64;   // threads of a CUDA-core K5 block
+constexpr int FMA_KT = 64;        // keys in its shared tile
 constexpr float NEG = -1e30f;     // the fill of masked scores; not -inf (NaN from inf - inf)
 constexpr float TINY = 1e-30f;    // floor of the normaliser
-static_assert(KT % KC == 0 && KC % 4 == 0, "a chunk is whole Philox quads");
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -247,17 +257,19 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // Wait until at most one group (the tile staged last) is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// Rows row0 .. row0 + ROWS - 1 of a (n, d) matrix into a (ROWS, LD) fp32 tile,
-// zero past row n and column d.  fp32 goes by cp.async; bf16 is widened on the
-// way (plain loads, stored at once).
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// Rows row0 .. row0 + ROWS - 1, columns c0 .. c0 + DP - 1 of a (n, d) matrix
+// into a (ROWS, LD) fp32 tile, zero past row n and column d.  fp32 goes by
+// cp.async; bf16 is widened on the way (plain loads, stored at once).
 template <typename T, int ROWS, int DP, int LD>
 __device__ __forceinline__ void stage_rows(float (*dst)[LD], const T* __restrict__ src, int row0,
-                                           int n, int d) {
+                                           int n, int d, int c0 = 0) {
   for (int f = threadIdx.x; f < ROWS * (DP / 4); f += TC_THREADS) {
     const int r = f / (DP / 4);
     const int c = (f % (DP / 4)) * 4;
-    const bool in = row0 + r < n && c < d;
-    const T* p = in ? src + static_cast<long long>(row0 + r) * d + c : src;
+    const bool in = row0 + r < n && c0 + c < d;
+    const T* p = in ? src + static_cast<long long>(row0 + r) * d + c0 + c : src;
     if constexpr (std::is_same<T, float>::value) {
       cp_async16(&dst[r][c], p, in);
     } else {
@@ -266,12 +278,87 @@ __device__ __forceinline__ void stage_rows(float (*dst)[LD], const T* __restrict
   }
 }
 
+// The scores of a key tile in the mma accumulator layout: s[j][c] += the
+// chain over this tile's DP columns for (row ra, key 8j + 2t + c), s[j][2 + c]
+// for (rb, the same key); kr(j, c) is that key's staged row.  Column tiles at
+// or beyond kmax (warp-uniform) are skipped.  Continued over the feature
+// chunks of a wide head in order, it is one fp32 FMA chain over d.
+template <int DP, int JN, typename KRow>
+__device__ __forceinline__ void score_chains(float (&s)[JN][4], const float (&qa)[DP],
+                                             const float (&qb)[DP], KRow kr, int kmax) {
+#pragma unroll
+  for (int j = 0; j < JN; ++j) {
+    if (j * 8 >= kmax) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* row = kr(j, c);
+      float sa = s[j][c], sb = s[j][2 + c];
+#pragma unroll
+      for (int dd = 0; dd < DP; dd += 4) {
+        const float4 kk = *reinterpret_cast<const float4*>(row + dd);
+        sa = fmaf(qa[dd + 0], kk.x, sa);
+        sa = fmaf(qa[dd + 1], kk.y, sa);
+        sa = fmaf(qa[dd + 2], kk.z, sa);
+        sa = fmaf(qa[dd + 3], kk.w, sa);
+        sb = fmaf(qb[dd + 0], kk.x, sb);
+        sb = fmaf(qb[dd + 1], kk.y, sb);
+        sb = fmaf(qb[dd + 2], kk.z, sb);
+        sb = fmaf(qb[dd + 3], kk.w, sb);
+      }
+      s[j][c] = sa;
+      s[j][2 + c] = sb;
+    }
+  }
+}
+
+// Columns c0 .. c0 + DP - 1 of query rows ra and rb, widened to fp32, zero
+// outside the matrix.
+template <typename T, int DP>
+__device__ __forceinline__ void load_query_rows(float (&qa)[DP], float (&qb)[DP],
+                                                const T* __restrict__ qbase, int ra, int rb, int n,
+                                                int d, int c0) {
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    const bool in = c0 + c < d;
+    qa[c] = (ra < n && in) ? to_float(qbase[static_cast<long long>(ra) * d + c0 + c]) : 0.f;
+    qb[c] = (rb < n && in) ? to_float(qbase[static_cast<long long>(rb) * d + c0 + c]) : 0.f;
+  }
+}
+
+// The keep bits of a score fragment under K4's and K5's layout: keys
+// 8j + 2t, 8j + 2t + 1 of rows ra, rb are words 2(t & 1), 2(t & 1) + 1 of
+// the Philox quad key0 / 4 + t / 2 (key0 = the column tile's first key).  Of
+// the two lanes that share a quad, the even one draws it for row ra and the
+// odd one for row rb; each sends the other the two words it holds for the
+// other's keys.  Bit c of the result: element c of the fragment is kept.
+__device__ __forceinline__ unsigned int keep_bits_rows(unsigned long long seed, long long bh,
+                                                       int ra, int rb, int key0, int t,
+                                                       unsigned int threshold) {
+  const bool odd = t & 1;
+  const uint4 bits = dropout_bits4(seed, bh, odd ? rb : ra, key0 / 4 + (t >> 1));
+  const unsigned int r0 = __shfl_xor_sync(FULL, odd ? bits.x : bits.z, 1);
+  const unsigned int r1 = __shfl_xor_sync(FULL, odd ? bits.y : bits.w, 1);
+  const unsigned int wa0 = odd ? r0 : bits.x, wa1 = odd ? r1 : bits.y;   // row ra
+  const unsigned int wb0 = odd ? bits.z : r0, wb1 = odd ? bits.w : r1;   // row rb
+  return static_cast<unsigned int>(wa0 >= threshold) |
+         static_cast<unsigned int>(wa1 >= threshold) << 1 |
+         static_cast<unsigned int>(wb0 >= threshold) << 2 |
+         static_cast<unsigned int>(wb1 >= threshold) << 3;
+}
+
 // K4: o and lse.  One block of four warps owns 64 query rows, 16 a warp (the
 // rows of its mma tiles), each thread two rows (g and g + 8 of its warp's).
 // It walks KT-key tiles of K and V, staged two deep by cp.async, up to the
 // diagonal.  Blocks are ordered by the length of their key loop, longest
 // first, across all heads.
-template <typename T, int DP, bool DROP>
+//
+// WIDE (D > 64): the head is cut into 64-wide feature chunks.  A block owns
+// one 64-wide group of o's columns (blockIdx.y) and stages only that group of
+// V; the scores continue their FMA chains over the chunks of K in order (each
+// chunk staged in turn, q's chunk read from global memory), so they round as
+// one chain over d.  Every group's block computes the same scores, lse and
+// probabilities; group 0 writes lse.
+template <typename T, int DP, bool DROP, bool WIDE>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, long long bh_count, int n, int d,
@@ -291,6 +378,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // o's column group
+  const int col0 = cg * DP;
+  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
   const int row0 = qt * TC_ROWS + warp * 16;   // first row of this warp
   const int ra = row0 + g;                     // this thread's two rows
   const int rb = ra + 8;
@@ -299,10 +389,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + base;
 
   float qa[DP], qb[DP];
+  if (!WIDE) {
 #pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    qa[c] = (ra < n && c < d) ? to_float(q[base + static_cast<long long>(ra) * d + c]) : 0.f;
-    qb[c] = (rb < n && c < d) ? to_float(q[base + static_cast<long long>(rb) * d + c]) : 0.f;
+    for (int c = 0; c < DP; ++c) {
+      qa[c] = (ra < n && c < d) ? to_float(q[base + static_cast<long long>(ra) * d + c]) : 0.f;
+      qb[c] = (rb < n && c < d) ? to_float(q[base + static_cast<long long>(rb) * d + c]) : 0.f;
+    }
   }
   float acc[DS][4];   // O: rows ra (0, 1) and rb (2, 3), columns 8s + 2t and 8s + 2t + 1
 #pragma unroll
@@ -318,16 +410,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tiles = (key_end + KT - 1) / KT;
 
   if (tiles > 0) {
-    stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
-    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d);
+    if (!WIDE) stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
+    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d, col0);
   }
   cp_async_commit();
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * KT;
     const int st = it & 1;
     if (it + 1 < tiles) {   // the next tile loads while this one is computed
-      stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
-      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d);
+      if (!WIDE) stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
+      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d, col0);
     }
     cp_async_commit();
     cp_async_wait_one();
@@ -336,34 +428,54 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     // Column tile j (keys k0 + 8j .. + 7) is seen by this warp when 8j < kmax
     // (warp-uniform); a warp with kmax <= 0 skips the tile.
     const int kmax = warp_last - k0;
+    float s[JT][4];
+    if constexpr (WIDE) {
+      // K's chunks in turn through k_tile[0] (the block waits for each: a
+      // wide head is off the models' main path)
+#pragma unroll
+      for (int j = 0; j < JT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int fc = 0; fc < chunks; ++fc) {
+        stage_rows<T, KT, DP, LD>(k_tile[0], kb, k0, n, d, fc * DP);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        if (kmax > 0) {
+          load_query_rows<T, DP>(qa, qb, q + base, ra, rb, n, d, fc * DP);
+          score_chains<DP, JT>(s, qa, qb,
+                               [&](int j, int c) { return &k_tile[0][j * 8 + 2 * t + c][0]; }, kmax);
+        }
+        __syncthreads();   // consumed before the next chunk overwrites it
+      }
+    }
     if (kmax > 0) {
       // S = Q.K^T: s[j][c] is (ra, key k0 + 8j + 2t + c), s[j][2 + c] is (rb,
       // the same key), each an fp32 FMA chain over d in order, as the plain
       // version's product rounds it.  (Scores on the tensor cores, even exact
       // ones, leave o further from the plain version than FA_TOL once the
       // scores reach a few hundred: tests/test_torch_flash_attention.py.)
-      float s[JT][4];
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int j = 0; j < JT; ++j) {
-        if (j * 8 >= kmax) continue;
+        for (int j = 0; j < JT; ++j) {
+          if (j * 8 >= kmax) continue;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float* kr = &k_tile[st][j * 8 + 2 * t + c][0];
-          float sa = 0.f, sb = 0.f;
+          for (int c = 0; c < 2; ++c) {
+            const float* kr = &k_tile[st][j * 8 + 2 * t + c][0];
+            float sa = 0.f, sb = 0.f;
 #pragma unroll
-          for (int dd = 0; dd < DP; dd += 4) {
-            const float4 kk = *reinterpret_cast<const float4*>(kr + dd);
-            sa = fmaf(qa[dd + 0], kk.x, sa);
-            sa = fmaf(qa[dd + 1], kk.y, sa);
-            sa = fmaf(qa[dd + 2], kk.z, sa);
-            sa = fmaf(qa[dd + 3], kk.w, sa);
-            sb = fmaf(qb[dd + 0], kk.x, sb);
-            sb = fmaf(qb[dd + 1], kk.y, sb);
-            sb = fmaf(qb[dd + 2], kk.z, sb);
-            sb = fmaf(qb[dd + 3], kk.w, sb);
+            for (int dd = 0; dd < DP; dd += 4) {
+              const float4 kk = *reinterpret_cast<const float4*>(kr + dd);
+              sa = fmaf(qa[dd + 0], kk.x, sa);
+              sa = fmaf(qa[dd + 1], kk.y, sa);
+              sa = fmaf(qa[dd + 2], kk.z, sa);
+              sa = fmaf(qa[dd + 3], kk.w, sa);
+              sb = fmaf(qb[dd + 0], kk.x, sb);
+              sb = fmaf(qb[dd + 1], kk.y, sb);
+              sb = fmaf(qb[dd + 2], kk.z, sb);
+              sb = fmaf(qb[dd + 3], kk.w, sb);
+            }
+            s[j][c] = sa;
+            s[j][2 + c] = sb;
           }
-          s[j][c] = sa;
-          s[j][2 + c] = sb;
         }
       }
 
@@ -476,10 +588,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float den_a = fmaxf(l_a, TINY);
   const float den_b = fmaxf(l_b, TINY);
   if (ra < n) {
-    if (t == 0) lse[bh * n + ra] = m_a + logf(den_a);
+    if (t == 0 && cg == 0) lse[bh * n + ra] = m_a + logf(den_a);
 #pragma unroll
     for (int ds = 0; ds < DS; ++ds) {
-      const int col = ds * 8 + 2 * t;
+      const int col = col0 + ds * 8 + 2 * t;
       if (col < d) {
         store2(o + base + static_cast<long long>(ra) * d + col, acc[ds][0] / den_a,
                acc[ds][1] / den_a);
@@ -487,10 +599,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
   if (rb < n) {
-    if (t == 0) lse[bh * n + rb] = m_b + logf(den_b);
+    if (t == 0 && cg == 0) lse[bh * n + rb] = m_b + logf(den_b);
 #pragma unroll
     for (int ds = 0; ds < DS; ++ds) {
-      const int col = ds * 8 + 2 * t;
+      const int col = col0 + ds * 8 + 2 * t;
       if (col < d) {
         store2(o + base + static_cast<long long>(rb) * d + col, acc[ds][2] / den_b,
                acc[ds][3] / den_b);
@@ -518,24 +630,31 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, long long bh_
   }
 }
 
-template <typename T, int DP>
+// The grid of a kernel: (heads x row tiles) along x, and along y the 64-wide
+// column groups of a wide head (1 otherwise).
+inline bool grid_of(long long bh, int n, int d, bool wide, dim3& grid) {
+  const long long blocks = bh * ((n + TC_ROWS - 1) / TC_ROWS);
+  if (blocks > 2147483647LL) return false;
+  grid = dim3(static_cast<unsigned int>(blocks), wide ? static_cast<unsigned int>((d + 63) / 64) : 1u);
+  return true;
+}
+
+template <typename T, int DP, bool WIDE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long bh, int n,
-           int d, unsigned int threshold, float inv_keep, unsigned long long seed,
+           int d, float scale, unsigned int threshold, float inv_keep, unsigned long long seed,
            cudaStream_t stream) {
   const int nq = (n + TC_ROWS - 1) / TC_ROWS;
-  const long long blocks = bh * nq;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.0f / sqrtf(static_cast<float>(d));
-  const unsigned int grid = static_cast<unsigned int>(blocks);
+  dim3 grid;
+  if (!grid_of(bh, n, d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (threshold > 0) {
-    flash_fwd_kernel<T, DP, true><<<grid, TC_THREADS, 0, stream>>>(
+    flash_fwd_kernel<T, DP, true, WIDE><<<grid, TC_THREADS, 0, stream>>>(
         qp, kp, vp, op, lse, bh, n, d, nq, scale, threshold, inv_keep, seed);
   } else {
-    flash_fwd_kernel<T, DP, false><<<grid, TC_THREADS, 0, stream>>>(
+    flash_fwd_kernel<T, DP, false, WIDE><<<grid, TC_THREADS, 0, stream>>>(
         qp, kp, vp, op, lse, bh, n, d, nq, scale, 0u, 1.0f, 0ull);
   }
   return static_cast<int>(cudaGetLastError());
@@ -543,30 +662,45 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, lon
 
 template <typename T>
 int launch_by_depth(const void* q, const void* k, const void* v, void* o, float* lse,
-                    long long bh, int n, int d, unsigned int threshold, float inv_keep,
-                    unsigned long long seed, cudaStream_t stream) {
-  if (d <= 16) return launch<T, 16>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
-  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
-  return launch<T, 64>(q, k, v, o, lse, bh, n, d, threshold, inv_keep, seed, stream);
+                    long long bh, int n, int d, float scale, unsigned int threshold,
+                    float inv_keep, unsigned long long seed, cudaStream_t stream) {
+  if (d <= 16) return launch<T, 16, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  if (d <= 32) return launch<T, 32, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  if (d <= 64) return launch<T, 64, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  return launch<T, 64, true>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
 }
 
+// The softmax scale of a head of head_dim features; the rows themselves may be
+// zero-padded to d >= head_dim (the wrapper pads D to a multiple of 4).
+inline float scale_of(int head_dim) { return 1.0f / sqrtf(static_cast<float>(head_dim)); }
+
+inline bool bad_shape(long long bh, int n, int d, int head_dim) {
+  return bh < 1 || n < 1 || d < 4 || d % 4 != 0 || head_dim < 1 || head_dim > d;
+}
 
 // ---------------------------------------------------------------------------
 // Backward
 // ---------------------------------------------------------------------------
 
-// K5: dq, and dsum for the same rows.  Blocks are ordered by the length of
-// their key loop, longest first, across all heads.
+// K5 on the CUDA cores, for the shapes of dq_on_cuda_cores: dq, and dsum for
+// the same rows.  One thread owns R query rows (q, do and dq in registers);
+// the block walks key tiles up to the diagonal and folds KC keys a step: S and
+// dP as fp32 FMA chains over d, then dq += dS.K.  Blocks are ordered by the
+// length of their key loop, longest first, across all heads.
 template <typename T, int DP, int R, bool DROP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+__global__ void __launch_bounds__(FMA_THREADS)
+flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ dsum_out,
                     T* __restrict__ dq, long long bh_count, int n, int d, int nq, float scale,
                     unsigned int threshold, float inv_keep, unsigned long long seed) {
-  constexpr int TQ = NT * R;
-  __shared__ __align__(16) float ks[KT][DP];
-  __shared__ __align__(16) float vs[KT][DP];
+  constexpr int TQ = FMA_THREADS * R;
+  // keys a step: eight at D = 16 without dropout; four under dropout (fewer
+  // live scores) and at D = 32 (where bf16 spills with eight and fp32 runs as
+  // fast with four)
+  constexpr int KC = DROP || DP > 16 ? 4 : 8;
+  __shared__ __align__(16) float ks[FMA_KT][DP];
+  __shared__ __align__(16) float vs[FMA_KT][DP];
 
   const int tid = threadIdx.x;
   const long long bh = blockIdx.x % bh_count;
@@ -618,9 +752,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int warp_row0 = qt * TQ + (tid / 32) * 32 * R;
   const int warp_last = warp_row0 < n ? min(n, warp_row0 + 32 * R) - 1 : 0;
 
-  for (int k0 = 0; k0 < key_end; k0 += KT) {
+  for (int k0 = 0; k0 < key_end; k0 += FMA_KT) {
     __syncthreads();   // the previous tile has been consumed
-    for (int f = tid; f < KT * (DP / 4); f += NT) {
+    for (int f = tid; f < FMA_KT * (DP / 4); f += FMA_THREADS) {
       const int r = f / (DP / 4);
       const int c = (f % (DP / 4)) * 4;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -635,7 +769,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     __syncthreads();
     if (k0 >= warp_last) continue;   // wholly above this warp's rows (warp-uniform)
 
-    const int kmax = min(KT, warp_last - k0);
+    const int kmax = min(FMA_KT, warp_last - k0);
     for (int c0 = 0; c0 < kmax; c0 += KC) {
       float s[R][KC], dp[R][KC];
 #pragma unroll
@@ -715,6 +849,281 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// K5: dq, and dsum for the same rows, on K4's layout.  One block of four
+// warps owns 64 query rows, 16 a warp (the M of its mma tiles), each thread two
+// rows (ra, rb = g and g + 8 of its warp's), with dq in registers; it walks
+// KT-key tiles of K and V, staged two deep by cp.async, up to the diagonal.
+// Blocks are ordered by the length of their key loop, longest first, across
+// all heads.  For each tile:
+//   S = Q.K^T      fp32 FMA chains over d in order (K4's rounding, so that
+//                  p = exp(s * scale - lse) stays at most 1 however large the
+//                  scores grow), in the mma accumulator layout;
+//   dP = dO.V^T    three-pass TF32 mma, dO as the A operand, V's B fragment
+//                  read from rows 8j + g; the same accumulator layout as S;
+//   dS = p * (dP * m - dsum) * scale       in registers (m: the dropout factor,
+//                  its bits drawn once a (query, key quad) as in K4);
+//   dq += dS.K     three-pass TF32 mma, dS straight from the registers as the
+//                  A operand with the keys reordered as K4's P.V does (k = t is
+//                  key 8j + 2t, k = t + 4 key 8j + 2t + 1; K's B fragment read
+//                  from those two rows), into a fresh accumulator that is added
+//                  to the running dq by a rounded fp32 add (the tensor cores'
+//                  sums truncate).
+// dsum = <do, o> of each row is an FMA chain over d in order (what K6 reads).
+// It runs from 32 features up (dq_on_cuda_cores), where q and the split dO
+// fragments would not fit in registers beside S and dP: each use reads them
+// through L1 (a warp's rows of q and do are at most 8 KB).  WIDE (D > 64): as K4's, a block owns
+// one 64-wide group of dq's columns (blockIdx.y); S and dP run over K's and
+// V's feature chunks in turn (dP's chunks each into a fresh accumulator), then
+// K's chunk of the block's group is staged for dq.
+template <typename T, int DP, bool DROP, bool WIDE>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dsum_out,
+                    T* __restrict__ dq, long long bh_count, int n, int d, int nq, float scale,
+                    unsigned int threshold, float inv_keep, unsigned long long seed) {
+  constexpr int KT = kTcTile<DP>;
+  constexpr int LD = kTcLd<DP>;
+  constexpr int DS = DP / 8;     // k-steps of dP; 8-wide column tiles of dq
+  constexpr int JT = KT / 8;     // 8-key column tiles of S and dP; k-steps of dq
+  // ... of a sub-tile (fewer registers, and shorter chains of mma into one
+  // accumulator); WIDE computes its whole tile's S and dP across the chunks
+  constexpr int JS = WIDE ? JT : (JT >= 4 ? 4 : JT);
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  __shared__ __align__(16) float k_tile[2][KT][LD];
+  __shared__ __align__(16) float v_tile[2][KT][LD];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // dq's column group
+  const int col0 = cg * DP;
+  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
+  const int row0 = qt * TC_ROWS + warp * 16;
+  const int ra = row0 + g;
+  const int rb = ra + 8;
+  const long long base = bh * n * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const T* qbase = q + base;
+  const T* gbase = dout + base;
+
+  // dsum of rows ra and rb, each lane of the quad alike; lse of both rows
+  float dsum_a = 0.f, dsum_b = 0.f, lse_a = 0.f, lse_b = 0.f;
+  if (ra < n) {
+    const long long at = base + static_cast<long long>(ra) * d;
+    for (int c = 0; c < d; ++c) dsum_a = fmaf(to_float(dout[at + c]), to_float(o[at + c]), dsum_a);
+    lse_a = lse[bh * n + ra];
+  }
+  if (rb < n) {
+    const long long at = base + static_cast<long long>(rb) * d;
+    for (int c = 0; c < d; ++c) dsum_b = fmaf(to_float(dout[at + c]), to_float(o[at + c]), dsum_b);
+    lse_b = lse[bh * n + rb];
+  }
+  if (t == 0 && cg == 0) {
+    if (ra < n) dsum_out[bh * n + ra] = dsum_a;
+    if (rb < n) dsum_out[bh * n + rb] = dsum_b;
+  }
+
+  // dO's A fragment of k-step s of the chunk at c0: (ra, 8s + t), (rb, 8s + t),
+  // (ra, 8s + t + 4), (rb, 8s + t + 4)
+  auto do_fragment = [&](int s, int c0, unsigned int (&h)[4], unsigned int (&l)[4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = (r & 1) ? rb : ra;
+      const int col = c0 + s * 8 + t + (r >> 1) * 4;
+      const float x = (row < n && col < d) ? to_float(gbase[static_cast<long long>(row) * d + col]) : 0.f;
+      split_tf32(x, h[r], l[r]);
+    }
+  };
+  float acc[DS][4];   // dq: rows ra (0, 1) and rb (2, 3), columns 8s + 2t and 8s + 2t + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+
+  const int key_end = min(n, qt * TC_ROWS + TC_ROWS) - 1;
+  const int warp_last = row0 < n ? min(n, row0 + 16) - 1 : 0;
+  const int tiles = (key_end + KT - 1) / KT;
+
+  // S and dP of the JS column tiles from j0 of a staged chunk (columns c0 ..)
+  // of K and V; kmax as in the tile loop
+  auto scores_and_dp = [&](float (&s)[JS][4], float (&dp)[JS][4], const float (*kt)[LD],
+                           const float (*vt)[LD], int c0, int j0, int kmax) {
+    // q's rows read through L1 four features at a time (held whole they
+    // would not fit beside S and dP); the same chains as score_chains
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      if ((j0 + j) * 8 >= kmax) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float* row = &kt[(j0 + j) * 8 + 2 * t + c][0];
+        float sa = s[j][c], sb = s[j][2 + c];
+#pragma unroll 1
+        for (int dd = 0; dd < DP; dd += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(row + dd);
+          const bool in = c0 + dd < d;
+          const float4 xa = (ra < n && in) ? load4(qbase + static_cast<long long>(ra) * d + c0 + dd) : zero;
+          const float4 xb = (rb < n && in) ? load4(qbase + static_cast<long long>(rb) * d + c0 + dd) : zero;
+          sa = fmaf(xa.x, kk.x, sa);
+          sa = fmaf(xa.y, kk.y, sa);
+          sa = fmaf(xa.z, kk.z, sa);
+          sa = fmaf(xa.w, kk.w, sa);
+          sb = fmaf(xb.x, kk.x, sb);
+          sb = fmaf(xb.y, kk.y, sb);
+          sb = fmaf(xb.z, kk.z, sb);
+          sb = fmaf(xb.w, kk.w, sb);
+        }
+        s[j][c] = sa;
+        s[j][2 + c] = sb;
+      }
+    }
+#pragma unroll
+    for (int ds = 0; ds < DS; ++ds) {
+      unsigned int ah[4], al[4];
+      do_fragment(ds, c0, ah, al);
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        if ((j0 + j) * 8 >= kmax) continue;
+        unsigned int bh_[2], bl_[2];
+        split_tf32(vt[(j0 + j) * 8 + g][ds * 8 + t], bh_[0], bl_[0]);
+        split_tf32(vt[(j0 + j) * 8 + g][ds * 8 + t + 4], bh_[1], bl_[1]);
+        mma_3xtf32<EXACT, EXACT>(dp[j], ah, al, bh_, bl_);
+      }
+    }
+  };
+
+  if (tiles > 0 && !WIDE) {
+    stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
+    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d);
+  }
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * KT;
+    int st = it & 1;
+    if (!WIDE && it + 1 < tiles) {   // the next tile loads while this one is computed
+      stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
+      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const int kmax = warp_last - k0;   // column tile j is seen when 8j < kmax (warp-uniform)
+    float sw[JS][4], dpw[JS][4];       // WIDE: the whole tile's S and dP (JS == JT)
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        sw[j][0] = sw[j][1] = sw[j][2] = sw[j][3] = 0.f;
+        dpw[j][0] = dpw[j][1] = dpw[j][2] = dpw[j][3] = 0.f;
+      }
+      // K's and V's chunks in turn through buffer 0, then K's chunk of this
+      // block's column group into buffer 1 for dq (the block waits for each)
+      for (int fc = 0; fc < chunks; ++fc) {
+        stage_rows<T, KT, DP, LD>(k_tile[0], kb, k0, n, d, fc * DP);
+        stage_rows<T, KT, DP, LD>(v_tile[0], vb, k0, n, d, fc * DP);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        if (kmax > 0) {
+          float dpc[JS][4];
+#pragma unroll
+          for (int j = 0; j < JS; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
+          scores_and_dp(sw, dpc, k_tile[0], v_tile[0], fc * DP, 0, kmax);
+#pragma unroll
+          for (int j = 0; j < JS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dpw[j][e] += dpc[j][e];
+        }
+        __syncthreads();   // consumed before the next chunk overwrites it
+      }
+      stage_rows<T, KT, DP, LD>(k_tile[1], kb, k0, n, d, col0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      st = 1;
+    }
+
+    for (int j0 = 0; j0 < JT; j0 += JS) {
+      if (j0 * 8 >= kmax) break;   // no seen key from here on (warp-uniform)
+      float s[JS][4], dp[JS][4];
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = WIDE ? sw[j][e] : 0.f;
+          dp[j][e] = WIDE ? dpw[j][e] : 0.f;
+        }
+      }
+      if constexpr (!WIDE) scores_and_dp(s, dp, k_tile[st], v_tile[st], 0, j0, kmax);
+
+      // dS = p * (dP * m - dsum) * scale, into s; element c of column tile
+      // j0 + j is (row ra for c < 2 else rb, key k0 + 8(j0 + j) + 2t + (c & 1))
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        const int key0 = k0 + (j0 + j) * 8;
+        if (key0 - k0 >= kmax) continue;
+        unsigned int keep = 0xFu;
+        if (DROP) keep = keep_bits_rows(seed, bh, ra, rb, key0, t, threshold);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = c < 2 ? ra : rb;
+          const int key = key0 + 2 * t + (c & 1);
+          const bool seen = key < row && row < n;
+          const float p = seen ? __expf(s[j][c] * scale - (c < 2 ? lse_a : lse_b)) : 0.f;
+          float m = 1.f;
+          if (DROP) m = ((keep >> c) & 1u) ? inv_keep : 0.f;
+          s[j][c] = p * (dp[j][c] * m - (c < 2 ? dsum_a : dsum_b)) * scale;
+        }
+      }
+      // dq += dS.K in three TF32 passes.  The sub-tile's even and odd column
+      // tiles go into two fresh accumulators (two independent chains of mma),
+      // each added to the running dq by a rounded fp32 add.
+      float part[2][DS][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds)
+          part[h][ds][0] = part[h][ds][1] = part[h][ds][2] = part[h][ds][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        if ((j0 + j) * 8 >= kmax) continue;
+        unsigned int ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds) {
+          const int r = (j0 + j) * 8 + 2 * t;
+          const int c = ds * 8 + g;
+          unsigned int kh[2], kl[2];
+          split_tf32(k_tile[st][r][c], kh[0], kl[0]);
+          split_tf32(k_tile[st][r + 1][c], kh[1], kl[1]);
+          mma_3xtf32<false, EXACT>(part[j & 1][ds], ph, pl, kh, kl);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ds][e] += part[h][ds][e];
+    }
+    __syncthreads();   // this tile is consumed before the next stage overwrites it
+  }
+
+#pragma unroll
+  for (int ds = 0; ds < DS; ++ds) {
+    const int col = col0 + ds * 8 + 2 * t;
+    if (col >= d) continue;
+    if (ra < n) store2(dq + base + static_cast<long long>(ra) * d + col, acc[ds][0], acc[ds][1]);
+    if (rb < n) store2(dq + base + static_cast<long long>(rb) * d + col, acc[ds][2], acc[ds][3]);
+  }
+}
+
 // K6: dk and dv.  One block of four warps owns 64 keys, 16 a warp (the rows
 // of its mma tiles), each thread two keys, with the dk, dv accumulators (and
 // at D = 16 k and v) in registers; it walks QT-query tiles from the diagonal to N
@@ -722,7 +1131,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // sub-tiles of JS 8-query columns (fewer registers: at D = 64 one column).
 // Blocks are ordered by the length of their query loop, longest (the first key
 // tile) first, across all heads.
-template <typename T, int DP, bool DROP>
+//
+// WIDE (D > 64): as K4's, a block owns one 64-wide group of dk's and dv's
+// columns (blockIdx.y).  For each query tile, S^T and dP^T run over the
+// feature chunks of Q and dO in turn (K's and V's chunks read from global
+// memory; each chunk of dP^T into a fresh accumulator), for the whole tile at
+// once; then Q's and dO's chunks of the block's group are staged for dV and
+// dK.
+template <typename T, int DP, bool DROP, bool WIDE>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -733,7 +1149,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int LD = kTcLd<DP>;
   constexpr int DS = DP / 8;           // k-steps of S^T and dP^T; column tiles of dK, dV
   constexpr int JT = QT / 8;           // 8-query column tiles of a query tile
-  constexpr int JS = DP >= 64 ? 1 : 4;  // ... of a sub-tile
+  constexpr int JS = WIDE ? JT : (DP >= 64 ? 1 : 4);  // ... of a sub-tile
   constexpr bool EXACT = ExactInTf32<T>::value;
   __shared__ __align__(16) float q_tile[2][QT][LD];
   __shared__ __align__(16) float g_tile[2][QT][LD];   // do
@@ -746,6 +1162,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int kt = static_cast<int>(blockIdx.x / bh_count);
+  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // dk's and dv's column group
+  const int col0 = cg * DP;
+  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
   const int key0 = kt * TC_ROWS + warp * 16;   // first key of this warp, a multiple of 16
   const int ka = key0 + g;                     // this thread's two keys
   const int kb = ka + 8;
@@ -758,12 +1177,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // 8s + t or 8s + t + 4).  At D = 16 they stay in registers; at larger D they
   // would not fit beside the accumulators, and each use reads them again (from
   // L1: the warp's keys and values are at most 8 KB).
-  constexpr bool KV_IN_REGS = DP <= 16;
+  constexpr bool KV_IN_REGS = DP <= 16 && !WIDE;
   const T* ka_row = k + base + static_cast<long long>(ka) * d;
   const T* kb_row = k + base + static_cast<long long>(kb) * d;
-  auto v_at = [&](int s, int r, long long& at) {
+  auto v_at = [&](int s, int r, long long& at, int c0) {
     const int row = (r & 1) ? kb : ka;
-    const int col = s * 8 + t + (r >> 1) * 4;
+    const int col = c0 + s * 8 + t + (r >> 1) * 4;
     at = base + static_cast<long long>(row) * d + col;
     return row < n && col < d;
   };
@@ -779,7 +1198,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         long long at;
-        const bool in = v_at(s, r, at);
+        const bool in = v_at(s, r, at, 0);
         vf[s][r] = in ? to_float(v[at]) : 0.f;
       }
     }
@@ -794,8 +1213,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int q_first = kt * TC_ROWS;   // no query before the block's first key sees it
   const int tiles = (n - q_first + QT - 1) / QT;
   auto stage = [&](int buf, int q0) {
-    stage_rows<T, QT, DP, LD>(q_tile[buf], qb, q0, n, d);
-    stage_rows<T, QT, DP, LD>(g_tile[buf], gb, q0, n, d);
+    stage_rows<T, QT, DP, LD>(q_tile[buf], qb, q0, n, d, col0);
+    stage_rows<T, QT, DP, LD>(g_tile[buf], gb, q0, n, d, col0);
     for (int r = threadIdx.x; r < 2 * QT; r += TC_THREADS) {
       const int i = r % QT;
       const bool in = q0 + i < n;
@@ -808,15 +1227,95 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   };
 
-  stage(0, q_first);
+  if (!WIDE) stage(0, q_first);
   cp_async_commit();
   for (int it = 0; it < tiles; ++it) {
     const int q0 = q_first + it * QT;
-    const int st = it & 1;
-    if (it + 1 < tiles) stage(st ^ 1, q0 + QT);   // the next tile loads while this one is computed
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
+    int st = it & 1;
+    float sw[JS][4], dpw[JS][4];   // WIDE: the whole tile's S^T and dP^T (JS == JT)
+    if constexpr (!WIDE) {
+      if (it + 1 < tiles) stage(st ^ 1, q0 + QT);   // the next tile loads while this one is computed
+      cp_async_commit();
+      cp_async_wait_one();
+      __syncthreads();
+    } else {
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        sw[j][0] = sw[j][1] = sw[j][2] = sw[j][3] = 0.f;
+        dpw[j][0] = dpw[j][1] = dpw[j][2] = dpw[j][3] = 0.f;
+      }
+      // Q's and dO's chunks in turn through buffer 0 (the block waits for
+      // each), then the block's column group and lse, dsum into buffer 1
+      for (int fc = 0; fc < chunks; ++fc) {
+        const int c0 = fc * DP;
+        stage_rows<T, QT, DP, LD>(q_tile[0], qb, q0, n, d, c0);
+        stage_rows<T, QT, DP, LD>(g_tile[0], gb, q0, n, d, c0);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        if (key0 < n) {
+          // S^T continues its chains (k's chunk read from global memory)
+#pragma unroll
+          for (int j = 0; j < JS; ++j) {
+            if (q0 + j * 8 + 7 <= key0) continue;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float* qr = &q_tile[0][j * 8 + 2 * t + c][0];
+              float sa = sw[j][c], sb = sw[j][2 + c];
+#pragma unroll 1
+              for (int dd = 0; dd < DP; dd += 4) {
+                const float4 qq = *reinterpret_cast<const float4*>(qr + dd);
+                const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+                const float4 xa = (ka < n && c0 + dd < d) ? load4(ka_row + c0 + dd) : zero;
+                const float4 xb = (kb < n && c0 + dd < d) ? load4(kb_row + c0 + dd) : zero;
+                sa = fmaf(qq.x, xa.x, sa);
+                sa = fmaf(qq.y, xa.y, sa);
+                sa = fmaf(qq.z, xa.z, sa);
+                sa = fmaf(qq.w, xa.w, sa);
+                sb = fmaf(qq.x, xb.x, sb);
+                sb = fmaf(qq.y, xb.y, sb);
+                sb = fmaf(qq.z, xb.z, sb);
+                sb = fmaf(qq.w, xb.w, sb);
+              }
+              sw[j][c] = sa;
+              sw[j][2 + c] = sb;
+            }
+          }
+          // dP^T of the chunk into a fresh accumulator
+          float dpc[JS][4];
+#pragma unroll
+          for (int j = 0; j < JS; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
+#pragma unroll
+          for (int ds = 0; ds < DS; ++ds) {
+            unsigned int vh[4], vl[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              long long at;
+              const bool in = v_at(ds, r, at, c0);
+              split_tf32(in ? to_float(v[at]) : 0.f, vh[r], vl[r]);
+            }
+#pragma unroll
+            for (int j = 0; j < JS; ++j) {
+              if (q0 + j * 8 + 7 <= key0) continue;
+              unsigned int bh_[2], bl_[2];
+              split_tf32(g_tile[0][j * 8 + g][ds * 8 + t], bh_[0], bl_[0]);
+              split_tf32(g_tile[0][j * 8 + g][ds * 8 + t + 4], bh_[1], bl_[1]);
+              mma_3xtf32<EXACT, EXACT>(dpc[j], vh, vl, bh_, bl_);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < JS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dpw[j][e] += dpc[j][e];
+        }
+        __syncthreads();   // consumed before the next chunk overwrites it
+      }
+      stage(1, q0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      st = 1;
+    }
 
     // Column tile j (queries q0 + 8j .. + 7) holds a query that sees a key of
     // this warp when q0 + 8j + 7 > key0 (warp-uniform).
@@ -825,8 +1324,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       float s[JS][4], dp[JS][4];
 #pragma unroll
       for (int j = 0; j < JS; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = WIDE ? sw[j][e] : 0.f;
+          dp[j][e] = WIDE ? dpw[j][e] : 0.f;
+        }
       }
       // S^T = K.Q^T: s[j][2h + c] is (key ka or kb for h = 0, 1, query
       // q0 + 8(j0 + j) + 2t + c), an fp32 FMA chain over d in order, so that it
@@ -834,70 +1336,74 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       // then stays at most 1 whatever the scores' size: from scores rounded
       // otherwise (the tensor cores'), p overflows once the scores reach
       // 1e10, as a few steps of training bring them to.
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        const int r0 = (j0 + j) * 8;
-        if (q0 + r0 + 7 <= key0) continue;
+        for (int j = 0; j < JS; ++j) {
+          const int r0 = (j0 + j) * 8;
+          if (q0 + r0 + 7 <= key0) continue;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float* qr = &q_tile[st][r0 + 2 * t + c][0];
-          float sa = 0.f, sb = 0.f;
-          auto chain = [&](const float4& qq, const float4& xa, const float4& xb) {
-            sa = fmaf(qq.x, xa.x, sa);
-            sa = fmaf(qq.y, xa.y, sa);
-            sa = fmaf(qq.z, xa.z, sa);
-            sa = fmaf(qq.w, xa.w, sa);
-            sb = fmaf(qq.x, xb.x, sb);
-            sb = fmaf(qq.y, xb.y, sb);
-            sb = fmaf(qq.z, xb.z, sb);
-            sb = fmaf(qq.w, xb.w, sb);
-          };
-          if (KV_IN_REGS) {
+          for (int c = 0; c < 2; ++c) {
+            const float* qr = &q_tile[st][r0 + 2 * t + c][0];
+            float sa = 0.f, sb = 0.f;
+            auto chain = [&](const float4& qq, const float4& xa, const float4& xb) {
+              sa = fmaf(qq.x, xa.x, sa);
+              sa = fmaf(qq.y, xa.y, sa);
+              sa = fmaf(qq.z, xa.z, sa);
+              sa = fmaf(qq.w, xa.w, sa);
+              sb = fmaf(qq.x, xb.x, sb);
+              sb = fmaf(qq.y, xb.y, sb);
+              sb = fmaf(qq.z, xb.z, sb);
+              sb = fmaf(qq.w, xb.w, sb);
+            };
+            if (KV_IN_REGS) {
 #pragma unroll
-            for (int dd = 0; dd < DP; dd += 4) {
-              chain(*reinterpret_cast<const float4*>(qr + dd),
-                    make_float4(kra[dd], kra[dd + 1], kra[dd + 2], kra[dd + 3]),
-                    make_float4(krb[dd], krb[dd + 1], krb[dd + 2], krb[dd + 3]));
-            }
-          } else {
-            const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-            // one step at a time: hoisted, the loads would not fit the registers
+              for (int dd = 0; dd < DP; dd += 4) {
+                chain(*reinterpret_cast<const float4*>(qr + dd),
+                      make_float4(kra[dd], kra[dd + 1], kra[dd + 2], kra[dd + 3]),
+                      make_float4(krb[dd], krb[dd + 1], krb[dd + 2], krb[dd + 3]));
+              }
+            } else {
+              const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+              // one step at a time: hoisted, the loads would not fit the registers
 #pragma unroll 1
-            for (int dd = 0; dd < DP; dd += 4) {
-              chain(*reinterpret_cast<const float4*>(qr + dd),
-                    (ka < n && dd < d) ? load4(ka_row + dd) : zero,
-                    (kb < n && dd < d) ? load4(kb_row + dd) : zero);
+              for (int dd = 0; dd < DP; dd += 4) {
+                chain(*reinterpret_cast<const float4*>(qr + dd),
+                      (ka < n && dd < d) ? load4(ka_row + dd) : zero,
+                      (kb < n && dd < d) ? load4(kb_row + dd) : zero);
+              }
             }
+            s[j][c] = sa;
+            s[j][2 + c] = sb;
           }
-          s[j][c] = sa;
-          s[j][2 + c] = sb;
         }
       }
       // dP^T = V.dO^T in three TF32 passes
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int ds = 0; ds < DS; ++ds) {
-        unsigned int vh[4], vl[4];
+        for (int ds = 0; ds < DS; ++ds) {
+          unsigned int vh[4], vl[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float vx;
-          if (KV_IN_REGS) {
-            vx = vf[ds][r];
-          } else {
-            long long at;
-            const bool in = v_at(ds, r, at);
-            vx = in ? to_float(v[at]) : 0.f;
+          for (int r = 0; r < 4; ++r) {
+            float vx;
+            if (KV_IN_REGS) {
+              vx = vf[ds][r];
+            } else {
+              long long at;
+              const bool in = v_at(ds, r, at, 0);
+              vx = in ? to_float(v[at]) : 0.f;
+            }
+            split_tf32(vx, vh[r], vl[r]);
           }
-          split_tf32(vx, vh[r], vl[r]);
-        }
 #pragma unroll
-        for (int j = 0; j < JS; ++j) {
-          const int row = (j0 + j) * 8 + g;
-          if (q0 + row - g + 7 <= key0) continue;
-          const int c = ds * 8 + t;
-          unsigned int bh_[2], bl_[2];
-          split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
-          split_tf32(g_tile[st][row][c + 4], bh_[1], bl_[1]);
-          mma_3xtf32<EXACT, EXACT>(dp[j], vh, vl, bh_, bl_);
+          for (int j = 0; j < JS; ++j) {
+            const int row = (j0 + j) * 8 + g;
+            if (q0 + row - g + 7 <= key0) continue;
+            const int c = ds * 8 + t;
+            unsigned int bh_[2], bl_[2];
+            split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
+            split_tf32(g_tile[st][row][c + 4], bh_[1], bl_[1]);
+            mma_3xtf32<EXACT, EXACT>(dp[j], vh, vl, bh_, bl_);
+          }
         }
       }
 
@@ -995,7 +1501,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 #pragma unroll
   for (int ds = 0; ds < DS; ++ds) {
-    const int col = ds * 8 + 2 * t;
+    const int col = col0 + ds * 8 + 2 * t;
     if (col >= d) continue;
     if (ka < n) {
       const long long at = base + static_cast<long long>(ka) * d + col;
@@ -1025,108 +1531,146 @@ struct BwdArgs {
   long long bh;
   int n;
   int d;
+  float scale;
   unsigned int threshold;
   float inv_keep;
   unsigned long long seed;
 };
 
 template <typename T, int DP, int R, bool DROP>
-int launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int TQ = NT * R;
+int launch_dq_fma(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int TQ = FMA_THREADS * R;
   const int tiles = (a.n + TQ - 1) / TQ;
   const long long blocks = a.bh * tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.d));
-  flash_bwd_dq_kernel<T, DP, R, DROP><<<static_cast<unsigned int>(blocks), NT, 0, stream>>>(
+  flash_bwd_dq_fma_kernel<T, DP, R, DROP><<<static_cast<unsigned int>(blocks), FMA_THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
-      static_cast<T*>(a.dq), a.bh, a.n, a.d, tiles, scale, a.threshold, a.inv_keep, a.seed);
+      static_cast<T*>(a.dq), a.bh, a.n, a.d, tiles, a.scale, a.threshold, a.inv_keep, a.seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP, bool DROP>
+template <typename T, int DP, bool DROP, bool WIDE>
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  const int nq = (a.n + TC_ROWS - 1) / TC_ROWS;
+  dim3 grid;
+  if (!grid_of(a.bh, a.n, a.d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dq_kernel<T, DP, DROP, WIDE><<<grid, TC_THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
+      static_cast<T*>(a.dq), a.bh, a.n, a.d, nq, a.scale, a.threshold, a.inv_keep, a.seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP, bool DROP, bool WIDE>
 int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  const int tiles = (a.n + TC_ROWS - 1) / TC_ROWS;
-  const long long blocks = a.bh * tiles;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.d));
-  flash_bwd_dkv_kernel<T, DP, DROP><<<static_cast<unsigned int>(blocks), TC_THREADS, 0, stream>>>(
+  dim3 grid;
+  if (!grid_of(a.bh, a.n, a.d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_kernel<T, DP, DROP, WIDE><<<grid, TC_THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.bh, a.n, a.d, scale, a.threshold, a.inv_keep, a.seed);
+      a.bh, a.n, a.d, a.scale, a.threshold, a.inv_keep, a.seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP, int R>
-int launch_bwd_drop(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
+// The backward launches: dq by the design chosen for the shape, or dk/dv.
+enum BwdPass { PASS_DQ = 0, PASS_DKV = 1 };
+
+// K5's design for a shape: the CUDA-core one wherever none of its variants
+// spills registers (chip_smoke.py's check) -- fp32 and bf16 heads up to 32
+// features, but for bf16 at 32 under dropout -- the tensor-core one elsewhere.
+// Where both are spill-free the CUDA-core design is as fast (bf16, D = 16,
+// no dropout) or 1.16-2.05 times faster; at 64 features it is faster too,
+// 1.25-1.87 times, but spills 180-752 bytes in every variant, and 28 at bf16
+// D = 32 under dropout (compare_kernels.py at B*H = 256, N = 1024; PERF.md).
+// Wide heads run on the tensor cores only.
+template <typename T, int DP, bool DROP, bool WIDE>
+constexpr bool dq_on_cuda_cores() {
+  return !WIDE && (DP <= 16 || (DP <= 32 && !(DROP && std::is_same<T, __nv_bfloat16>::value)));
+}
+
+template <typename T, int DP, bool WIDE>
+int launch_bwd_drop(const BwdArgs& a, int pass, cudaStream_t stream) {
   const bool drop = a.threshold > 0;
-  if (dq_pass) {
-    return drop ? launch_dq<T, DP, R, true>(a, stream) : launch_dq<T, DP, R, false>(a, stream);
+  if (pass == PASS_DKV) {
+    return drop ? launch_dkv<T, DP, true, WIDE>(a, stream) : launch_dkv<T, DP, false, WIDE>(a, stream);
   }
-  return drop ? launch_dkv<T, DP, true>(a, stream) : launch_dkv<T, DP, false>(a, stream);
+  // rows a thread of the CUDA-core design: two at D = 16 without dropout; one
+  // under dropout and at D = 32 (two rows and eight keys a step spill under
+  // dropout, and one row with four keys runs as fast)
+  constexpr int R = DP <= 16 ? 2 : 1;
+  if (drop) {
+    if constexpr (dq_on_cuda_cores<T, DP, true, WIDE>()) return launch_dq_fma<T, DP, 1, true>(a, stream);
+    else return launch_dq<T, DP, true, WIDE>(a, stream);
+  }
+  if constexpr (dq_on_cuda_cores<T, DP, false, WIDE>()) return launch_dq_fma<T, DP, R, false>(a, stream);
+  else return launch_dq<T, DP, false, WIDE>(a, stream);
 }
 
 template <typename T>
-int launch_bwd_by_depth(const BwdArgs& a, bool dq_pass, cudaStream_t stream) {
-  if (a.d <= 16) return launch_bwd_drop<T, 16, 2>(a, dq_pass, stream);
-  if (a.d <= 32) return launch_bwd_drop<T, 32, 1>(a, dq_pass, stream);
-  return launch_bwd_drop<T, 64, 1>(a, dq_pass, stream);
+int launch_bwd_by_depth(const BwdArgs& a, int pass, cudaStream_t stream) {
+  if (a.d <= 16) return launch_bwd_drop<T, 16, false>(a, pass, stream);
+  if (a.d <= 32) return launch_bwd_drop<T, 32, false>(a, pass, stream);
+  if (a.d <= 64) return launch_bwd_drop<T, 64, false>(a, pass, stream);
+  return launch_bwd_drop<T, 64, true>(a, pass, stream);
 }
 
-int backward(const BwdArgs& a, bool dq_pass, int is_bf16, void* stream) {
-  if (a.bh < 1 || a.n < 1 || a.d < 4 || a.d > 64 || a.d % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int backward(const BwdArgs& a, int head_dim, int pass, int is_bf16, void* stream) {
+  if (bad_shape(a.bh, a.n, a.d, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd_by_depth<__nv_bfloat16>(a, dq_pass, s)
-                 : launch_bwd_by_depth<float>(a, dq_pass, s);
+  return is_bf16 ? launch_bwd_by_depth<__nv_bfloat16>(a, pass, s)
+                 : launch_bwd_by_depth<float>(a, pass, s);
 }
 
 }  // namespace
 
 // o (BH, N, D) in the inputs' type and lse (BH, N) fp32 from q, k, v
-// (BH, N, D), all contiguous.  D is a multiple of 4 up to 64.  threshold is
-// rate * 2^32 (0: no dropout) and inv_keep is 1 / (1 - rate).  Returns
-// cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
-// for a shape the kernel does not take.  Launches on the given stream and does
-// not synchronise.
+// (BH, N, D), all contiguous.  D is a multiple of 4 (the wrapper zero-pads the
+// feature axis to one); head_dim <= D is the head's own width, whose
+// 1 / sqrt(head_dim) scales the scores.  threshold is rate * 2^32 (0: no
+// dropout) and inv_keep is 1 / (1 - rate).  Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for a shape the kernel
+// does not take.  Launches on the given stream and does not synchronise.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
-                          long long bh, int n, int d, int is_bf16, unsigned int threshold,
-                          float inv_keep, unsigned long long seed, void* stream) {
-  if (bh < 1 || n < 1 || d < 4 || d > 64 || d % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                          long long bh, int n, int d, int head_dim, int is_bf16,
+                          unsigned int threshold, float inv_keep, unsigned long long seed,
+                          void* stream) {
+  if (bad_shape(bh, n, d, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const float sc = scale_of(head_dim);
   return is_bf16
-             ? launch_by_depth<__nv_bfloat16>(q, k, v, o, l, bh, n, d, threshold, inv_keep, seed, s)
-             : launch_by_depth<float>(q, k, v, o, l, bh, n, d, threshold, inv_keep, seed, s);
+             ? launch_by_depth<__nv_bfloat16>(q, k, v, o, l, bh, n, d, sc, threshold, inv_keep, seed, s)
+             : launch_by_depth<float>(q, k, v, o, l, bh, n, d, sc, threshold, inv_keep, seed, s);
 }
 
 // The backward, in two launches on one stream, from q, k, v, o, do (BH, N, D)
-// in one type and the forward's lse (BH, N) fp32, all contiguous; threshold,
-// inv_keep and seed as for fa_forward (the same values give the same mask).
-// fa_backward_dq writes dq (BH, N, D) in the inputs' type and dsum (BH, N)
-// fp32; fa_backward_dkv then reads that dsum and writes dk, dv.  Each returns
-// cudaGetLastError() after its launch (0 on success), or cudaErrorInvalidValue
-// for a shape the kernels do not take, and does not synchronise.
+// in one type and the forward's lse (BH, N) fp32, all contiguous; d,
+// head_dim, threshold, inv_keep and seed as for fa_forward (the same values
+// give the same mask).  fa_backward_dq writes dq (BH, N, D) in the inputs'
+// type and dsum (BH, N) fp32; fa_backward_dkv then reads that dsum and writes
+// dk, dv.  Each returns cudaGetLastError() after its launch (0 on success), or
+// cudaErrorInvalidValue for a shape the kernels do not take, and does not
+// synchronise.
 extern "C" int fa_backward_dq(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dsum, void* dq,
-                              long long bh, int n, int d, int is_bf16, unsigned int threshold,
-                              float inv_keep, unsigned long long seed, void* stream) {
+                              long long bh, int n, int d, int head_dim, int is_bf16,
+                              unsigned int threshold, float inv_keep, unsigned long long seed,
+                              void* stream) {
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(dsum),
-                  dq, nullptr, nullptr, bh, n, d, threshold, inv_keep, seed};
-  return backward(a, true, is_bf16, stream);
+                  dq, nullptr, nullptr, bh, n, d, scale_of(head_dim), threshold, inv_keep, seed};
+  return backward(a, head_dim, PASS_DQ, is_bf16, stream);
 }
 
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* dsum, void* dk, void* dv,
-                               long long bh, int n, int d, int is_bf16, unsigned int threshold,
-                               float inv_keep, unsigned long long seed, void* stream) {
+                               long long bh, int n, int d, int head_dim, int is_bf16,
+                               unsigned int threshold, float inv_keep, unsigned long long seed,
+                               void* stream) {
   const BwdArgs a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                   const_cast<float*>(static_cast<const float*>(dsum)), nullptr, dk, dv, bh, n, d,
-                  threshold, inv_keep, seed};
-  return backward(a, false, is_bf16, stream);
+                  scale_of(head_dim), threshold, inv_keep, seed};
+  return backward(a, head_dim, PASS_DKV, is_bf16, stream);
 }
 
 // keep (BH, N, N) bytes: 1 where the forward kernel keeps element (bh, i, j)

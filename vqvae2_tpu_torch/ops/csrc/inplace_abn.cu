@@ -46,7 +46,11 @@
 //   to run.  The dx pass then reads z and dz a second time: at 190 MB each they
 //   do not stay in the 50 MB L2, so the backward moves five tensors' bytes
 //   where its floor counts three.
-// C is at most 2048 (five channel vectors in 40 KB of shared memory).
+// C is any size.  Up to STAGED_MAX_C channels the vectors are staged in shared
+// memory (five of them in 40 KB); above it each element reads its channel's
+// values straight from global memory, where they stay in L1 and L2 (at such C
+// a block's grid-stride step spans fewer channels than it has threads).  The
+// arithmetic is the same on both routes.
 
 #include <cstdint>
 
@@ -59,7 +63,7 @@ enum Act { LEAKY_RELU = 0, ELU = 1, NONE = 2 };
 
 constexpr int THREADS = 256;         // threads of an elementwise block
 constexpr int MAX_BLOCKS = 132 * 16;  // grid-stride cap of an elementwise launch
-constexpr int MAX_C = 2048;
+constexpr int STAGED_MAX_C = 2048;
 constexpr int RED_COLS = 32;         // channels of a reduction block: one warp's width
 constexpr int RED_ROWS = 8;          // row lanes of a reduction block
 constexpr int CHUNK_ROWS = 512;      // rows one reduction block sums
@@ -101,9 +105,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-__device__ __forceinline__ void load4_shared(const float* p, float (&o)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+// Four channel values: a 16-byte load from the shared copy, or four loads
+// through the read-only cache from global memory (no alignment assumed there).
+template <bool STAGED>
+__device__ __forceinline__ void load4_vec(const float* p, float (&o)[4]) {
+  if constexpr (STAGED) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+  } else {
+    o[0] = __ldg(p); o[1] = __ldg(p + 1); o[2] = __ldg(p + 2); o[3] = __ldg(p + 3);
+  }
+}
+
+template <bool STAGED>
+__device__ __forceinline__ float load_vec(const float* p) {
+  if constexpr (STAGED) return *p;
+  return __ldg(p);
 }
 
 template <int ACT>
@@ -134,21 +151,27 @@ __device__ __forceinline__ void act_invert(float z, float dz, float slope, float
 // K7: z = act((x - mean) * scale + shift)
 // ---------------------------------------------------------------------------
 
-template <typename T, int ACT, bool VEC>
+template <typename T, int ACT, bool VEC, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 abn_forward_kernel(const T* __restrict__ x, T* __restrict__ z, const float* __restrict__ mean,
                    const float* __restrict__ scale, const float* __restrict__ shift, long long m,
                    int c, float slope) {
   extern __shared__ float4 smem4[];
-  float* s_mean = reinterpret_cast<float*>(smem4);
-  float* s_scale = s_mean + c;
-  float* s_shift = s_scale + c;
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    s_mean[i] = mean[i];
-    s_scale[i] = scale[i];
-    s_shift[i] = shift[i];
+  const float* s_mean = mean;
+  const float* s_scale = scale;
+  const float* s_shift = shift;
+  if constexpr (STAGED) {
+    float* sm = reinterpret_cast<float*>(smem4);
+    for (int i = threadIdx.x; i < c; i += blockDim.x) {
+      sm[i] = mean[i];
+      sm[c + i] = scale[i];
+      sm[2 * c + i] = shift[i];
+    }
+    __syncthreads();
+    s_mean = sm;
+    s_scale = sm + c;
+    s_shift = sm + 2 * c;
   }
-  __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if constexpr (VEC) {
@@ -158,9 +181,9 @@ abn_forward_kernel(const T* __restrict__ x, T* __restrict__ z, const float* __re
       const int ch = static_cast<int>(i % c4) * 4;
       float v[4], mu[4], sc[4], sh[4];
       load4(x + i * 4, v);
-      load4_shared(s_mean + ch, mu);
-      load4_shared(s_scale + ch, sc);
-      load4_shared(s_shift + ch, sh);
+      load4_vec<STAGED>(s_mean + ch, mu);
+      load4_vec<STAGED>(s_scale + ch, sc);
+      load4_vec<STAGED>(s_shift + ch, sh);
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = act_forward<ACT>((v[k] - mu[k]) * sc[k] + sh[k], slope);
       store4(z + i * 4, v);
@@ -169,7 +192,8 @@ abn_forward_kernel(const T* __restrict__ x, T* __restrict__ z, const float* __re
     const long long total = m * c;
     for (long long i = first; i < total; i += stride) {
       const int ch = static_cast<int>(i % c);
-      const float y = (to_f(x[i]) - s_mean[ch]) * s_scale[ch] + s_shift[ch];
+      const float y = (to_f(x[i]) - load_vec<STAGED>(s_mean + ch)) * load_vec<STAGED>(s_scale + ch) +
+                      load_vec<STAGED>(s_shift + ch);
       z[i] = from_f<T>(act_forward<ACT>(y, slope));
     }
   }
@@ -258,7 +282,9 @@ abn_backward_sum_kernel(const float* __restrict__ part_edz, const float* __restr
 // K8 (b): dx = (dy - edz * inv_count - yhat * eydz * inv_count) * mul
 // ---------------------------------------------------------------------------
 
-template <typename T, int ACT, bool VEC>
+// Staged, the shared copies of edz and eydz are scaled by inv_count once;
+// from global memory each use scales them (the same product).
+template <typename T, int ACT, bool VEC, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 abn_backward_dx_kernel(const T* __restrict__ z, const T* __restrict__ dz, T* __restrict__ dx,
                        const float* __restrict__ bias_t, const float* __restrict__ weight_t,
@@ -266,19 +292,29 @@ abn_backward_dx_kernel(const T* __restrict__ z, const T* __restrict__ dz, T* __r
                        const float* __restrict__ eydz, long long m, int c, float slope,
                        float inv_count) {
   extern __shared__ float4 smem4[];
-  float* s_b = reinterpret_cast<float*>(smem4);
-  float* s_w = s_b + c;
-  float* s_mul = s_w + c;
-  float* s_edzn = s_mul + c;
-  float* s_eydzn = s_edzn + c;
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    s_b[i] = bias_t[i];
-    s_w[i] = weight_t[i];
-    s_mul[i] = mul[i];
-    s_edzn[i] = edz[i] * inv_count;
-    s_eydzn[i] = eydz[i] * inv_count;
+  const float* s_b = bias_t;
+  const float* s_w = weight_t;
+  const float* s_mul = mul;
+  const float* s_edzn = edz;
+  const float* s_eydzn = eydz;
+  float sums_scale = inv_count;   // applied to s_edzn, s_eydzn at each use
+  if constexpr (STAGED) {
+    float* sm = reinterpret_cast<float*>(smem4);
+    for (int i = threadIdx.x; i < c; i += blockDim.x) {
+      sm[i] = bias_t[i];
+      sm[c + i] = weight_t[i];
+      sm[2 * c + i] = mul[i];
+      sm[3 * c + i] = edz[i] * inv_count;
+      sm[4 * c + i] = eydz[i] * inv_count;
+    }
+    __syncthreads();
+    s_b = sm;
+    s_w = sm + c;
+    s_mul = sm + 2 * c;
+    s_edzn = sm + 3 * c;
+    s_eydzn = sm + 4 * c;
+    sums_scale = 1.f;
   }
-  __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if constexpr (VEC) {
@@ -289,13 +325,17 @@ abn_backward_dx_kernel(const T* __restrict__ z, const T* __restrict__ dz, T* __r
       float zv[4], dzv[4], b[4], w[4], mu[4], en[4], yn[4];
       load4(z + i * 4, zv);
       load4(dz + i * 4, dzv);
-      load4_shared(s_b + ch, b);
-      load4_shared(s_w + ch, w);
-      load4_shared(s_mul + ch, mu);
-      load4_shared(s_edzn + ch, en);
-      load4_shared(s_eydzn + ch, yn);
+      load4_vec<STAGED>(s_b + ch, b);
+      load4_vec<STAGED>(s_w + ch, w);
+      load4_vec<STAGED>(s_mul + ch, mu);
+      load4_vec<STAGED>(s_edzn + ch, en);
+      load4_vec<STAGED>(s_eydzn + ch, yn);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
+        if constexpr (!STAGED) {
+          en[k] *= sums_scale;
+          yn[k] *= sums_scale;
+        }
         float y, dy;
         act_invert<ACT>(zv[k], dzv[k], slope, y, dy);
         const float yhat = (y - b[k]) / w[k];
@@ -309,8 +349,13 @@ abn_backward_dx_kernel(const T* __restrict__ z, const T* __restrict__ dz, T* __r
       const int ch = static_cast<int>(i % c);
       float y, dy;
       act_invert<ACT>(to_f(z[i]), to_f(dz[i]), slope, y, dy);
-      const float yhat = (y - s_b[ch]) / s_w[ch];
-      dx[i] = from_f<T>((dy - s_edzn[ch] - yhat * s_eydzn[ch]) * s_mul[ch]);
+      const float yhat = (y - load_vec<STAGED>(s_b + ch)) / load_vec<STAGED>(s_w + ch);
+      float en = load_vec<STAGED>(s_edzn + ch), yn = load_vec<STAGED>(s_eydzn + ch);
+      if constexpr (!STAGED) {
+        en *= sums_scale;
+        yn *= sums_scale;
+      }
+      dx[i] = from_f<T>((dy - en - yhat * yn) * load_vec<STAGED>(s_mul + ch));
     }
   }
 }
@@ -320,7 +365,9 @@ abn_backward_dx_kernel(const T* __restrict__ z, const T* __restrict__ dz, T* __r
 // ---------------------------------------------------------------------------
 
 bool bad_shape(long long m, int c, int act) {
-  return m < 1 || c < 1 || c > MAX_C || act < LEAKY_RELU || act > NONE;
+  // (the sums' grid has a slab of RED_COLS channels along its y axis)
+  return m < 1 || c < 1 || (c + RED_COLS - 1) / RED_COLS > 65535 || act < LEAKY_RELU ||
+         act > NONE;
 }
 
 template <typename T>
@@ -343,13 +390,23 @@ int forward_act(const void* x, void* z, const float* mean, const float* scale,
                 const float* shift, long long m, int c, float slope, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* zt = static_cast<T*>(z);
-  const size_t smem = 3 * static_cast<size_t>(c) * sizeof(float);
-  if (vectorizable<T>(c, x, z)) {
-    abn_forward_kernel<T, ACT, true><<<elementwise_blocks(m * c / 4), THREADS, smem, s>>>(
-        xt, zt, mean, scale, shift, m, c, slope);
+  const bool vec = vectorizable<T>(c, x, z);
+  const int blocks = elementwise_blocks(vec ? m * c / 4 : m * c);
+  if (c <= STAGED_MAX_C) {
+    const size_t smem = 3 * static_cast<size_t>(c) * sizeof(float);
+    if (vec) {
+      abn_forward_kernel<T, ACT, true, true><<<blocks, THREADS, smem, s>>>(xt, zt, mean, scale,
+                                                                         shift, m, c, slope);
+    } else {
+      abn_forward_kernel<T, ACT, false, true><<<blocks, THREADS, smem, s>>>(xt, zt, mean, scale,
+                                                                          shift, m, c, slope);
+    }
+  } else if (vec) {
+    abn_forward_kernel<T, ACT, true, false><<<blocks, THREADS, 0, s>>>(xt, zt, mean, scale, shift,
+                                                                     m, c, slope);
   } else {
-    abn_forward_kernel<T, ACT, false><<<elementwise_blocks(m * c), THREADS, smem, s>>>(
-        xt, zt, mean, scale, shift, m, c, slope);
+    abn_forward_kernel<T, ACT, false, false><<<blocks, THREADS, 0, s>>>(xt, zt, mean, scale, shift,
+                                                                      m, c, slope);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -389,12 +446,22 @@ int backward_act(const void* z, const void* dz, void* dx, const float* bias_t,
     if ((err = static_cast<int>(cudaMemsetAsync(edz, 0, c * sizeof(float), s)))) return err;
     if ((err = static_cast<int>(cudaMemsetAsync(eydz, 0, c * sizeof(float), s)))) return err;
   }
-  const size_t smem = 5 * static_cast<size_t>(c) * sizeof(float);
-  if (vectorizable<T>(c, z, dz, dx)) {
-    abn_backward_dx_kernel<T, ACT, true><<<elementwise_blocks(m * c / 4), THREADS, smem, s>>>(
+  const bool vec = vectorizable<T>(c, z, dz, dx);
+  const int blocks = elementwise_blocks(vec ? m * c / 4 : m * c);
+  if (c <= STAGED_MAX_C) {
+    const size_t smem = 5 * static_cast<size_t>(c) * sizeof(float);
+    if (vec) {
+      abn_backward_dx_kernel<T, ACT, true, true><<<blocks, THREADS, smem, s>>>(
+          zt, dzt, dxt, bias_t, weight_t, mul, edz, eydz, m, c, slope, inv_count);
+    } else {
+      abn_backward_dx_kernel<T, ACT, false, true><<<blocks, THREADS, smem, s>>>(
+          zt, dzt, dxt, bias_t, weight_t, mul, edz, eydz, m, c, slope, inv_count);
+    }
+  } else if (vec) {
+    abn_backward_dx_kernel<T, ACT, true, false><<<blocks, THREADS, 0, s>>>(
         zt, dzt, dxt, bias_t, weight_t, mul, edz, eydz, m, c, slope, inv_count);
   } else {
-    abn_backward_dx_kernel<T, ACT, false><<<elementwise_blocks(m * c), THREADS, smem, s>>>(
+    abn_backward_dx_kernel<T, ACT, false, false><<<blocks, THREADS, 0, s>>>(
         zt, dzt, dxt, bias_t, weight_t, mul, edz, eydz, m, c, slope, inv_count);
   }
   return static_cast<int>(cudaGetLastError());

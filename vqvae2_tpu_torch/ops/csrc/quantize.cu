@@ -18,18 +18,41 @@
 // the memory needs is an order of magnitude below the time the FMAs need.  The
 // statistics add N*D additions and one more read of x, which is memory work.
 //
-// What the design does about it: a register-tiled fp32 product.  A block of
-// 256 threads owns 128 rows.  It walks the codebook in chunks of 128 codes and
-// the feature axis in pieces of 32, staging both operands transposed in shared
-// memory (32 KB static, so neither the 128 KB main-path codebook nor a 512 KB
-// deep one has to fit).  Each thread keeps an 8x8 tile of dot products in
-// registers (64 FMAs for four 16-byte shared loads), and after each chunk
-// folds its 8 scores a row into a running (best, idx).  Nothing of size (N, K)
-// exists anywhere.  The 16 threads that share a row then merge their
-// candidates with shuffles, comparing (score, idx) so that equal scores keep
-// the lower index, as argmax does.  The lookup is an exact row gather from the
-// codebook.  N, D and K are runtime values: the ragged tail of each is masked,
-// no input is padded.  D must be a multiple of 4 (16-byte loads).
+// What the design does about it: a register-tiled fp32 product on the CUDA
+// cores, fed from shared memory without a trip through registers.
+// * A prologue kernel writes the codebook transposed, E^T (D, Kpad) with Kpad
+//   the next multiple of 128 and zero columns past K, and |E|^2 of every code
+//   (an fp32 FMA chain over d in order) into a small scratch buffer: once a
+//   launch, not once a block and chunk.
+// * A block of 256 threads owns 128 rows.  Its x tile (128 rows by D,
+//   transposed, widened to fp32) is staged once and stays resident in dynamic
+//   shared memory for the whole codebook walk (32 KB at D = 64, 128 KB at
+//   D = 256), with |x|^2 of each row (the same kind of chain).  Above
+//   X_RESIDENT_MAX_D features it does not fit beside the codebook ring: the x
+//   pieces then go through a ring of their own, each staged one step ahead
+//   of its use.
+// * The block walks the codebook in chunks of 128 codes and the feature axis
+//   in pieces of 16.  Each (chunk, piece) of E^T is a contiguous 16 x 128
+//   block: cp.async copies it straight into a three-deep ring in shared memory
+//   in the layout the micro-tile reads, two steps ahead of its use, with one
+//   barrier a piece.
+// * Each thread keeps an 8x8 tile of dot products in registers (64 FMAs for
+//   four 16-byte shared loads).  After each chunk it takes its best of 8 codes
+//   a row, the 16 threads that share a row merge theirs with shuffles,
+//   comparing (score, idx) so that equal scores keep the lower index, as
+//   argmax does, and the chunk's best replaces the row's running best (in
+//   shared memory) only if strictly larger.  So no per-row state stays in
+//   registers across chunks (no spill at 128 registers, two blocks an SM), and
+//   nothing of size (N, K) exists anywhere.
+// Every code's score is the same sequence of operations wherever it lies in a
+// tile: the dot product an FMA chain over d in order, then (2 * dot - |x|^2) -
+// |E|^2; so duplicated codebook rows tie exactly and the lower index wins.  No
+// TF32 and no tensor cores: their truncating fp32 sums would move scores by
+// more than the near-tie tolerance.  The lookup is an exact row gather from the
+// codebook.  N and K are runtime values and their ragged tails are masked; D
+// is a multiple of 4 here (16-byte loads): the Python wrapper pads the feature
+// axis of x and E with zeros for any other D, which leaves every dot product
+// and norm bit for bit as it was (an FMA of 0 * 0 onto s gives s).
 //
 // The statistics are the search kernel (the lookup flavour, unchanged)
 // followed by six small kernels of their own, not one fused kernel.  The TPU
@@ -61,9 +84,17 @@ namespace {
 
 constexpr int TN = 128;   // rows a block owns
 constexpr int KC = 128;   // codes in a chunk
-constexpr int DC = 32;    // features in a piece
+constexpr int DC = 16;    // features in a piece
 constexpr int NT = 256;   // threads: 16 along the rows x 16 along the codes
-static_assert(TN == KC && TN * 2 == NT, "the norm pass maps one thread to one row or one code");
+constexpr int STAGES = 3; // depth of the codebook ring (and of the x ring when x is not resident)
+static_assert(TN == KC && TN * 2 == NT, "the norm pass maps one thread to one row");
+constexpr int CPT = DC * KC / 4 / NT;   // 16-byte copies of a thread a piece
+static_assert(CPT * NT * 4 == DC * KC && KC == TN, "whole copies a thread");
+// Beyond this D the resident x tile and the ring exceed the 227 KB a block may
+// use (2 KB kept for the static arrays).
+constexpr int X_RESIDENT_MAX_D = (232448 - 2048 - STAGES * DC * KC * 4) / (TN * 4) / DC * DC;
+
+__host__ __device__ constexpr long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -89,6 +120,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// 16 bytes global -> shared without a register trip; a copy whose `in` is
+// false reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most one group (the one committed last) is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
 // Rows (or codes) of a thread's 8-wide strip: 4 neighbours in each half of the
 // tile, so that a 16-byte shared load of neighbouring threads hits
 // neighbouring banks.
@@ -96,83 +141,152 @@ __device__ __forceinline__ int strip(int t, int i) {
   return (i < 4) ? (t * 4 + i) : (TN / 2 + t * 4 + (i - 4));
 }
 
-template <typename XT, bool WITH_Q>
+// Codes padded to whole chunks: the row length of E^T.
+__host__ __device__ inline int padded_codes(int k) { return static_cast<int>(cdiv(k, KC) * KC); }
+
+// Scratch of the search: E^T (D, Kpad) and |E|^2 (Kpad,), floats.
+__host__ inline long long search_scratch_bytes(int d, int k) {
+  return (static_cast<long long>(d) + 1) * padded_codes(k) * 4;
+}
+
+// The prologue: et[c][code] = E[code][c] and ee[code] = |E[code]|^2 (an FMA
+// chain over c in order), zeros for the padding codes.  One thread a code.
+__global__ void __launch_bounds__(256)
+codebook_prep_kernel(const float* __restrict__ embed, float* __restrict__ et,
+                     float* __restrict__ ee, int d, int k, int kpad) {
+  const int code = blockIdx.x * blockDim.x + threadIdx.x;
+  if (code >= kpad) return;
+  float sq = 0.f;
+  for (int c = 0; c < d; ++c) {
+    const float e = code < k ? embed[static_cast<long long>(code) * d + c] : 0.f;
+    sq = fmaf(e, e, sq);
+    et[static_cast<long long>(c) * kpad + code] = e;
+  }
+  ee[code] = sq;
+}
+
+// Dynamic shared memory of a search block: the x tile (resident: all of D,
+// padded to whole pieces; else a ring of pieces) and the codebook ring.
+__host__ inline size_t search_smem_bytes(int d, bool resident) {
+  const long long x_floats = resident ? cdiv(d, DC) * DC * TN : static_cast<long long>(STAGES) * DC * TN;
+  return static_cast<size_t>((x_floats + static_cast<long long>(STAGES) * DC * KC) * 4);
+}
+
+template <typename XT, bool WITH_Q, bool RESIDENT>
 __global__ void __launch_bounds__(NT, 2)
 nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
-                    int* __restrict__ idx_out, XT* __restrict__ q_out,
-                    long long n, int d, int k) {
-  __shared__ __align__(16) float xs[DC][TN];   // x piece, transposed
-  __shared__ __align__(16) float es[DC][KC];   // codebook piece, transposed
-  __shared__ float xx_s[TN];                   // |x|^2 of each row
-  __shared__ float ee_s[KC];                   // |E|^2 of each code in the chunk
-  __shared__ int best_s[TN];                   // winning code of each row
+                    const float* __restrict__ et, const float* __restrict__ ee,
+                    int* __restrict__ idx_out, XT* __restrict__ q_out, long long n, int d, int k,
+                    int kpad) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float xx_s[TN];     // |x|^2 of each row
+  __shared__ float run_s[TN];    // best score of each row so far
+  __shared__ int run_i[TN];      // ... and its code
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;   // along the codes
   const int ty = tid >> 4;   // along the rows
   const long long row0 = static_cast<long long>(blockIdx.x) * TN;
+  const int pieces = static_cast<int>(cdiv(d, DC));
+  float* xs = smem;                                                   // [.][DC or D][TN]
+  float* es = smem + (RESIDENT ? pieces * DC : STAGES * DC) * TN;     // [STAGES][DC][KC]
 
-  float best[8];
-  int bidx[8];
+  // The E^T piece (codes e_k0 .., features e_d0 ..) into ring slot e_slot;
+  // then the next step's (chunk-major, pieces in order).
+  int e_k0 = 0, e_d0 = 0, e_slot = 0;
+  auto stage_e = [&]() {
+    if (e_k0 < k) {
+      float* dst = es + e_slot * DC * KC;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best[i] = -INFINITY;
-    bidx[i] = 0x7fffffff;
-  }
-  float xx_acc = 0.f;
+      for (int i = 0; i < CPT; ++i) {
+        const int f = tid + i * NT;
+        const int dd = f / (KC / 4);
+        const int c = (f % (KC / 4)) * 4;
+        const bool in = e_d0 + dd < d;
+        cp_async16(dst + dd * KC + c,
+                   in ? et + static_cast<long long>(e_d0 + dd) * kpad + e_k0 + c : et, in);
+      }
+    }
+    cp_async_commit();
+    e_slot = e_slot == STAGES - 1 ? 0 : e_slot + 1;
+    e_d0 += DC;
+    if (e_d0 >= pieces * DC) {
+      e_d0 = 0;
+      e_k0 += KC;
+    }
+  };
+  // The x piece at features d0 (rows row0 .., zero outside x) into dst,
+  // transposed: neighbouring threads store neighbouring rows (no conflicts).
+  auto stage_x = [&](float* dst, int d0) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int f = tid + i * NT;
+      const int r = f % TN;
+      const int c = (f / TN) * 4;
+      const long long row = row0 + r;
+      const float4 v = (row < n && d0 + c < d) ? load4(x + row * d + d0 + c)
+                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[(c + 0) * TN + r] = v.x;
+      dst[(c + 1) * TN + r] = v.y;
+      dst[(c + 2) * TN + r] = v.z;
+      dst[(c + 3) * TN + r] = v.w;
+    }
+  };
 
+  stage_e();
+  stage_e();
+  if (tid < TN) {
+    run_s[tid] = -INFINITY;
+    run_i[tid] = 0x7fffffff;
+  }
+  if (RESIDENT) {
+    for (int p = 0; p < pieces; ++p) stage_x(xs + p * DC * TN, p * DC);
+    __syncthreads();
+    if (tid < TN) {
+      float xx = 0.f;
+      for (int dd = 0; dd < pieces * DC; ++dd) xx = fmaf(xs[dd * TN + tid], xs[dd * TN + tid], xx);
+      xx_s[tid] = xx;
+    }
+  } else {
+    if (tid < TN) {
+      float xx = 0.f;
+      const long long row = row0 + tid;
+      if (row < n) {
+        for (int c = 0; c < d; ++c) {
+          const float v = to_float(x[row * d + c]);
+          xx = fmaf(v, v, xx);
+        }
+      }
+      xx_s[tid] = xx;
+    }
+    stage_x(xs, 0);
+  }
+
+  int slot = 0;   // ring slot of the current step
   for (int k0 = 0; k0 < k; k0 += KC) {
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float ee_acc = 0.f;
 
-    for (int d0 = 0; d0 < d; d0 += DC) {
-      __syncthreads();   // the previous piece has been consumed
-      for (int f = tid; f < TN * (DC / 4); f += NT) {
-        const int r = f % TN;
-        const int c = (f / TN) * 4;
-        const long long row = row0 + r;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < n && d0 + c < d) v = load4(x + row * d + d0 + c);
-        xs[c + 0][r] = v.x;
-        xs[c + 1][r] = v.y;
-        xs[c + 2][r] = v.z;
-        xs[c + 3][r] = v.w;
+    for (int p = 0; p < pieces; ++p) {
+      cp_async_wait_one();
+      __syncthreads();   // this step's pieces are in; every thread is done with the last step
+      stage_e();         // two steps ahead, into the slot the last step used
+      const int next = slot == STAGES - 1 ? 0 : slot + 1;
+      if (!RESIDENT && (p + 1 < pieces || k0 + KC < k)) {
+        // the next step's x piece, into the slot the step before last used
+        stage_x(xs + next * DC * TN, p + 1 < pieces ? (p + 1) * DC : 0);
       }
-      for (int f = tid; f < KC * (DC / 4); f += NT) {
-        const int r = f % KC;
-        const int c = (f / KC) * 4;
-        const int code = k0 + r;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (code < k && d0 + c < d) v = load4(embed + static_cast<long long>(code) * d + d0 + c);
-        es[c + 0][r] = v.x;
-        es[c + 1][r] = v.y;
-        es[c + 2][r] = v.z;
-        es[c + 3][r] = v.w;
-      }
-      __syncthreads();
-
-      // Squared norms: the lower half of the block takes the rows (once, in
-      // the first chunk), the upper half the codes of this chunk.
-      if (tid < TN) {
-        if (k0 == 0) {
+      const float* xp = xs + (RESIDENT ? p : slot) * DC * TN;
+      const float* ep = es + slot * DC * KC;
 #pragma unroll
-          for (int dd = 0; dd < DC; ++dd) xx_acc = fmaf(xs[dd][tid], xs[dd][tid], xx_acc);
-        }
-      } else {
-#pragma unroll
-        for (int dd = 0; dd < DC; ++dd) ee_acc = fmaf(es[dd][tid - TN], es[dd][tid - TN], ee_acc);
-      }
-
-#pragma unroll 4
       for (int dd = 0; dd < DC; ++dd) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&xs[dd][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&xs[dd][TN / 2 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&es[dd][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&es[dd][KC / 2 + tx * 4]);
+        const float4 a0 = *reinterpret_cast<const float4*>(xp + dd * TN + ty * 4);
+        const float4 a1 = *reinterpret_cast<const float4*>(xp + dd * TN + TN / 2 + ty * 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(ep + dd * KC + tx * 4);
+        const float4 b1 = *reinterpret_cast<const float4*>(ep + dd * KC + KC / 2 + tx * 4);
         const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
         const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -180,55 +294,48 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
+      slot = next;
     }
 
-    if (tid < TN) {
-      if (k0 == 0) xx_s[tid] = xx_acc;
-    } else {
-      ee_s[tid - TN] = ee_acc;
-    }
-    __syncthreads();
-
-    // Fold this chunk into the running best.  Codes are visited in rising
-    // order and only a strictly larger score replaces, so the first maximum
-    // stays.
+    // Fold this chunk into each row's running best.  A thread visits its
+    // codes in rising order and only a strictly larger score replaces, so it
+    // keeps its first maximum; the 16 threads that share a row (a half warp)
+    // merge theirs by (score, index), the lower index winning among equal
+    // scores; the chunk's best replaces the running one only if strictly
+    // larger, since earlier chunks hold lower indices.
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float xr = xx_s[strip(ty, i)];
+      float best = -INFINITY;
+      int bidx = 0x7fffffff;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int cl = strip(tx, j);
-        const int code = k0 + cl;
-        const float s = (2.0f * acc[i][j] - xr) - ee_s[cl];
-        if (code < k && s > best[i]) {
-          best[i] = s;
-          bidx[i] = code;
+        const int code = k0 + strip(tx, j);
+        const float sc = (2.0f * acc[i][j] - xr) - __ldg(ee + code);
+        if (code < k && sc > best) {
+          best = sc;
+          bidx = code;
         }
       }
-    }
-  }
-
-  // The 16 threads with one ty are a half warp and hold candidates for the
-  // same 8 rows: merge them, the lower index winning among equal scores.
 #pragma unroll
-  for (int off = 8; off >= 1; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float os = __shfl_xor_sync(0xffffffffu, best[i], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bidx[i], off);
-      if (os > best[i] || (os == best[i] && oi < bidx[i])) {
-        best[i] = os;
-        bidx[i] = oi;
+      for (int off = 8; off >= 1; off >>= 1) {
+        const float os = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+        if (os > best || (os == best && oi < bidx)) {
+          best = os;
+          bidx = oi;
+        }
+      }
+      const int row = strip(ty, i);
+      if (tx == 0 && best > run_s[row]) {
+        run_s[row] = best;
+        run_i[row] = bidx;
       }
     }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) best_s[strip(ty, i)] = (bidx[i] < k) ? bidx[i] : 0;
   }
   __syncthreads();
 
-  if (tid < TN && row0 + tid < n) idx_out[row0 + tid] = best_s[tid];
+  if (tid < TN && row0 + tid < n) idx_out[row0 + tid] = run_i[tid] < k ? run_i[tid] : 0;
 
   if (WITH_Q) {
     const int d4 = d / 4;
@@ -237,27 +344,51 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
       const int c = (f % d4) * 4;
       const long long row = row0 + r;
       if (row < n) {
-        const float4 v = load4(embed + static_cast<long long>(best_s[r]) * d + c);
+        const int code = run_i[r] < k ? run_i[r] : 0;
+        const float4 v = load4(embed + static_cast<long long>(code) * d + c);
         store4(q_out + row * d + c, v);
       }
     }
   }
 }
 
-template <typename XT, bool WITH_Q>
-int launch(const void* x, const void* embed, void* idx, void* q, long long n, int d, int k,
-           cudaStream_t stream) {
-  const long long blocks = (n + TN - 1) / TN;
-  nearest_code_kernel<XT, WITH_Q><<<static_cast<unsigned int>(blocks), NT, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const float*>(embed), static_cast<int*>(idx),
-      static_cast<XT*>(q), n, d, k);
+template <typename XT, bool WITH_Q, bool RESIDENT>
+int launch_search(const void* x, const void* embed, const float* et, const float* ee, void* idx,
+                  void* q, long long n, int d, int k, cudaStream_t stream) {
+  auto kernel = nearest_code_kernel<XT, WITH_Q, RESIDENT>;
+  const size_t smem = search_smem_bytes(d, RESIDENT);
+  // set once per variant to the most any D of this variant needs
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(search_smem_bytes(RESIDENT ? X_RESIDENT_MAX_D : DC, RESIDENT)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long blocks = cdiv(n, TN);
+  kernel<<<static_cast<unsigned int>(blocks), NT, smem, stream>>>(
+      static_cast<const XT*>(x), static_cast<const float*>(embed), et, ee, static_cast<int*>(idx),
+      static_cast<XT*>(q), n, d, k, padded_codes(k));
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(long long n, int d, int k) {
-  return n < 1 || d < 4 || d % 4 != 0 || k < 1 || (n + TN - 1) / TN > 2147483647LL;
+// The prologue, then the search.  `scratch` holds search_scratch_bytes(d, k).
+template <typename XT, bool WITH_Q>
+int launch(const void* x, const void* embed, void* scratch, void* idx, void* q, long long n, int d,
+           int k, cudaStream_t stream) {
+  const int kpad = padded_codes(k);
+  float* et = static_cast<float*>(scratch);
+  float* ee = et + static_cast<long long>(d) * kpad;
+  codebook_prep_kernel<<<static_cast<unsigned int>(cdiv(kpad, 256)), 256, 0, stream>>>(
+      static_cast<const float*>(embed), et, ee, d, k, kpad);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return d <= X_RESIDENT_MAX_D
+             ? launch_search<XT, WITH_Q, true>(x, embed, et, ee, idx, q, n, d, k, stream)
+             : launch_search<XT, WITH_Q, false>(x, embed, et, ee, idx, q, n, d, k, stream);
 }
 
+bool bad_shape(long long n, int d, int k) {
+  return n < 1 || d < 4 || d % 4 != 0 || k < 1 || k > INT_MAX - KC ||
+         cdiv(n, TN) > 2147483647LL;
+}
 
 // ---------------------------------------------------------------------------
 // Statistics (steps 1-5 of the note at the top)
@@ -266,8 +397,6 @@ bool bad_shape(long long n, int d, int k) {
 constexpr int HR = 1024;          // rows of a histogram chunk
 constexpr int SP = 256;           // rows of one code summed by one block
 constexpr int MAX_K_STATS = 12288;
-
-__host__ __device__ constexpr long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 // Step 1: table[c][code] = rows of chunk c that took code.
 __global__ void __launch_bounds__(256)
@@ -443,9 +572,11 @@ __global__ void code_sum_kernel(const float* __restrict__ partial, const int* __
   }
 }
 
-// Scratch of the statistics: partial sums (floats), then the histogram table,
-// counts, starts, piece bases and the sorted row order (ints).
+// Scratch of the statistics: the search's (E^T and |E|^2), partial sums
+// (floats), then the histogram table, counts, starts, piece bases and the
+// sorted row order (ints).
 struct StatsScratch {
+  float* search;
   float* partial;
   int* table;
   int* counts;
@@ -461,8 +592,10 @@ StatsScratch stats_scratch(void* base, long long n, int d, int k) {
   const long long chunks = cdiv(n, HR);
   StatsScratch s;
   char* p = static_cast<char*>(base);
-  s.partial = reinterpret_cast<float*>(p);
-  long long off = pieces * d * 4;
+  s.search = reinterpret_cast<float*>(p);
+  long long off = search_scratch_bytes(d, k);
+  s.partial = reinterpret_cast<float*>(p + off);
+  off += pieces * d * 4;
   s.table = reinterpret_cast<int*>(p + off);
   off += chunks * k * 4;
   s.counts = reinterpret_cast<int*>(p + off);
@@ -480,9 +613,9 @@ StatsScratch stats_scratch(void* base, long long n, int d, int k) {
 template <typename XT>
 int launch_stats(const void* x, const void* embed, void* idx, void* q, float* csum, float* esum,
                  void* scratch, long long n, int d, int k, cudaStream_t stream) {
-  int err = launch<XT, true>(x, embed, idx, q, n, d, k, stream);
-  if (err) return err;
   const StatsScratch s = stats_scratch(scratch, n, d, k);
+  int err = launch<XT, true>(x, embed, s.search, idx, q, n, d, k, stream);
+  if (err) return err;
   const int* ids = static_cast<const int*>(idx);
   const unsigned int chunks = static_cast<unsigned int>(cdiv(n, HR));
   const size_t hist_bytes = static_cast<size_t>(k) * sizeof(int);
@@ -506,23 +639,33 @@ int launch_stats(const void* x, const void* embed, void* idx, void* q, float* cs
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a shape the kernel does not take.  They launch on
-// the given stream and do not synchronise.
-extern "C" int vq_nearest_ids(const void* x, const void* embed, void* idx, long long n, int d,
-                              int k, int x_is_bf16, void* stream) {
-  if (bad_shape(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
+// Bytes of scratch that vq_nearest_ids and vq_nearest_lookup need for this
+// shape (the codebook transposed, and its norms; the caller allocates it).
+extern "C" long long vq_search_scratch_bytes(int d, int k) { return search_scratch_bytes(d, k); }
+
+// Both return cudaGetLastError() after the last launch (0 on success), or
+// cudaErrorInvalidValue for a shape the kernels do not take or too little
+// scratch.  They launch on the given stream and do not synchronise.
+extern "C" int vq_nearest_ids(const void* x, const void* embed, void* idx, void* scratch,
+                              long long scratch_bytes, long long n, int d, int k, int x_is_bf16,
+                              void* stream) {
+  if (bad_shape(n, d, k) || scratch_bytes < search_scratch_bytes(d, k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? launch<__nv_bfloat16, false>(x, embed, idx, nullptr, n, d, k, s)
-                   : launch<float, false>(x, embed, idx, nullptr, n, d, k, s);
+  return x_is_bf16 ? launch<__nv_bfloat16, false>(x, embed, scratch, idx, nullptr, n, d, k, s)
+                   : launch<float, false>(x, embed, scratch, idx, nullptr, n, d, k, s);
 }
 
 extern "C" int vq_nearest_lookup(const void* x, const void* embed, void* idx, void* q,
-                                 long long n, int d, int k, int x_is_bf16, void* stream) {
-  if (bad_shape(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* scratch, long long scratch_bytes, long long n, int d, int k,
+                                 int x_is_bf16, void* stream) {
+  if (bad_shape(n, d, k) || scratch_bytes < search_scratch_bytes(d, k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? launch<__nv_bfloat16, true>(x, embed, idx, q, n, d, k, s)
-                   : launch<float, true>(x, embed, idx, q, n, d, k, s);
+  return x_is_bf16 ? launch<__nv_bfloat16, true>(x, embed, scratch, idx, q, n, d, k, s)
+                   : launch<float, true>(x, embed, scratch, idx, q, n, d, k, s);
 }
 
 // Bytes of scratch that vq_nearest_stats needs for this shape (the caller

@@ -40,7 +40,6 @@ import torch
 from vqvae2_tpu_torch.ops import _build
 
 NEG_INF = -1e30          # the fill of masked scores (not -inf: NaN from inf - inf)
-MAX_HEAD_DIM = 64
 
 # Launches of the CUDA kernel, and uses of the plain version by the wrapper.
 # The wrapper adds one where it launches the kernel and nowhere else.
@@ -192,10 +191,11 @@ def _library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         u32, u64, f32 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float
         lib.fa_forward.restype = i32
-        lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, u32, f32, u64, ptr]
+        lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, u32, f32, u64,
+                                   ptr]
         for name in ("fa_backward_dq", "fa_backward_dkv"):
             getattr(lib, name).restype = i32
-            getattr(lib, name).argtypes = [ptr] * 8 + [i64, i32, i32, i32, u32, f32, u64, ptr]
+            getattr(lib, name).argtypes = [ptr] * 8 + [i64, i32, i32, i32, i32, u32, f32, u64, ptr]
         lib.fa_keep_mask.restype = i32
         lib.fa_keep_mask.argtypes = [ptr, i64, i32, u32, u64, ptr]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -218,15 +218,8 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
             f"q, k, v must share one (BH, N, D) shape, got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     bh, n, d = q.shape
-    if bh < 1 or n < 1:
-        raise ValueError(f"need BH >= 1 and N >= 1, got BH={bh}, N={n}")
-    if d % 4 != 0 or not 4 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"D must be a multiple of 4 (16-byte loads) up to {MAX_HEAD_DIM}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("q, k and v must start on a 16-byte boundary")
+    if bh < 1 or n < 1 or d < 1:
+        raise ValueError(f"need BH >= 1, N >= 1 and D >= 1, got BH={bh}, N={n}, D={d}")
 
 
 def _check_dropout(dropout_rate: float) -> None:
@@ -246,6 +239,8 @@ def _causal_flash_attention_cuda(
     _check_cuda_inputs(q, k, v)
     _check_dropout(dropout_rate)
     lib = _library()
+    head_dim = q.shape[2]
+    q, k, v = _build.kernel_operands(q, k, v)
     bh, n, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, n, 1), dtype=torch.float32, device=q.device)
@@ -253,42 +248,48 @@ def _causal_flash_attention_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fa_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n, d,
-            int(q.dtype == torch.bfloat16), dropout_threshold(dropout_rate),
+            head_dim, int(q.dtype == torch.bfloat16), dropout_threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate), seed & 0xFFFFFFFFFFFFFFFF, stream)
     _raise_on_error(lib, code, "fa_forward")
     launch_counts["causal_flash_attention"] += 1
-    return o, lse
+    return _build.unpad(o, head_dim), lse
 
 
-def _backward_args(q: torch.Tensor, dropout_rate: float, seed: int) -> tuple:
+def _backward_args(q: torch.Tensor, dropout_rate: float, seed: int,
+                   head_dim: Optional[int]) -> tuple:
     bh, n, d = q.shape
-    return (bh, n, d, int(q.dtype == torch.bfloat16), dropout_threshold(dropout_rate),
-            1.0 / (1.0 - dropout_rate), seed & 0xFFFFFFFFFFFFFFFF)
+    return (bh, n, d, head_dim or d, int(q.dtype == torch.bfloat16),
+            dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate),
+            seed & 0xFFFFFFFFFFFFFFFF)
 
 
-def _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate: float, seed: int):
-    """The dq kernel: ``(dq, dsum)``."""
+def _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate: float, seed: int,
+                      head_dim: Optional[int] = None):
+    """The dq kernel on operands as the kernels take them (``head_dim``: the
+    width before the pad, if any): ``(dq, dsum)``."""
     lib = _library()
     dq = torch.empty_like(q)
     dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = lib.fa_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                   do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-                                  *_backward_args(q, dropout_rate, seed),
+                                  *_backward_args(q, dropout_rate, seed, head_dim),
                                   torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, code, "fa_backward_dq")
     launch_counts["causal_flash_attention_dq"] += 1
     return dq, dsum
 
 
-def _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate: float, seed: int):
-    """The dk/dv kernel, after the dq kernel wrote ``dsum``: ``(dk, dv)``."""
+def _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate: float, seed: int,
+                       head_dim: Optional[int] = None):
+    """The dk/dv kernel, after the dq kernel wrote ``dsum``, on operands as
+    the kernels take them: ``(dk, dv)``."""
     lib = _library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = lib.fa_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                   *_backward_args(q, dropout_rate, seed),
+                                   *_backward_args(q, dropout_rate, seed, head_dim),
                                    torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, code, "fa_backward_dkv")
     launch_counts["causal_flash_attention_dkv"] += 1
@@ -308,13 +309,12 @@ def _causal_flash_attention_backward_cuda(
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"o and do must be {q.dtype} and lse float32, got "
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
-    if not (o.is_contiguous() and do.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("o, do and lse must be contiguous")
-    if o.data_ptr() % 16 or do.data_ptr() % 16:
-        raise ValueError("o and do must start on a 16-byte boundary")
-    dq, dsum = _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed)
-    dk, dv = _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed)
-    return dq, dk, dv
+    lse = lse.contiguous()
+    head_dim = d
+    q, k, v, o, do = _build.kernel_operands(q, k, v, o, do)
+    dq, dsum = _backward_dq_cuda(q, k, v, o, lse, do, dropout_rate, seed, head_dim)
+    dk, dv = _backward_dkv_cuda(q, k, v, do, lse, dsum, dropout_rate, seed, head_dim)
+    return _build.unpad(dq, head_dim), _build.unpad(dk, head_dim), _build.unpad(dv, head_dim)
 
 
 def dropout_keep_mask(bh: int, n: int, dropout_rate: float, seed: int,
@@ -431,8 +431,8 @@ def causal_flash_attention(
     """Strictly-causal multi-head attention without the ``(N, N)`` matrix in
     device memory.
 
-    ``q, k, v`` — ``(B, H, N, D)``, fp32 or bf16, any ``N >= 1``, ``D`` a
-    multiple of 4 up to 64.  ``dropout_rate > 0`` needs a ``generator``, from
+    ``q, k, v`` — ``(B, H, N, D)``, fp32 or bf16, any ``N >= 1`` and
+    ``D >= 1``.  ``dropout_rate > 0`` needs a ``generator``, from
     which the seed of the kernel's counter-based draw is taken.  Returns
     ``(B, H, N, D)`` in ``q``'s dtype."""
     if q.ndim != 4:

@@ -44,8 +44,8 @@ ACT_ELU = "elu"
 ACT_NONE = "none"
 _ACT_CODES = {ACT_LEAKY_RELU: 0, ACT_ELU: 1, ACT_NONE: 2}
 
-# The kernels stage five channel vectors in shared memory.
-MAX_C = 2048
+# The sums' grid has one slab of 32 channels per y index (at most 65,535).
+MAX_C = 32 * 65535
 # The elu inversion clamps z here: storage can round z onto the asymptote -1.
 ELU_CLAMP = -1.0 + 1e-6
 

@@ -113,10 +113,12 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library("quantize")
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.vq_search_scratch_bytes.restype = i64
+        lib.vq_search_scratch_bytes.argtypes = [i32, i32]
         lib.vq_nearest_ids.restype = i32
-        lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
         lib.vq_nearest_lookup.restype = i32
-        lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
         lib.vq_stats_scratch_bytes.restype = i64
         lib.vq_stats_scratch_bytes.argtypes = [i64, i32, i32]
         lib.vq_nearest_stats.restype = i32
@@ -145,14 +147,14 @@ def _check_cuda_inputs(flat: torch.Tensor, embed: torch.Tensor) -> None:
     if embed.dtype != torch.float32:
         raise TypeError(f"embed must be float32, got {embed.dtype}")
     n, d = flat.shape
-    if n < 1 or embed.shape[0] < 1:
-        raise ValueError(f"need N >= 1 and K >= 1, got N={n}, K={embed.shape[0]}")
-    if d % 4 != 0:
-        raise ValueError(f"D must be a multiple of 4 (16-byte loads), got {d}")
-    if not (flat.is_contiguous() and embed.is_contiguous()):
-        raise ValueError("flat and embed must be contiguous")
-    if flat.data_ptr() % 16 or embed.data_ptr() % 16:
-        raise ValueError("flat and embed must start on a 16-byte boundary")
+    if n < 1 or embed.shape[0] < 1 or d < 1:
+        raise ValueError(f"need N >= 1, K >= 1 and D >= 1, got N={n}, K={embed.shape[0]}, D={d}")
+
+
+def _search_scratch(lib: ctypes.CDLL, flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """The search's scratch: the codebook transposed, and its norms."""
+    nbytes = lib.vq_search_scratch_bytes(flat.shape[1], embed.shape[0])
+    return torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
 
 
 def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -163,14 +165,16 @@ def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def _nearest_code_ids_cuda(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     _check_cuda_inputs(flat, embed)
+    flat, embed = _build.kernel_operands(flat, embed)
     lib = _library()
     n, d = flat.shape
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
+    scratch = _search_scratch(lib, flat, embed)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.vq_nearest_ids(
-            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), n, d, embed.shape[0],
-            int(flat.dtype == torch.bfloat16), stream)
+            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), n, d, embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
     _raise_on_error(lib, code, "vq_nearest_ids")
     launch_counts["nearest_code_ids"] += 1
     return idx
@@ -180,18 +184,21 @@ def _nearest_code_lookup_cuda(
     flat: torch.Tensor, embed: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(flat, embed)
+    d_in = flat.shape[1]
+    flat, embed = _build.kernel_operands(flat, embed)
     lib = _library()
     n, d = flat.shape
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
     q = torch.empty((n, d), dtype=flat.dtype, device=flat.device)
+    scratch = _search_scratch(lib, flat, embed)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.vq_nearest_lookup(
-            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), n, d,
-            embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
+            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), n, d, embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
     _raise_on_error(lib, code, "vq_nearest_lookup")
     launch_counts["nearest_code_lookup"] += 1
-    return idx, q
+    return idx, _build.unpad(q, d_in)
 
 
 # The statistics kernels keep a K-int histogram row in shared memory.
@@ -202,6 +209,8 @@ def _nearest_code_stats_cuda(
     flat: torch.Tensor, embed: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(flat, embed)
+    d_in = flat.shape[1]
+    flat, embed = _build.kernel_operands(flat, embed)
     n, d = flat.shape
     k = embed.shape[0]
     if k > MAX_K_STATS or n >= 2 ** 31:
@@ -222,7 +231,7 @@ def _nearest_code_stats_cuda(
             int(flat.dtype == torch.bfloat16), stream)
     _raise_on_error(lib, code, "vq_nearest_stats")
     launch_counts["nearest_code_stats"] += 1
-    return idx, q, csum, esum
+    return idx, _build.unpad(q, d_in), csum, _build.unpad(esum, d_in)
 
 
 # ---------------------------------------------------------------------------
