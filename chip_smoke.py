@@ -7,7 +7,7 @@ on the GPU.
     python3 chip_smoke.py --breakdown   # also times the stages of encode_ids, of the
                                         # top prior's forward and of one train step of
                                         # stage 1, of the top prior and of the ReID
-                                        # trainer; profiles the sampler
+                                        # trainer (fp32 and bf16); profiles the sampler
     python3 chip_smoke.py --repeatability   # also counts ids that flip between calls
 
 Phases, each printing one JSON line; the first failure ends the run non-zero:
@@ -47,7 +47,8 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               nearest library route; the kernels at the shapes they once
               refused, with plain and library times; ``encode_ids`` in
               img/s, the top prior's forward in ms, a train step of stage 1
-              and of both priors
+              and of both priors, each in fp32 and in bf16 from the same
+              weights
 6. abn_kernels — the in-place ABN forward (K7) and backward (K8) against their
               plain versions at the inputs of the 13 ABNs of
               ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
@@ -58,15 +59,36 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               its defaults for a few steps validating every epoch on a raw SYSU
               tree, the losses falling; one step held against the CPU
 8. times_reid — K7/K8 times against bound, plain and library; a ReID train
-              step and the eval forward
-9. cudnn_grads — each convolution's weight gradient of one ReID step with
+              step and the eval forward, in fp32 and in bf16
+9. main_train_bf16 — the three pipeline trainers with ``--bf16`` (stage 1 at
+              batch 128 and 256 px, both priors at batch 32), the bf16 stage-1
+              model's eval forward and ``encode_ids``, with the counters at
+              zero before and read after: the losses fall, the quantizer
+              kernels received bf16 rows and the attention kernels fp32 (the
+              JAX package's promotion); one bf16 step of stage 1 and of the
+              top prior against the CPU
+10. main_reid_bf16 — the ReID trainer with ``--bf16`` at 288x144, P = 6, K = 4,
+              and a bf16 eval forward at batch 50: K7 and K8 received bf16 rows
+11. remat   — a stage-1 step at batch 128 with and without ``remat`` from the
+              same state: gradients and the state after it bit-equal; ms and
+              peak memory of both
+12. main_mnist — ``train/pixelsnail_mnist.py main`` on its synthetic digits at
+              batch 32: the loss falls, K4-K6 ran at (256, 784, 8)
+13. bf16_vs_fp32 — reported, not checked: the share of stage-1 ids that differ
+              between fp32 and bf16 on the same weights and batch, ``diff`` of
+              both, and the top prior's logit distance
+14. times_bf16 — K1-K3 on the bf16 stage-1 model's rows and K7/K8 on the bf16
+              ReID model's, each first held against its plain version at the
+              standing tolerances, and K4-K6 at the MNIST prior's shape: times
+              beside bound, plain and library
+15. cudnn_grads — each convolution's weight gradient of one ReID step with
               cuDNN as the port sets it and with cuDNN disabled, against a
               float64 backward on the CPU, at the toy size of the card-vs-CPU
               step and at 288x144 (resnet50; 12 images for the float64
               backward); the kernels of each layer by profiler ranges (which
               run cuDNN's FFT or Winograd algorithms); the ReID step at its
               command line's batch with cuDNN disabled for the layers found
-10. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
+16. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
               throughput, the TF32 split's rounding by cvt against integer
               operations, and the rounding of the tensor cores' fp32 sums
 
@@ -1153,10 +1175,9 @@ def saved_step(ckpt_dir: str) -> int:
     return int(CheckpointManager(ckpt_dir).restore("last")["step"])
 
 
-def step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) -> dict:
-    """One train step of the same weights on the card and on the CPU: the
-    metrics within LOGITS_TOL, each gradient tensor within GRAD_RTOL of its
-    largest element.  Returns the errors."""
+def steps_on_card_and_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) -> list:
+    """One train step of the same weights on the card and on the CPU:
+    ``[(metrics, gradients on the CPU)]`` of each."""
     results = []
     for model, batch in ((model_cuda, batch_cuda), (model_cpu, batch_cpu)):
         tx = schedules.adam(3e-4)
@@ -1166,7 +1187,15 @@ def step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) ->
         results.append(({k: float(v) for k, v in metrics.items()},
                         {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                          if p.grad is not None}))
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    return results
+
+
+def step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) -> dict:
+    """One train step of the same weights on the card and on the CPU: the
+    metrics within LOGITS_TOL, each gradient tensor within GRAD_RTOL of its
+    largest element.  Returns the errors."""
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = steps_on_card_and_cpu(
+        model_cuda, model_cpu, make_step, batch_cuda, batch_cpu)
     out = {"metrics_card": m_gpu, "metrics_cpu": m_cpu}
     for k in m_cpu:
         check(bool(np.isclose(m_gpu[k], m_cpu[k], rtol=LOGITS_TOL["rtol"], atol=LOGITS_TOL["atol"])),
@@ -1183,24 +1212,31 @@ def step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu) ->
     return out
 
 
-def stage1_step_against_cpu(vq_dir: str) -> dict:
-    """Full width, small input, the run's own checkpoint: one stage-1 step on
-    the card against the same on the CPU; the codebook buffers after it agree
-    too where the two picked the same codes."""
+def stage1_on_card_and_cpu(vq_dir: str, dtype: torch.dtype = torch.float32):
+    """The run's own stage-1 checkpoint on the card and on the CPU with
+    ``dtype`` compute, a small input, and how many of the two models' ids for
+    it differ: ``(models, x, differing, total)``."""
     cfg = CheckpointManager(vq_dir).load_config()
     state = CheckpointManager(vq_dir).restore("last")["model"]
     models = []
     for device in ("cuda", "cpu"):
         m = build_vqvae(device=device, channel=cfg["channel"], n_res_block=cfg["n_res_block"],
                         n_res_channel=cfg["n_res_channel"], embed_dim=cfg["embed_dim"],
-                        n_embed=cfg["n_embed"])
+                        n_embed=cfg["n_embed"], dtype=dtype)
         m.load_state_dict(state)
         models.append(m)
     x = torch.from_numpy(np.random.default_rng(7).normal(
         scale=0.5, size=(2, 64, 64, 3)).astype(np.float32))
     ids = [m.encode_ids(x.to(device)) for m, device in zip(models, ("cuda", "cpu"))]
     differing = int(sum((a.cpu() != b).sum() for a, b in zip(ids[0], ids[1])))
-    total = sum(t.numel() for t in ids[1])
+    return models, x, differing, sum(t.numel() for t in ids[1])
+
+
+def stage1_step_against_cpu(vq_dir: str) -> dict:
+    """Full width, small input, the run's own checkpoint: one stage-1 step on
+    the card against the same on the CPU; the codebook buffers after it agree
+    too where the two picked the same codes."""
+    models, x, differing, total = stage1_on_card_and_cpu(vq_dir)
     check(differing <= 0.01 * total, f"card vs CPU: {differing} of {total} ids differ before the step")
     out = step_against_cpu(models[0], models[1], tv.make_train_step, x.cuda(), x)
     if differing == 0:
@@ -1369,11 +1405,11 @@ def library_attention(q, k, v, mask):
     return o
 
 
-def attention_record(qkv, launches: dict, cases) -> dict:
-    """Times of the attention kernel at the shape the top prior's forward gives
-    it at batch 32, on the prior's own q, k, v, without and with the training
-    forward's dropout; and its time at the shape of the full-forward sampler at
-    256 px."""
+def attention_record(qkv, launches: dict, cases, sampler: bool = True) -> dict:
+    """Times of the attention kernel at the shape a prior's forward gives it,
+    on the prior's own q, k, v, without and with the training forward's
+    dropout; with ``sampler``, also its time at the shape of the full-forward
+    sampler at 256 px."""
     bh, n, d = qkv[0].shape
     # rotate over copies larger together than the 50 MB L2
     copies = [qkv] + [tuple(t.clone() for t in qkv) for _ in range(2)]
@@ -1406,7 +1442,7 @@ def attention_record(qkv, launches: dict, cases) -> dict:
         "library_max_abs_err_vs_plain": lib_err,
         "share_of_bound": work["bound_ms"] / ms, "share_of_bound_tc": work["bound_tc_ms"] / ms,
         "bytes": work["bytes"], "flops": work["flops"],
-        "full_forward_sampler": full_forward_sampler_times(),
+        **({"full_forward_sampler": full_forward_sampler_times()} if sampler else {}),
     }
 
 
@@ -1642,38 +1678,49 @@ def odd_shape_times() -> dict:
 
 
 def train_step_times(dirs: dict) -> dict:
-    """One train step of each trainer at its command line's batch, by the
-    host's clock around steps that end in a synchronise, on batches already on
-    the card; peak memory of each."""
-    out = {}
-    vq = build_vqvae(device="cuda", seed=0)
-    vq.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
-    tx = schedules.adam(3e-4)
-    state = tv.create_state(vq, tx)
-    step = tv.make_train_step(vq, tx)
+    """One train step of each trainer at its command line's batch, fp32 then
+    bf16 from the same fp32-run weights, by the host's clock around steps that
+    end in a synchronise, on batches already on the card; peak memory of
+    each."""
+    out = {"stage1": {}, "top_prior": {}, "bottom_prior": {}}
+    vq_state = CheckpointManager(dirs["vqvae"]).restore("last")["model"]
     x = torch.from_numpy(np.random.default_rng(8).normal(
         scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
-    torch.cuda.reset_peak_memory_stats()
-    ms = host_ms(lambda: step(state, x), 5)
-    out["stage1"] = {"batch": TRAIN_BATCH["vqvae"], "size": SIZE, "ms": ms,
-                     "img_per_s": TRAIN_BATCH["vqvae"] / ms * 1e3,
-                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    del vq, state, step, x
-    for hier, hw in (("top", TOP_HW), ("bottom", BOTTOM_HW)):
-        prior = sample._restore_prior(dirs[hier], hier, (TOP_HW, BOTTOM_HW), "cuda")
+    for dtype in (torch.float32, BF16):
+        vq = build_vqvae(device="cuda", seed=0, dtype=dtype)
+        vq.load_state_dict(vq_state)
         tx = schedules.adam(3e-4)
-        state = tv.create_state(prior, tx)
-        step = tp.make_train_step(prior, tx, conditional=hier == "bottom")
+        state = tv.create_state(vq, tx)
+        step = tv.make_train_step(vq, tx)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: step(state, x), 5)
+        out["stage1"][str(dtype)[6:]] = {
+            "batch": TRAIN_BATCH["vqvae"], "size": SIZE, "ms": ms,
+            "img_per_s": TRAIN_BATCH["vqvae"] / ms * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del vq, state, step
+    for hier, hw in (("top", TOP_HW), ("bottom", BOTTOM_HW)):
+        weights = CheckpointManager(dirs[hier]).restore("last")["model"]
         batch = {"target": numpy_codes(9, TRAIN_BATCH[hier], hw, hw)}
         if hier == "bottom":
             batch["condition"] = numpy_codes(10, TRAIN_BATCH[hier], TOP_HW, TOP_HW)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms = host_ms(lambda: step(state, batch), 3)
-        out[f"{hier}_prior"] = {"batch": TRAIN_BATCH[hier], "grid": [hw, hw], "ms": ms,
-                                "grids_per_s": TRAIN_BATCH[hier] / ms * 1e3,
-                                "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-        del prior, state, step
+        for dtype in (torch.float32, BF16):
+            prior = build_model(hier, argparse.Namespace(**{**PRIOR_CONFIG,
+                                                            "bf16": dtype == BF16}),
+                                code_hw=(TOP_HW, BOTTOM_HW)).cuda()
+            prior.load_state_dict(weights)
+            tx = schedules.adam(3e-4)
+            state = tv.create_state(prior, tx)
+            step = tp.make_train_step(prior, tx, conditional=hier == "bottom")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: step(state, batch), 3)
+            out[f"{hier}_prior"][str(dtype)[6:]] = {
+                "batch": TRAIN_BATCH[hier], "grid": [hw, hw], "ms": ms,
+                "grids_per_s": TRAIN_BATCH[hier] / ms * 1e3,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del prior, state, step
     torch.cuda.empty_cache()
     return out
 
@@ -1880,10 +1927,11 @@ def phase_breakdown_stage2(top) -> None:
 
 def phase_breakdown_train(dirs: dict) -> None:
     """Optional: where one train step of stage 1 (batch 128) and of the top
-    prior (batch 32) spends its time, by CUDA events: the model's forward
-    (with the EMA step and the statistics kernel inside it for stage 1, the
-    attention forward kernel for the prior), the loss and backward (with the
-    two backward kernels), the optimizer; and the kernels' own spans."""
+    prior (batch 32) spends its time, in fp32 and in bf16 compute from the
+    same weights, by CUDA events: the model's forward (with the EMA step and
+    the statistics kernel inside it for stage 1, the attention forward kernel
+    for the prior), the loss and backward (with the two backward kernels),
+    the optimizer; and the kernels' own spans."""
     pool = [torch.cuda.Event(enable_timing=True) for _ in range(512)]
     marks = []
 
@@ -1934,28 +1982,34 @@ def phase_breakdown_train(dirs: dict) -> None:
         spans["total"] = spans.pop("step")
         return spans
 
+    out = {}
     try:
         for owner, name, label in patches:
             setattr(owner, name, timed(getattr(owner, name), label))
         with torch.enable_grad():
-            vq = build_vqvae(device="cuda", seed=0)
-            vq.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
-            tx = schedules.adam(3e-4)
-            x = torch.from_numpy(np.random.default_rng(8).normal(
-                scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
-            stage1 = measure(vq, tv.make_train_step(vq, tx), tv.create_state(vq, tx), x)
-            del vq, x
-            top = sample._restore_prior(dirs["top"], "top", (TOP_HW, BOTTOM_HW), "cuda")
-            tx = schedules.adam(3e-4)
-            batch = {"target": numpy_codes(9, TRAIN_BATCH["top"], TOP_HW, TOP_HW)}
-            prior = measure(top, tp.make_train_step(top, tx, conditional=False),
-                            tv.create_state(top, tx), batch)
-            del top
+            for bf16 in (False, True):
+                suffix = "_bf16" if bf16 else ""
+                vq = build_vqvae(device="cuda", seed=0, dtype=BF16 if bf16 else torch.float32)
+                vq.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
+                tx = schedules.adam(3e-4)
+                x = torch.from_numpy(np.random.default_rng(8).normal(
+                    scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
+                out["stage1_step" + suffix] = {"batch": TRAIN_BATCH["vqvae"], **measure(
+                    vq, tv.make_train_step(vq, tx), tv.create_state(vq, tx), x)}
+                del vq, x
+                top = build_model("top", argparse.Namespace(**{**PRIOR_CONFIG, "bf16": bf16}),
+                                  code_hw=(TOP_HW, BOTTOM_HW)).cuda()
+                top.load_state_dict(CheckpointManager(dirs["top"]).restore("last")["model"])
+                tx = schedules.adam(3e-4)
+                batch = {"target": numpy_codes(9, TRAIN_BATCH["top"], TOP_HW, TOP_HW)}
+                out["top_prior_step" + suffix] = {"batch": TRAIN_BATCH["top"], **measure(
+                    top, tp.make_train_step(top, tx, conditional=False),
+                    tv.create_state(top, tx), batch)}
+                del top
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
-    emit("breakdown_train", unit="ms", stage1_step={"batch": TRAIN_BATCH["vqvae"], **stage1},
-         top_prior_step={"batch": TRAIN_BATCH["top"], **prior})
+    emit("breakdown_train", unit="ms", **out)
 
 
 def phase_repeatability(model, x, calls: int = 6) -> None:
@@ -2644,15 +2698,15 @@ def abn_work(name: str, m: int, c: int, itemsize: int) -> dict:
 
 def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
     """Times of K7 and K8 at the largest shape the ReID train step gives them
-    (M = 186,624, C = 256, fp32; larger than the 50 MB L2), their plain
-    versions and one library route each."""
+    (M = 186,624, C = 256, in ``x``'s type; larger than the 50 MB L2), their
+    plain versions and one library route each."""
     m, c = x.shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     v = abn_vectors(c, gen, x)
     mean, var, scale, shift, w_t, mul = (v[k] for k in ("mean", "var", "scale", "shift", "w_t",
                                                          "mul"))
     z = ia.abn_forward(x, mean, scale, shift)
-    dz = 1e-3 * torch.randn(m, c, generator=gen, device="cuda")
+    dz = (1e-3 * torch.randn(m, c, generator=gen, device="cuda")).to(x.dtype)
     run = {"abn_forward": (lambda: ia.abn_forward(x, mean, scale, shift),
                            lambda: ia.abn_forward_reference(x, mean, scale, shift)),
            "abn_backward": (lambda: ia.abn_backward(z, dz, shift, w_t, mul, 1.0 / m),
@@ -2709,16 +2763,17 @@ def abn_wide_times(m_rows: int) -> dict:
     return out
 
 
-def reid_step_times() -> dict:
+def reid_step_times(dtype: torch.dtype = torch.float32) -> dict:
     """One ReID train step at the command line's batch (72 images at
-    288x144), by the host's clock around steps ending in a synchronise, the
-    batch already on the card; its peak memory; the eval forward at batch 50."""
+    288x144) with ``dtype`` compute, by the host's clock around steps ending
+    in a synchronise, the batch already on the card; its peak memory; the eval
+    forward at batch 50."""
     from vqvae2_tpu_torch.part.part_model import EmbedNet2
     from vqvae2_tpu_torch.train import reid as tr
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(8)
-        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH, dtype=dtype).cuda()
     batch = reid_batch(8, REID_P, REID_K, REID_HW, REID_IDS)
     tx = tr.make_optimizer(0.1, 10)
     state = tr.create_state(model, tx)
@@ -2740,9 +2795,9 @@ def reid_step_times() -> dict:
                              "img_per_s": REID_EVAL_BATCH / eval_ms * 1e3}}
 
 
-def phase_breakdown_reid() -> None:
-    """Optional: where one ReID train step (72 images at 288x144) spends its
-    time, by CUDA events: the model's forward (13 K7 launches inside it), the
+def phase_breakdown_reid(dtype: torch.dtype = torch.float32) -> None:
+    """Optional: where one ReID train step (72 images at 288x144) with
+    ``dtype`` compute spends its time, by CUDA events: the model's forward (13 K7 launches inside it), the
     loss and backward (13 K8), the optimizer; the kernels' own spans; and the
     aten operators of a third step that take the most device time, by
     ``torch.profiler`` (which nests them: a backward operator holds its parts)."""
@@ -2771,7 +2826,7 @@ def phase_breakdown_reid() -> None:
     try:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(9)
-            model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).cuda()
+            model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH, dtype=dtype).cuda()
         batch = reid_batch(9, REID_P, REID_K, REID_HW, REID_IDS)
         tx = tr.make_optimizer(0.1, 10)
         state = tr.create_state(model, tx)
@@ -2811,7 +2866,8 @@ def phase_breakdown_reid() -> None:
     at = {label: ev for label, ev in timed_marks}
     spans["loss and backward"] = at[("forward", 1)].elapsed_time(at[("optimizer", 0)])
     spans["total"] = spans.pop("step")
-    emit("breakdown_reid", unit="ms", images=3 * REID_ROWS, hw=list(REID_HW), **spans,
+    emit("breakdown_reid", unit="ms", dtype=str(dtype), images=3 * REID_ROWS, hw=list(REID_HW),
+         **spans,
          profiled_step_top_aten_ops=top_ops)
 
 
@@ -2854,6 +2910,511 @@ def phase_probe() -> None:
                          "fp32_round_to_nearest": float(acc[1])})
     emit("probe", mma_tf32_m16n8k8=mma, tf32_split=split, accumulation=rounding,
          truncates=any(r["tensor_cores"] != r["fp32_round_to_nearest"] for r in rounding))
+
+
+# ---------------------------------------------------------------------------
+# bf16 compute, remat and the MNIST prior
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# bf16 training runs of each command line (a smoke run: fewer steps than fp32's)
+TRAIN_STEPS_BF16 = {"vqvae": 8, "top": 6, "bottom": 4, "reid": 6}
+# A bf16 step on the card against the same step on the CPU: the two sum each
+# bf16 convolution in another order, so a value may round to the neighbouring
+# bf16 (2^-8 relative) at every layer.  The loss within BF16_LOSS_RTOL; the
+# whole model's gradient, as one vector, within BF16_GRAD_NORM_RTOL of its
+# norm (about a dozen bf16 roundings); the worst tensors are reported.
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_NORM_RTOL = 5e-2
+# train/pixelsnail_mnist.py: its default batch, a few steps
+MNIST_BATCH, MNIST_STEPS = 32, 8
+MNIST_CONFIG = dict(channel=128, dropout=0.1)
+MNIST_HEAD_DIM = MNIST_CONFIG["channel"] // 2 // N_HEAD        # 8
+# what each kernel's launcher is called by name, for the record of the types
+# and shapes it received
+LAUNCHERS = {
+    "nearest_code_ids": (qz, "_nearest_code_ids_cuda"),
+    "nearest_code_lookup": (qz, "_nearest_code_lookup_cuda"),
+    "nearest_code_stats": (qz, "_nearest_code_stats_cuda"),
+    "causal_flash_attention": (fa, "_causal_flash_attention_cuda"),
+    "causal_flash_attention_dq": (fa, "_backward_dq_cuda"),
+    "causal_flash_attention_dkv": (fa, "_backward_dkv_cuda"),
+    "abn_forward": (ia, "_abn_forward_cuda"),
+    "abn_backward": (ia, "_abn_backward_cuda"),
+}
+
+
+@contextlib.contextmanager
+def launched_inputs():
+    """While the block runs, each kernel's launcher records the type and shape
+    of its first operand (the rows, or q): ``{kernel: {(dtype, shape), ...}}``.
+    The launch counters are the wrappers' own and stay as they are."""
+    seen = {name: set() for name in LAUNCHERS}
+    saved = {}
+    for name, (module, attr) in LAUNCHERS.items():
+        fn = saved[name] = getattr(module, attr)
+
+        def spy(*args, _fn=fn, _name=name, **kwargs):
+            seen[_name].add((str(args[0].dtype)[6:], tuple(args[0].shape)))
+            return _fn(*args, **kwargs)
+
+        setattr(module, attr, spy)
+    try:
+        yield seen
+    finally:
+        for name, (module, attr) in LAUNCHERS.items():
+            setattr(module, attr, saved[name])
+
+
+def only_dtype(seen: dict, names, dtype: str, label: str) -> dict:
+    """Each kernel in ``names`` received rows of ``dtype`` alone; returns what
+    each received, as lists."""
+    for name in names:
+        got = {dt for dt, _ in seen[name]}
+        check(got == {dtype}, f"{label}: {name} received {sorted(got)}, not {dtype} alone")
+    return {name: sorted([dt, list(shape)] for dt, shape in seen[name]) for name in names}
+
+
+def gradient_norm_errors(g_card: dict, g_cpu: dict) -> dict:
+    """The whole model's gradient error as a fraction of its norm, and the
+    five tensors with the largest such fraction."""
+    err = sum(float(((g_card[n].float() - g).double() ** 2).sum()) for n, g in g_cpu.items())
+    norm = sum(float((g.double() ** 2).sum()) for g in g_cpu.values())
+    per = sorted(((float(torch.linalg.norm((g_card[n].float() - g).double()))
+                   / max(float(torch.linalg.norm(g.double())), 1e-30), n)
+                  for n, g in g_cpu.items()), reverse=True)[:5]
+    return {"grad_norm_rel_err": (err / max(norm, 1e-60)) ** 0.5,
+            "worst_tensors": [{"name": n, "norm_rel_err": e} for e, n in per]}
+
+
+def bf16_step_against_cpu(model_cuda, model_cpu, make_step, batch_cuda, batch_cpu,
+                          label: str) -> dict:
+    """One bf16 train step of the same weights on the card and on the CPU:
+    each metric within BF16_LOSS_RTOL, the gradient within
+    BF16_GRAD_NORM_RTOL of its norm."""
+    (m_card, g_card), (m_cpu, g_cpu) = steps_on_card_and_cpu(
+        model_cuda, model_cpu, make_step, batch_cuda, batch_cpu)
+    for k in m_cpu:
+        check(abs(m_card[k] - m_cpu[k]) <= BF16_LOSS_RTOL * max(abs(m_cpu[k]), 1e-6),
+              f"{label}, card vs CPU: {k} {m_card[k]} vs {m_cpu[k]}")
+    errs = gradient_norm_errors(g_card, g_cpu)
+    check(errs["grad_norm_rel_err"] <= BF16_GRAD_NORM_RTOL,
+          f"{label}, card vs CPU: the gradient differs by {errs['grad_norm_rel_err']} of its norm")
+    return {"metrics_card": m_card, "metrics_cpu": m_cpu, **errs}
+
+
+def stage1_bf16_step_against_cpu(vq_dir: str) -> dict:
+    """Full width, small input: one bf16 stage-1 step on the card against the
+    same on the CPU, from the run's own bf16 checkpoint; the ids of both
+    before the step, as a share that differs."""
+    models, x, differing, total = stage1_on_card_and_cpu(vq_dir, BF16)
+    out = bf16_step_against_cpu(models[0], models[1], tv.make_train_step, x.cuda(), x,
+                                "bf16 stage 1")
+    out.update(input=[2, 64, 64, 3], ids_differing_share=differing / total)
+    return out
+
+
+def prior_bf16_step_against_cpu(top_dir: str) -> dict:
+    """Full width, small grid, the run's own bf16 top prior with dropout at 0:
+    one step on the card and on the CPU."""
+    mgr = CheckpointManager(top_dir)
+    check(mgr.load_config().get("bf16") is True, "the bf16 top prior's config does not say bf16")
+    weights = mgr.restore("last")["model"]
+    models = []
+    for device in ("cuda", "cpu"):
+        m = build_model("top", argparse.Namespace(**{**PRIOR_CONFIG, "bf16": True}),
+                        code_hw=(TOP_HW, BOTTOM_HW))
+        m.load_state_dict(weights)
+        for mod in m.modules():
+            if hasattr(mod, "dropout"):
+                mod.dropout = 0.0
+        models.append(m.to(device))
+    codes = numpy_codes(6, 2, 8, 8)
+
+    def make(model, tx):
+        return tp.make_train_step(model, tx, conditional=False)
+
+    out = bf16_step_against_cpu(models[0], models[1], make, {"target": codes},
+                                {"target": codes.cpu()}, "bf16 top prior")
+    out["grid"] = [2, 8, 8]
+    return out
+
+
+def phase_main_train_bf16(tmp: str, codes: str) -> dict:
+    """The three trainers' bf16 mode through their command lines at full
+    width, with the launch counters at zero before and read after: stage 1
+    (``--bf16``, batch 128 at 256 px) for a few steps, the eval forward and
+    ``encode_ids`` of the model it wrote, and both priors (``--bf16``, batch
+    32) on the codes of the fp32 run; the losses fall.  The kernels' launchers
+    show what they received: the quantizer kernels bf16 rows, the attention
+    kernels fp32 q, k, v (the JAX package's promotion).  Then one bf16 step of
+    stage 1 and of the top prior on the card against the CPU."""
+    root = os.path.join(tmp, "train_bf16")
+    dirs = {name: os.path.join(root, name) for name in ("vqvae", "top", "bottom")}
+    csvs = {name: os.path.join(root, f"{name}.csv") for name in dirs}
+    n1, n2, n3 = (TRAIN_STEPS_BF16[k] for k in ("vqvae", "top", "bottom"))
+    result = {"steps": {k: TRAIN_STEPS_BF16[k] for k in dirs}, "batch": dict(TRAIN_BATCH)}
+    reset_all_counts()
+    with launched_inputs() as seen:
+        t0 = time.perf_counter()
+        tv.main(["--synthetic", "--bf16", "--size", str(SIZE), "--batch_size",
+                 str(TRAIN_BATCH["vqvae"]), "--log_every", "1", "--ckpt_dir", dirs["vqvae"],
+                 "--steps", str(n1), "--metrics_csv", csvs["vqvae"]])
+        losses = csv_column(csvs["vqvae"], "loss")
+        check(len(losses) == n1 and all(np.isfinite(losses)), f"bf16 stage 1: losses {losses}")
+        check(falling(losses), f"bf16 stage 1: the loss did not fall: {losses}")
+        result["stage1"] = {"seconds": time.perf_counter() - t0, "loss": losses,
+                            "img_per_s_cli": csv_column(csvs["vqvae"], "img_per_s")[-1]}
+
+        model = build_vqvae(device="cuda", dtype=BF16)
+        model.load_state_dict(CheckpointManager(dirs["vqvae"]).restore("last")["model"])
+        x = torch.from_numpy(np.random.default_rng(11).normal(
+            scale=0.5, size=(BATCH, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            dec, diff = model(x)
+            id_t, id_b = model.encode_ids(x)
+        check(dec.dtype == BF16 and dec.shape == x.shape and bool(torch.isfinite(dec.float()).all())
+              and diff.dtype == torch.float32 and bool(torch.isfinite(diff)),
+              f"bf16 forward: dec {dec.dtype} {tuple(dec.shape)}, diff {diff.dtype} {float(diff)}")
+        check(id_t.shape == (BATCH, TOP_HW, TOP_HW) and id_b.shape == (BATCH, BOTTOM_HW, BOTTOM_HW),
+              "bf16 encode_ids: id shapes")
+        result["eval_forward"] = {"diff": float(diff), "codes_used_top": int(id_t.unique().numel()),
+                                  "codes_used_bottom": int(id_b.unique().numel())}
+        del model, dec, x
+
+        for hier, steps in (("top", n2), ("bottom", n3)):
+            t0 = time.perf_counter()
+            tp.main([codes, "--hier", hier, "--bf16", "--batch", str(TRAIN_BATCH[hier]),
+                     "--steps", str(steps), "--log_every", "1", "--ckpt_dir", dirs[hier],
+                     "--metrics_csv", csvs[hier]])
+            ce = csv_column(csvs[hier], "loss")
+            check(len(ce) == steps and all(np.isfinite(ce)), f"bf16 {hier} prior: losses {ce}")
+            check(abs(ce[0] - np.log(K)) < 1.0, f"bf16 {hier} prior: CE starts at {ce[0]}")
+            check(falling(ce), f"bf16 {hier} prior: the cross-entropy did not fall: {ce}")
+            result[hier] = {"seconds": time.perf_counter() - t0, "loss": ce,
+                            "acc": csv_column(csvs[hier], "acc")}
+    counts = all_counts()                      # read just after the bf16 training path
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the bf16 training path: {counts['plain_calls']}")
+    want = {"nearest_code_stats": 2 * n1, "nearest_code_lookup": 3, "nearest_code_ids": 1,
+            "causal_flash_attention": 4 * n2, "causal_flash_attention_dq": 4 * n2,
+            "causal_flash_attention_dkv": 4 * n2}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"bf16 training path launches {counts['launches']}, expected {want}")
+    result["received"] = {
+        **only_dtype(seen, ("nearest_code_ids", "nearest_code_lookup", "nearest_code_stats"),
+                     "bfloat16", "bf16 stage 1"),
+        **only_dtype(seen, ("causal_flash_attention", "causal_flash_attention_dq",
+                            "causal_flash_attention_dkv"), "float32", "bf16 top prior")}
+    result.update(counts)
+    result["stage1_step_vs_cpu"] = stage1_bf16_step_against_cpu(dirs["vqvae"])
+    result["top_prior_step_vs_cpu"] = prior_bf16_step_against_cpu(dirs["top"])
+    emit("main_train_bf16", bf16_loss_rtol=BF16_LOSS_RTOL,
+         bf16_grad_norm_rtol=BF16_GRAD_NORM_RTOL, **result)
+    return counts["launches"]
+
+
+def phase_main_reid_bf16(tmp: str) -> dict:
+    """The ReID trainer's bf16 mode with the counters at zero before and read
+    after: the eval forward of a bf16 EmbedNet2(resnet50) at batch 50, then
+    ``train.reid.main --synthetic --bf16`` at its defaults (P = 6, K = 4,
+    288x144) for a few steps, the losses falling.  The ABN kernels' launchers
+    show that they received bf16 rows (the output of a bf16 convolution)."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+    from vqvae2_tpu_torch.train import reid as tr
+
+    root = os.path.join(tmp, "reid_bf16")
+    csv = os.path.join(root, "steps.csv")
+    steps = TRAIN_STEPS_BF16["reid"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(6)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH, dtype=BF16).cuda().eval()
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(REID_EVAL_BATCH, *REID_HW, 3)).astype(np.float32)).cuda()
+    reset_all_counts()
+    with launched_inputs() as seen:
+        with torch.no_grad():
+            pooled, feats = model(xRGB=x, modal=1)
+        torch.cuda.synchronize()
+        check(pooled.dtype == feats.dtype == torch.float32 and bool(torch.isfinite(feats).all()),
+              f"bf16 EmbedNet2 eval forward: {pooled.dtype}, {feats.dtype} or non-finite")
+        norm_err = float((torch.linalg.norm(feats, dim=1) - 1).abs().max())
+        check(norm_err < 1e-4, f"bf16 EmbedNet2 eval features are not unit length ({norm_err})")
+        del model
+        forwards, handle = count_forwards(EmbedNet2)
+        t0 = time.perf_counter()
+        try:
+            last = tr.main(["--synthetic", "--bf16", "--steps", str(steps), "--log_every", "1",
+                            "--metrics_csv", csv])
+        finally:
+            handle.remove()
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                      # read just after the bf16 ReID path
+    losses = csv_column(csv, "loss")
+    check(len(losses) == steps and all(np.isfinite(losses)), f"bf16 ReID: losses {losses}")
+    check(falling(losses), f"bf16 ReID: the loss did not fall: {losses}")
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the bf16 ReID path: {counts['plain_calls']}")
+    want = {"abn_forward": N_ABN * (1 + forwards["forwards"]), "abn_backward": N_ABN * steps}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"bf16 ReID path launches {counts['launches']}, expected {want}")
+    received = only_dtype(seen, ("abn_forward", "abn_backward"), "bfloat16", "bf16 ReID")
+    result = {"eval_forward": {"batch": REID_EVAL_BATCH, "hw": list(REID_HW),
+                               "unit_norm_max_err": norm_err},
+              "train": {"steps": steps, "p": REID_P, "k": REID_K, "hw": list(REID_HW),
+                        "seconds": seconds, "loss": losses, "last_metrics": last},
+              "received": received, **counts}
+    emit("main_reid_bf16", **result)
+    return counts["launches"]
+
+
+def phase_bf16_vs_fp32(model, x: torch.Tensor, top) -> torch.nn.Module:
+    """Reported, not checked: what bf16 compute changes, on the same seeded
+    weights and batch — the share of stage-1 ids (top, bottom) that differ
+    between the fp32 and the bf16 ``encode_ids``, ``diff`` of both, and the
+    top prior's logits in bf16 against fp32 (largest and mean distance, and
+    the share of positions whose most likely code differs).  Returns the bf16
+    stage-1 model (the fp32 one's weights and codebooks)."""
+    bf = build_vqvae(device="cuda", dtype=BF16)
+    bf.load_state_dict(model.state_dict())
+    ids32, ids16 = model.encode_ids(x), bf.encode_ids(x)
+    flips = {name: float((a != b).float().mean()) for name, a, b in
+             zip(("top", "bottom"), ids32, ids16)}
+    diff32, diff16 = float(model(x)[1]), float(bf(x)[1])
+    top16 = build_model("top", argparse.Namespace(**{**PRIOR_CONFIG, "bf16": True}),
+                        code_hw=(TOP_HW, BOTTOM_HW)).cuda().eval()
+    top16.load_state_dict(top.state_dict())
+    codes = numpy_codes(2, PRIOR_BATCH, TOP_HW, TOP_HW)
+    l32, l16 = top(codes), top16(codes)
+    check(l16.dtype == BF16 and bool(torch.isfinite(l16.float()).all()),
+          "bf16 top prior: logits dtype or non-finite")
+    dist = (l16.float() - l32).abs()
+    result = {"stage1": {"batch": BATCH, "size": SIZE, "id_flip_share": flips,
+                         "diff_fp32": diff32, "diff_bf16": diff16},
+              "top_prior": {"batch": PRIOR_BATCH, "logit_max_abs_diff": float(dist.max()),
+                            "logit_mean_abs_diff": float(dist.mean()),
+                            "logit_abs_max_fp32": float(l32.abs().max()),
+                            "argmax_differs_share": float(
+                                (l16.float().argmax(-1) != l32.argmax(-1)).float().mean())}}
+    emit("bf16_vs_fp32", **result)
+    del top16, l32, l16
+    return bf
+
+
+def phase_remat(dirs: dict) -> None:
+    """One stage-1 train step at batch 128 with and without ``remat`` from
+    the same state (the fp32 run's checkpoint): gradients, codebook buffers
+    and the updated parameters bit-equal (cuDNN runs deterministic
+    algorithms, so the recompute is the same program); ms and peak memory of
+    each, by the host's clock over further steps."""
+    weights = CheckpointManager(dirs["vqvae"]).restore("last")["model"]
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    after, result = {}, {}
+    for remat in (False, True):
+        vq = build_vqvae(device="cuda", remat=remat)
+        vq.load_state_dict(weights)
+        tx = schedules.adam(3e-4)
+        state = tv.create_state(vq, tx)
+        step = tv.make_train_step(vq, tx)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics = step(state, x)
+        after[remat] = ({n: p.grad.clone() for n, p in vq.named_parameters()},
+                        {n: t.clone() for n, t in vq.state_dict().items()},
+                        float(metrics["loss"]))
+        first_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = host_ms(lambda: step(state, x), 3)
+        result["remat" if remat else "plain"] = {
+            "ms": ms, "img_per_s": TRAIN_BATCH["vqvae"] / ms * 1e3,
+            "peak_memory_gb_first_step": first_gb,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del vq, state, step
+    (g0, s0, l0), (g1, s1, l1) = after[False], after[True]
+    grads_equal = all(torch.equal(g0[n], g1[n]) for n in g0)
+    state_equal = all(torch.equal(s0[n], s1[n]) for n in s0)
+    worst = max(float((g0[n] - g1[n]).abs().max()) for n in g0)
+    check(grads_equal and l0 == l1, f"remat: gradients or loss differ (largest |dg| {worst})")
+    check(state_equal, "remat: parameters or codebook buffers after the step differ")
+    torch.cuda.empty_cache()
+    emit("remat", batch=TRAIN_BATCH["vqvae"], size=SIZE, loss=l0, grads_bit_equal=grads_equal,
+         state_after_step_bit_equal=state_equal, **result)
+
+
+def phase_main_mnist(tmp: str):
+    """``train/pixelsnail_mnist.py main`` at its defaults (channel 128, batch
+    32) on ``synthetic_digits`` for a few steps, with the counters at zero
+    before and read after: the cross-entropy starts near ln 256 and falls, the
+    attention kernels ran at (B*H, N, D) = (256, 784, 8), forward and
+    backward, in fp32.  Then one step's time and peak memory.  Returns the
+    launches and a prior of the same configuration."""
+    from vqvae2_tpu_torch.train import pixelsnail_mnist as pmn
+
+    csv = os.path.join(tmp, "mnist.csv")
+    reset_all_counts()
+    with launched_inputs() as seen:
+        t0 = time.perf_counter()
+        pmn.main(["--batch", str(MNIST_BATCH), "--steps", str(MNIST_STEPS), "--log_every", "1",
+                  "--metrics_csv", csv])
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                      # read just after the MNIST path
+    ce = csv_column(csv, "loss")
+    check(len(ce) == MNIST_STEPS and all(np.isfinite(ce)), f"MNIST prior: losses {ce}")
+    check(abs(ce[0] - np.log(256)) < 1.0, f"MNIST prior: CE starts at {ce[0]}, not near ln 256")
+    check(falling(ce), f"MNIST prior: the cross-entropy did not fall: {ce}")
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the MNIST path: {counts['plain_calls']}")
+    want = {k: 2 * MNIST_STEPS for k in ("causal_flash_attention", "causal_flash_attention_dq",
+                                        "causal_flash_attention_dkv")}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"MNIST path launches {counts['launches']}, expected {want}")
+    shape = (MNIST_BATCH * N_HEAD, 28 * 28, MNIST_HEAD_DIM)
+    received = only_dtype(seen, want, "float32", "MNIST prior")
+    check(all(s == shape for name in want for _, s in seen[name]),
+          f"MNIST prior: the attention kernels received {received}, not {shape}")
+
+    args = pmn.build_argparser().parse_args(["--channel", str(MNIST_CONFIG["channel"])])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        prior = pmn.build_model(args).cuda()
+    tx = schedules.adam(3e-4)
+    state = tv.create_state(prior, tx)
+    step = pmn.make_train_step(prior, tx, seed=1)
+    codes = torch.from_numpy(pmn.synthetic_digits(MNIST_BATCH, seed=3).astype(np.int64)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        ms = host_ms(lambda: step(state, codes), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("main_mnist", batch=MNIST_BATCH, steps=MNIST_STEPS, seconds=seconds, loss=ce,
+         acc=csv_column(csv, "acc"), received=received, **counts,
+         step={"ms": ms, "img_per_s": MNIST_BATCH / ms * 1e3, "peak_memory_gb": peak})
+    prior.eval()
+    return counts["launches"], prior, codes
+
+
+def renamed(record: dict, variant: str) -> dict:
+    """A kernel record of a variant: its name carries the variant."""
+    return {**record, "name": f"{record['name']} ({variant})", "variant": variant}
+
+
+def quantizer_bf16_records(bf, x: torch.Tensor, launches: dict) -> list:
+    """K1, K2 and K3 on the bf16 rows the bf16 stage-1 model hands its
+    quantizers at batch 128 (N = 524,288 and 131,072): against their plain
+    versions at TIE_RTOL and ESUM_RTOL, then timed beside the bound at 2
+    bytes a row element (operations bind: unchanged), the plain version, and
+    one library route (widen, then ``cdist`` + ``argmin``)."""
+    flat_t, flat_b = capture_quantizer_inputs(bf, x)
+    check(flat_t.dtype == flat_b.dtype == BF16 and flat_b.shape == (BATCH * 64 * 64, D),
+          f"bf16 quantizer rows {flat_t.dtype} {tuple(flat_b.shape)}")
+    embeds = {flat_t.shape[0]: bf.quantize_t.embed, flat_b.shape[0]: bf.quantize_b.embed}
+    cases = {n: compare_with_plain(f, embeds[n], f"bf16 rows N={n}")
+             for n, f in ((flat_t.shape[0], flat_t), (flat_b.shape[0], flat_b))}
+    stats = {n: compare_stats_with_plain(f, embeds[n], f"bf16 rows N={n}")
+             for n, f in ((flat_t.shape[0], flat_t), (flat_b.shape[0], flat_b))}
+    emit("kernels_bf16", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=list(cases.values()),
+         stats_cases=list(stats.values()))
+    calls = {
+        "nearest_code_ids": ((flat_b, flat_t), lambda f, e: qz.nearest_code_ids(f, e),
+                             qz.nearest_code_ids_reference,
+                             lambda f, e: torch.cdist(f.float(), e).argmin(1)),
+        "nearest_code_lookup": ((flat_t, flat_b), lambda f, e: qz.nearest_code(f, e, False),
+                                qz.nearest_code_lookup_reference,
+                                lambda f, e: e[torch.cdist(f.float(), e).argmin(1)].to(f.dtype)),
+        "nearest_code_stats": ((flat_b, flat_t), lambda f, e: qz.nearest_code(f, e, True),
+                               qz.nearest_code_reference,
+                               lambda f, e: library_stats(f.float(), e)),
+    }
+    records = []
+    for name, (shapes, kernel, plain, library) in calls.items():
+        per_shape = []
+        for flat in shapes:
+            n = flat.shape[0]
+            embed = embeds[n]
+            copies = [flat] + [flat.clone() for _ in range(max(0, 3 - n // 200000))]
+            turn = itertools.count()
+            rotating = lambda fn: (lambda: fn(copies[next(turn) % len(copies)], embed))  # noqa: E731
+            work = (stats_work(n, D, K, 2) if name == "nearest_code_stats"
+                    else kernel_work(name, n, D, K, 2))
+            per_shape.append({"shape": {"n": n, "d": D, "k": K},
+                              "ms": cuda_ms(rotating(kernel), reps=20),
+                              "plain_ms": cuda_ms(rotating(plain), reps=5),
+                              "library_ms": cuda_ms(rotating(library), reps=5), **work})
+        first = per_shape[0]
+        n = first["shape"]["n"]
+        err = (stats[n]["esum_max_abs_err_vs_plain_sum"] if name == "nearest_code_stats"
+               else max(cases[n]["largest_gap"], cases[n]["q_max_abs_err"]))
+        records.append(renamed({
+            "name": name, **KERNELS[name], "launches": launches[name], "max_abs_err": err,
+            "id_mismatches": cases[n]["id_mismatches"],
+            "shape": {**first["shape"], "dtype": "torch.bfloat16"}, "ms": first["ms"],
+            "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library": "widen to fp32, then torch.cdist + argmin"
+                       + {"nearest_code_lookup": " + index", "nearest_code_stats":
+                          " + index + bincount + index_add_"}.get(name, ""),
+            "share_of_bound": first["bound_ms"] / first["ms"], "shapes": per_shape}, "bf16"))
+    return records
+
+
+def abn_bf16_records(launches: dict) -> list:
+    """K7 and K8 at the 13 ABN inputs of a bf16 EmbedNet2(resnet50) on a
+    train batch of 72 images at 288x144, against their plain versions at
+    ABN_TOL_BF16 (the sums at ABN_SUM_RTOL), then timed at the largest (M =
+    186,624, C = 256 in bf16: byte bounds at 2 bytes an element) beside the
+    plain version and ``batch_norm`` + ``leaky_relu`` on the bf16 rows."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH, dtype=BF16).cuda()
+    inputs = capture_abn_inputs(model, reid_batch(4, REID_P, REID_K, REID_HW, REID_IDS))
+    del model
+    check(len(inputs) == N_ABN and all(t.dtype == BF16 for _, t in inputs),
+          f"bf16 EmbedNet2 ran {len(inputs)} ABNs on {sorted({str(t.dtype) for _, t in inputs})}")
+    cases = [compare_abn_with_plain(t, f"main path {name}", gen) for name, t in inputs]
+    emit("abn_kernels_bf16", tol_bf16=ABN_TOL_BF16, sum_rtol=ABN_SUM_RTOL, cases=cases)
+    largest = max(inputs, key=lambda t: t[1].numel())[1]
+    records = [renamed(r, "bf16") for r in abn_records(largest, launches, cases)]
+    torch.cuda.empty_cache()
+    return records
+
+
+def attention_mnist_records(prior, codes: torch.Tensor, launches: dict) -> list:
+    """K4, K5 and K6 at the shape the MNIST prior gives them, (256, 784, 8),
+    on its own q, k, v: against the plain version at FA_TOL (forward in both
+    blocks, backward with dropout off and on), then timed beside their bounds,
+    the plain versions and the library's attention."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    seen = capture_attention_inputs(prior, codes)
+    shape = (MNIST_BATCH * N_HEAD, 28 * 28, MNIST_HEAD_DIM)
+    check(len(seen) == 2 and all(t.shape == shape and t.dtype == torch.float32 for t in seen[0]),
+          f"MNIST attention inputs {[tuple(t.shape) for t in seen[0]]}")
+    cases = [compare_attention_with_plain(*qkv, f"MNIST prior, block {b}")
+             for b, qkv in enumerate(seen)]
+    do = torch.randn(*shape, generator=gen, device="cuda")
+    backward = [compare_attention_backward(*seen[0], do, "MNIST prior, block 0"),
+                compare_attention_backward(*seen[0], do, "MNIST prior, block 0, dropout 0.1",
+                                           dropout_rate=MNIST_CONFIG["dropout"], seed=0xC0FFEE)]
+    emit("attention_mnist", tolerance=FA_TOL, cases=cases, backward=backward)
+    records = [attention_record(seen[0], launches, cases, sampler=False)]
+    records += backward_records(seen[0], do, launches, backward)
+    return [renamed(r, "MNIST") for r in records]
+
+
+def phase_times_bf16(bf, x, launches_bf16, launches_reid_bf16, mnist_prior, mnist_codes,
+                     launches_mnist) -> list:
+    """The kernel records of the bf16 variants and of the MNIST prior's
+    attention shape."""
+    records = quantizer_bf16_records(bf, x, launches_bf16)
+    records += abn_bf16_records(launches_reid_bf16)
+    records += attention_mnist_records(mnist_prior, mnist_codes, launches_mnist)
+    emit("times_bf16",
+         kernels={r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                                 "launches")} for r in records})
+    return records
 
 
 def main(argv=None) -> int:
@@ -2903,10 +3464,22 @@ def main(argv=None) -> int:
             reid_launches, _ = phase_main_reid(tmp)
         abn = abn_records(abn_rows, reid_launches, abn_cases)
         record["kernels"] += abn
-        emit("times_reid", **reid_step_times(), wide_channels=abn_wide_times(abn_rows.shape[0]),
+        emit("times_reid", float32=reid_step_times(), bfloat16=reid_step_times(BF16),
+             wide_channels=abn_wide_times(abn_rows.shape[0]),
              kernels={r["name"]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
                                   "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
                       for r in abn})
+        del abn_rows
+        torch.cuda.empty_cache()
+        with torch.enable_grad():
+            launches_bf16 = phase_main_train_bf16(tmp, os.path.join(tmp, "train", "codes.vq2"))
+            launches_reid_bf16 = phase_main_reid_bf16(tmp)
+            phase_remat(train_dirs)
+            launches_mnist, mnist_prior, mnist_codes = phase_main_mnist(tmp)
+        bf = phase_bf16_vs_fp32(model, x, top)
+        record["kernels"] += phase_times_bf16(bf, x, launches_bf16, launches_reid_bf16,
+                                              mnist_prior, mnist_codes, launches_mnist)
+        del bf, mnist_prior
         torch.cuda.empty_cache()
         phase_cudnn_grads()
         phase_probe()
@@ -2915,6 +3488,7 @@ def main(argv=None) -> int:
             phase_breakdown_stage2(top)
             phase_breakdown_train(train_dirs)
             phase_breakdown_reid()
+            phase_breakdown_reid(BF16)
         if args.repeatability:
             phase_repeatability(model, x)
     print(json.dumps(record), flush=True)

@@ -51,7 +51,8 @@ def test_the_walk_sees_the_port():
             "vqvae2_tpu_torch/models/resnet.py", "vqvae2_tpu_torch/part/part_model.py",
             "vqvae2_tpu_torch/part/lovasz.py", "vqvae2_tpu_torch/part/criterion.py",
             "vqvae2_tpu_torch/data/sysu.py", "vqvae2_tpu_torch/eval/reid.py",
-            "vqvae2_tpu_torch/losses.py", "vqvae2_tpu_torch/train/reid.py"} <= names
+            "vqvae2_tpu_torch/losses.py", "vqvae2_tpu_torch/train/reid.py",
+            "vqvae2_tpu_torch/train/pixelsnail_mnist.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -431,19 +432,38 @@ def test_trainers_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("trainer", ["vqvae", "pixelsnail", "reid"])
-def test_bf16_is_refused_not_ignored(trainer, tmp_path):
-    """``--bf16`` stays in the three parsers, and raises: the bf16 compute mode
-    is not ported."""
+def test_bf16_is_taken_by_each_trainer(trainer, tmp_path, monkeypatch):
+    """``--bf16`` builds the trainer's model with bf16 compute, whose
+    convolutions then run in bf16, and one step trains to a finite loss on
+    the CPU at a tiny size."""
+    import numpy as np
+
+    from vqvae2_tpu_torch.data.codestore import CodeStoreWriter
+    from vqvae2_tpu_torch.models import layers, pixelsnail
     from vqvae2_tpu_torch.train import pixelsnail as tp
     from vqvae2_tpu_torch.train import reid as tr
     from vqvae2_tpu_torch.train import vqvae as tv
 
-    argv = {"vqvae": ["--synthetic", "--steps", "1", "--size", "32"],
-            "pixelsnail": [str(tmp_path / "codes.vq2")],
-            "reid": ["--synthetic", "--steps", "1"]}[trainer]
+    path = str(tmp_path / "codes.vq2")
+    g = np.random.default_rng(0)
+    with CodeStoreWriter(path, (4, 4), (8, 8), use_native=False) as w:
+        w.append(g.integers(0, 16, (4, 4, 4)), g.integers(0, 16, (4, 8, 8)),
+                 np.zeros(4), ["x"] * 4)
+    argv = {"vqvae": ["--synthetic", "--size", "16", "--batch_size", "2", "--channel", "16",
+                      "--n_res_channel", "8", "--embed_dim", "8", "--n_embed", "16",
+                      "--workers", "0"],
+            "pixelsnail": [path, "--batch", "2", "--n_class", "16", "--channel", "16",
+                           "--n_res_block", "1", "--n_res_channel", "16"],
+            "reid": ["--synthetic", "--arch", "resnet18", "--img_h", "64", "--img_w", "32",
+                     "--batch_size", "2", "--num_pos", "2"]}[trainer]
     module = {"vqvae": tv, "pixelsnail": tp, "reid": tr}[trainer]
-    with pytest.raises(NotImplementedError, match="bf16"):
-        module.main(argv + ["--bf16", "--device", "cpu"])
+    seen = set()
+    real = layers.cast_conv
+    for owner in (layers, pixelsnail):
+        monkeypatch.setattr(owner, "cast_conv", lambda conv, x, w, b, dtype: seen.add(dtype)
+                            or real(conv, x, w, b, dtype))
+    m = module.main(argv + ["--bf16", "--device", "cpu", "--steps", "1", "--log_every", "1"])
+    assert np.isfinite(m["loss"]) and seen == {torch.bfloat16}
 
 
 def test_the_abn_kernel_path_never_takes_the_plain_version(monkeypatch):

@@ -158,6 +158,20 @@ def test_step_generator_depends_on_seed_and_step_only():
     assert not torch.equal(draw(1, 7), draw(1, 8)) and not torch.equal(draw(1, 7), draw(2, 7))
 
 
-def test_build_model_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tp.build_model("top", argparse.Namespace(**{**vars(args()), "bf16": True}))
+@pytest.mark.parametrize("hier", ["top", "bottom"])
+def test_build_model_takes_bf16(hier):
+    """``bf16`` builds the prior with bf16 compute and fp32 parameters, as the
+    JAX package's ``build_model`` does; its logits are bf16 and its train
+    step's loss and metrics fp32."""
+    model = tp.build_model(hier, argparse.Namespace(**{**vars(args()), "bf16": True}),
+                           code_hw=CODE_HW)
+    jmodel = jtp.build_model(hier, argparse.Namespace(**{**vars(args()), "bf16": True}),
+                             code_hw=CODE_HW)
+    assert model.dtype == torch.bfloat16 and jmodel.dtype == jnp.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(hier).items()}
+    assert model.eval()(batch["target"], condition=batch.get("condition")).dtype == torch.bfloat16
+    tx = schedules.adam(LR)
+    _, metrics = tp.make_train_step(model, tx, conditional=hier == "bottom")(
+        create_state(model, tx), batch)
+    assert metrics["loss"].dtype == torch.float32 and bool(torch.isfinite(metrics["loss"]))

@@ -4,7 +4,8 @@ bit-equal for one seed; ``make_loss_fn``'s total and every metric; one and two
 SGD steps and one step of two microbatches (``grad_accum = 2``) through
 ``make_train_step``, with the parameter groups' learning rates; and the
 command line: ``main(["--synthetic", "--device", "cpu", ...])`` for two steps,
-``--bf16`` refused, the default device refused without a card.
+``--bf16`` taken (bf16 model, fp32 losses), the default device refused without
+a card.
 
 Model: ``EmbedNet2`` (resnet18) at 128x64, P = K = 2 (12 images a step), seeded
 weights carried across by ``embed_net2_from_jax``.  The parsing head's dropout
@@ -319,11 +320,23 @@ def test_main_trains_two_steps_on_the_cpu(tmp_path):
     assert os.path.exists(str(tmp_path / "s" / "part_00002.png"))
 
 
-def test_bf16_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttr.main(["--synthetic", "--bf16", "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttr.train(argparse.Namespace(device="cpu", bf16=True))
+def test_bf16_losses_run_in_fp32_on_the_widened_outputs(sysu_dir):
+    """``--bf16`` builds EmbedNet2 with bf16 compute; its parsing maps and
+    part masks come out bf16 and are widened at the model's boundary, so
+    every loss and metric is fp32 and finite, and each parameter gets an fp32
+    gradient."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = tp.EmbedNet2(class_num=3, arch="resnet18", dtype=torch.bfloat16)
+    batch = to_torch(batches(sysu_dir, 1)[0])
+    out = model.train()(xRGB=batch["rgb"], xIR=batch["ir"], xZ=batch["gray"], modal=0,
+                        generator=torch.Generator().manual_seed(0))
+    assert out[2][0][0].dtype == out[6].dtype == torch.bfloat16
+    assert out[0].dtype == out[1].dtype == torch.float32
+    total, metrics = ttr.make_loss_fn(model, K, P, HW)(batch, torch.Generator().manual_seed(0))
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v)) for v in metrics.values())
+    total.backward()
+    assert all(p.grad is None or p.grad.dtype == torch.float32 for p in model.parameters())
 
 
 def test_the_default_device_is_the_card(tmp_path):

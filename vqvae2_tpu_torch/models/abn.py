@@ -24,7 +24,9 @@ from vqvae2_tpu_torch.ops.inplace_abn import (ACT_ELU, ACT_LEAKY_RELU, ACT_NONE,
 class InPlaceABN(nn.Module):
     """Fused activated batch norm: in training mode it normalises with the
     batch's moments and advances the running statistics, in eval mode it uses
-    them."""
+    them.  A bf16 ``x`` is taken as it is (the output of a bf16 convolution):
+    moments, channel math and running statistics are fp32, the output is
+    stored in bf16."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  affine: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01):

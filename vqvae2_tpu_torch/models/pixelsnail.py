@@ -22,8 +22,14 @@ Dropout follows the module's mode: in ``train()`` with a rate above zero the
 forward needs a ``generator`` (a ``torch.Generator`` on the input's device),
 from which every dropout draw of the call is taken — the residual blocks'
 Bernoulli masks, and the seed of the attention kernel's counter-based draw on
-the probabilities.  In ``eval()`` nothing is drawn.  Compute is fp32; the
-``dtype=bf16`` mode of the JAX package is not ported yet.
+the probabilities.  In ``eval()`` nothing is drawn.
+
+``dtype`` is the compute type of the convolutions, as in the JAX package: the
+weight norm is taken in fp32, then input, kernel and bias are cast to
+``dtype`` (``models/layers.py``); the one-hot input and the background are
+made in ``dtype``.  ``WNDense`` and ``CausalAttention`` have no ``dtype``
+there, so a bf16 input meets fp32 weights and is widened: the attention's
+q, k and v are fp32 in either mode, and so is its output.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqvae2_tpu_torch.models.layers import cast_conv, promote
 from vqvae2_tpu_torch.ops.flash_attention import causal_flash_attention
 
 
@@ -55,14 +62,16 @@ class WNConv(nn.Module):
 
     ``padding`` — ``(top, bottom, left, right)`` zeros, applied before a
     convolution without padding of its own (the causal convolutions pad
-    asymmetrically).  ``kernel_mask`` — a static ``(kh, kw)`` 0/1 mask."""
+    asymmetrically).  ``kernel_mask`` — a static ``(kh, kw)`` 0/1 mask.
+    ``dtype`` — the compute type."""
 
     def __init__(self, in_channel: int, features: int, kernel_size: Tuple[int, int],
                  padding: Sequence[int] = (0, 0, 0, 0), use_bias: bool = True,
-                 kernel_mask: Optional[np.ndarray] = None):
+                 kernel_mask: Optional[np.ndarray] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         kh, kw = kernel_size
         self.padding = tuple(int(p) for p in padding)
+        self.dtype = dtype
         # the JAX package draws v from lecun_normal: variance 1 / fan_in
         v = torch.randn(features, in_channel, kh, kw) * (in_channel * kh * kw) ** -0.5
         if kernel_mask is not None:
@@ -89,11 +98,13 @@ class WNConv(nn.Module):
         if any(self.padding):
             top, bottom, left, right = self.padding
             x = F.pad(x, (left, right, top, bottom))
-        return _to_nhwc(F.conv2d(x, self.weight(), self.b))
+        return _to_nhwc(cast_conv(F.conv2d, x, self.weight(), self.b, self.dtype))
 
 
 class WNDense(nn.Module):
-    """Weight-normalised dense layer on the trailing axis; ``v`` is ``(I, O)``."""
+    """Weight-normalised dense layer on the trailing axis; ``v`` is ``(I, O)``.
+    It has no compute type: a bf16 input is widened to fp32, as JAX promotes
+    ``bf16 @ fp32``."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True):
         super().__init__()
@@ -108,7 +119,8 @@ class WNDense(nn.Module):
         return (self.g[None, :] / norm) * self.v
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight()
+        w = self.weight()
+        y = promote(x, w) @ w
         return y + self.b if self.b is not None else y
 
 
@@ -141,7 +153,7 @@ class CausalConv(WNConv):
     centre rightward, as a static mask."""
 
     def __init__(self, in_channel: int, features: int, kernel_size: Tuple[int, int],
-                 padding_mode: str = "downright"):
+                 padding_mode: str = "downright", dtype: torch.dtype = torch.float32):
         kh, kw = kernel_size
         if padding_mode == "downright":
             padding = (kh - 1, 0, kw - 1, 0)
@@ -150,7 +162,8 @@ class CausalConv(WNConv):
         else:
             raise ValueError(padding_mode)
         mask = causal_kernel_mask(kh, kw) if padding_mode == "causal" else None
-        super().__init__(in_channel, features, kernel_size, padding=padding, kernel_mask=mask)
+        super().__init__(in_channel, features, kernel_size, padding=padding, kernel_mask=mask,
+                         dtype=dtype)
         self.padding_mode = padding_mode
 
 
@@ -179,23 +192,26 @@ class GatedResBlock(nn.Module):
     ``condition_dim`` > 0 adds the bias-free 1×1 ``condition`` branch."""
 
     def __init__(self, in_channel: int, channel: int, kernel_size: int, conv: str = "wnconv2d",
-                 dropout: float = 0.1, aux_channel: int = 0, condition_dim: int = 0):
+                 dropout: float = 0.1, aux_channel: int = 0, condition_dim: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = self._conv(conv, in_channel, channel, kernel_size)
-        self.aux_conv = WNConv(aux_channel, channel, (1, 1)) if aux_channel > 0 else None
+        self.conv1 = self._conv(conv, in_channel, channel, kernel_size, dtype)
+        self.aux_conv = (WNConv(aux_channel, channel, (1, 1), dtype=dtype)
+                         if aux_channel > 0 else None)
         self.dropout = dropout
-        self.conv2 = self._conv(conv, channel, in_channel * 2, kernel_size)
-        self.condition = (WNConv(condition_dim, in_channel * 2, (1, 1), use_bias=False)
+        self.conv2 = self._conv(conv, channel, in_channel * 2, kernel_size, dtype)
+        self.condition = (WNConv(condition_dim, in_channel * 2, (1, 1), use_bias=False,
+                                 dtype=dtype)
                           if condition_dim > 0 else None)
 
     @staticmethod
-    def _conv(conv: str, in_channel: int, features: int, k: int) -> WNConv:
+    def _conv(conv: str, in_channel: int, features: int, k: int, dtype: torch.dtype) -> WNConv:
         if conv == "wnconv2d":
-            return WNConv(in_channel, features, (k, k), padding=(k // 2,) * 4)
+            return WNConv(in_channel, features, (k, k), padding=(k // 2,) * 4, dtype=dtype)
         if conv == "causal_downright":
-            return CausalConv(in_channel, features, (k, k), "downright")
+            return CausalConv(in_channel, features, (k, k), "downright", dtype=dtype)
         if conv == "causal":
-            return CausalConv(in_channel, features, (k, k), "causal")
+            return CausalConv(in_channel, features, (k, k), "causal", dtype=dtype)
         raise ValueError(conv)
 
     def forward(self, x: torch.Tensor, aux_input: Optional[torch.Tensor] = None,
@@ -263,22 +279,24 @@ class CausalAttention(nn.Module):
 
 class PixelBlock(nn.Module):
     def __init__(self, channel: int, res_channel: int, kernel_size: int, n_res_block: int,
-                 attention: bool = True, dropout: float = 0.1, condition_dim: int = 0):
+                 attention: bool = True, dropout: float = 0.1, condition_dim: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        dt = dict(dropout=dropout, dtype=dtype)
         self.res = nn.ModuleList([
-            GatedResBlock(channel, res_channel, kernel_size, conv="causal", dropout=dropout,
-                          condition_dim=condition_dim)
+            GatedResBlock(channel, res_channel, kernel_size, conv="causal",
+                          condition_dim=condition_dim, **dt)
             for _ in range(n_res_block)])
         self.attention = attention
         if attention:
-            self.key_resblock = GatedResBlock(channel * 2 + 2, channel, 1, dropout=dropout)
-            self.query_resblock = GatedResBlock(channel + 2, channel, 1, dropout=dropout)
+            self.key_resblock = GatedResBlock(channel * 2 + 2, channel, 1, **dt)
+            self.query_resblock = GatedResBlock(channel + 2, channel, 1, **dt)
             self.causal_attention = CausalAttention(
                 channel + 2, channel * 2 + 2, channel // 2, dropout=dropout)
-            self.out_resblock = GatedResBlock(channel, channel, 1, dropout=dropout,
-                                              aux_channel=channel // 2)
+            self.out_resblock = GatedResBlock(channel, channel, 1, aux_channel=channel // 2,
+                                              **dt)
         else:
-            self.out = WNConv(channel + 2, channel, (1, 1))
+            self.out = WNConv(channel + 2, channel, (1, 1), dtype=dtype)
 
     def forward(self, x: torch.Tensor, background: torch.Tensor,
                 condition: Optional[torch.Tensor] = None,
@@ -296,11 +314,12 @@ class PixelBlock(nn.Module):
 
 
 class CondResNet(nn.Module):
-    def __init__(self, in_channel: int, channel: int, kernel_size: int, n_res_block: int):
+    def __init__(self, in_channel: int, channel: int, kernel_size: int, n_res_block: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         k = kernel_size
-        self.conv_in = WNConv(in_channel, channel, (k, k), padding=(k // 2,) * 4)
-        self.res = nn.ModuleList([GatedResBlock(channel, channel, k)
+        self.conv_in = WNConv(in_channel, channel, (k, k), padding=(k // 2,) * 4, dtype=dtype)
+        self.res = nn.ModuleList([GatedResBlock(channel, channel, k, dtype=dtype)
                                   for _ in range(n_res_block)])
 
     def forward(self, x: torch.Tensor,
@@ -325,13 +344,15 @@ def _background(height: int, width: int) -> np.ndarray:
 class PixelSNAIL(nn.Module):
     """``shape``: code grid (H, W); ``n_class``: codebook size.  Top prior:
     attention on, unconditional.  Bottom prior: attention off, conditioned on
-    the top codes (``n_cond_res_block > 0``)."""
+    the top codes (``n_cond_res_block > 0``).  ``dtype`` — the compute type
+    of the convolutions; the logits come out in it."""
 
     def __init__(self, shape: Tuple[int, int], n_class: int = 512, channel: int = 256,
                  kernel_size: int = 5, n_block: int = 4, n_res_block: int = 4,
                  res_channel: int = 256, attention: bool = True, dropout: float = 0.1,
                  n_cond_res_block: int = 0, cond_res_channel: int = 0,
-                 cond_res_kernel: int = 3, n_out_res_block: int = 0):
+                 cond_res_kernel: int = 3, n_out_res_block: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = dict(
             shape=tuple(shape), n_class=n_class, channel=channel, kernel_size=kernel_size,
@@ -343,21 +364,22 @@ class PixelSNAIL(nn.Module):
         self.n_class, self.channel, self.kernel_size = n_class, channel, kernel_size
         self.n_block, self.n_res_block, self.res_channel = n_block, n_res_block, res_channel
         self.attention, self.n_out_res_block = attention, n_out_res_block
+        self.dtype = dtype
 
         kernel = kernel_size + (kernel_size % 2 == 0)
-        self.horizontal = CausalConv(n_class, channel, (kernel // 2, kernel), "down")
+        self.horizontal = CausalConv(n_class, channel, (kernel // 2, kernel), "down", dtype=dtype)
         self.vertical = CausalConv(n_class, channel, ((kernel + 1) // 2, kernel // 2),
-                                   "downright")
+                                   "downright", dtype=dtype)
         self.blocks = nn.ModuleList([
             PixelBlock(channel, res_channel, kernel_size, n_res_block, attention=attention,
-                       dropout=dropout, condition_dim=cond_res_channel)
+                       dropout=dropout, condition_dim=cond_res_channel, dtype=dtype)
             for _ in range(n_block)])
         self.cond_resnet = (CondResNet(n_class, cond_res_channel, cond_res_kernel,
-                                       n_cond_res_block)
+                                       n_cond_res_block, dtype=dtype)
                             if n_cond_res_block > 0 else None)
-        self.out_res = nn.ModuleList([GatedResBlock(channel, res_channel, 1)
+        self.out_res = nn.ModuleList([GatedResBlock(channel, res_channel, 1, dtype=dtype)
                                       for _ in range(n_out_res_block)])
-        self.out_conv = WNConv(channel, n_class, (1, 1))
+        self.out_conv = WNConv(channel, n_class, (1, 1), dtype=dtype)
         self.register_buffer("background", torch.from_numpy(_background(*self.shape).copy()),
                              persistent=False)
 
@@ -369,9 +391,9 @@ class PixelSNAIL(nn.Module):
         — what :meth:`compute_condition` made of them.  ``generator`` feeds the
         dropout draws in ``train()``."""
         b, height, width = codes.shape
-        x = F.one_hot(codes.long(), self.n_class).to(self.background.dtype)
+        x = F.one_hot(codes.long(), self.n_class).to(self.dtype)
         out = shift_down(self.horizontal(x)) + shift_right(self.vertical(x))
-        background = self.background[:height, :width].expand(b, height, width, 2)
+        background = self.background[:height, :width].to(self.dtype).expand(b, height, width, 2)
 
         cond = condition_features
         if cond is None and condition is not None:
@@ -389,7 +411,7 @@ class PixelSNAIL(nn.Module):
                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CondResNet and a 2× nearest upsample; call once per sample run and
         pass the result as ``condition_features``."""
-        c = F.one_hot(condition.long(), self.n_class).to(self.background.dtype)
+        c = F.one_hot(condition.long(), self.n_class).to(self.dtype)
         c = self.cond_resnet(c, generator=generator)
         return c.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 

@@ -18,6 +18,11 @@ the biased ``E[x^2] - E[x]^2`` (clipped at 0) in the normalisation *and* in the
 running variance, which moves with momentum 0.99; torch's ``batch_norm``
 writes the unbiased variance.  The fused ABN (``models/abn.py``) keeps its own
 unbiased update: the two are not interchangeable.
+
+``dtype`` is the convolutions' compute type (``models/layers.py``).  The batch
+norms and the dense layers have none, as in the JAX package: with fp32
+parameters they promote a bf16 input and return fp32, so in the bf16 mode
+every block's output is fp32 and only the convolutions run in bf16.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Dict, List, Mapping, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vqvae2_tpu_torch.models import layers
 
 CONFIGS = {
     "resnet18": {"block": "basic", "layers": (2, 2, 2, 2), "width": 512},
@@ -46,15 +53,16 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
     return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on ``(B, H, W, C)``, flax's initialisers (LeCun normal,
-    zero bias).  The permutes are views: a ``(B, H, W, C)`` tensor is NCHW in
-    ``channels_last`` memory, which the convolution takes as it is."""
+class Conv2d(layers.Conv2d):
+    """Convolution on ``(B, H, W, C)`` computing in ``dtype``, with flax's
+    initialisers (LeCun normal, zero bias).  The permutes are views: a
+    ``(B, H, W, C)`` tensor is NCHW in ``channels_last`` memory, which the
+    convolution takes as it is."""
 
     def __init__(self, in_features: int, features: int, kernel_size=1, stride=1, padding=0,
-                 dilation=1, bias: bool = True):
+                 dilation=1, bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, features, kernel_size, stride=stride, padding=padding,
-                         dilation=dilation, bias=bias)
+                         dilation=dilation, bias=bias, dtype=dtype)
         with torch.no_grad():
             lecun_normal_(self.weight)
             if self.bias is not None:
@@ -65,7 +73,8 @@ class Conv2d(nn.Conv2d):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with flax's initialisers (LeCun normal, zero bias)."""
+    """``nn.Linear`` with flax's initialisers (LeCun normal, zero bias) and
+    flax's promotion: a bf16 input is widened to the fp32 parameters."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True):
         super().__init__(in_features, features, bias=bias)
@@ -74,6 +83,9 @@ class Dense(nn.Linear):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(layers.promote(x, self.weight))
+
 
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` over the last axis of ``(..., C)``.
@@ -81,7 +93,8 @@ class BatchNorm(nn.Module):
     Training mode normalises with the batch's mean and biased variance
     ``max(E[x^2] - E[x]^2, 0)`` (the gradient flows through both) and moves
     the buffers ``running = momentum * running + (1 - momentum) * batch``; eval
-    mode uses the buffers.  ``scale_init`` is the scale's initial value."""
+    mode uses the buffers.  ``scale_init`` is the scale's initial value.  The
+    moments are fp32 whatever ``x``'s type, so a bf16 ``x`` gives fp32."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
                  use_scale: bool = True, use_bias: bool = True, scale_init: float = 1.0):
@@ -125,13 +138,14 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = Conv2d(in_features, features, 3, stride, padding=1, bias=False)
+        dt = dict(bias=False, dtype=dtype)
+        self.conv1 = Conv2d(in_features, features, 3, stride, padding=1, **dt)
         self.bn1 = BatchNorm(features)
-        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, padding=1, **dt)
         self.bn2 = BatchNorm(features)
-        self.downsample = (nn.Sequential(Conv2d(in_features, features, 1, stride, bias=False),
+        self.downsample = (nn.Sequential(Conv2d(in_features, features, 1, stride, **dt),
                                          BatchNorm(features)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,17 +159,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         out = features * 4
-        self.conv1 = Conv2d(in_features, features, 1, bias=False)
+        dt = dict(bias=False, dtype=dtype)
+        self.conv1 = Conv2d(in_features, features, 1, **dt)
         self.bn1 = BatchNorm(features)
         # the stride sits on the 3x3 (ResNet-B); last-stride surgery zeroes it
-        self.conv2 = Conv2d(features, features, 3, stride, padding=1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, stride, padding=1, **dt)
         self.bn2 = BatchNorm(features)
-        self.conv3 = Conv2d(features, out, 1, bias=False)
+        self.conv3 = Conv2d(features, out, 1, **dt)
         self.bn3 = BatchNorm(out)
-        self.downsample = (nn.Sequential(Conv2d(in_features, out, 1, stride, bias=False),
+        self.downsample = (nn.Sequential(Conv2d(in_features, out, 1, stride, **dt),
                                          BatchNorm(out)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -167,12 +182,12 @@ class Bottleneck(nn.Module):
 
 
 def _make_layer(block_type: str, features: int, n_blocks: int, stride: int,
-                in_features: int) -> nn.ModuleList:
+                in_features: int, dtype: torch.dtype = torch.float32) -> nn.ModuleList:
     block = BasicBlock if block_type == "basic" else Bottleneck
     out_features = features * block.expansion
     need_ds = stride != 1 or in_features != out_features
-    blocks = [block(in_features, features, stride, downsample=need_ds)]
-    blocks += [block(out_features, features) for _ in range(1, n_blocks)]
+    blocks = [block(in_features, features, stride, downsample=need_ds, dtype=dtype)]
+    blocks += [block(out_features, features, dtype=dtype) for _ in range(1, n_blocks)]
     return nn.ModuleList(blocks)
 
 
@@ -183,12 +198,12 @@ def expansion(arch: str) -> int:
 class ResNetStem(nn.Module):
     """conv1 + bn1 + maxpool + layer1, with no ReLU after bn1."""
 
-    def __init__(self, arch: str = "resnet50"):
+    def __init__(self, arch: str = "resnet50", dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = CONFIGS[arch]
-        self.conv1 = Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, padding=3, bias=False, dtype=dtype)
         self.bn1 = BatchNorm(64)
-        self.layer1 = _make_layer(cfg["block"], 64, cfg["layers"][0], 1, 64)
+        self.layer1 = _make_layer(cfg["block"], 64, cfg["layers"][0], 1, 64, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.bn1(self.conv1(x))
@@ -202,13 +217,14 @@ class ResNetTrunk(nn.Module):
     """layer2-4, layer4 at stride 1 when ``last_stride_1``.  Returns
     ``(x3, x4)``: the features of layer3 and of layer4."""
 
-    def __init__(self, arch: str = "resnet50", last_stride_1: bool = True):
+    def __init__(self, arch: str = "resnet50", last_stride_1: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg, e = CONFIGS[arch], expansion(arch)
-        self.layer2 = _make_layer(cfg["block"], 128, cfg["layers"][1], 2, 64 * e)
-        self.layer3 = _make_layer(cfg["block"], 256, cfg["layers"][2], 2, 128 * e)
+        self.layer2 = _make_layer(cfg["block"], 128, cfg["layers"][1], 2, 64 * e, dtype)
+        self.layer3 = _make_layer(cfg["block"], 256, cfg["layers"][2], 2, 128 * e, dtype)
         self.layer4 = _make_layer(cfg["block"], 512, cfg["layers"][3],
-                                  1 if last_stride_1 else 2, 256 * e)
+                                  1 if last_stride_1 else 2, 256 * e, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = x

@@ -15,8 +15,16 @@ so such a checkpoint loads after the codebook buffers are transposed
 
 ``train=True`` runs the statistics flavour of the quantizer kernel and
 updates the three codebook buffers in place (the JAX package threads them
-through ``mutable=["vq_stats"]``).  Compute is fp32; the ``dtype=bf16`` mode and
-``remat`` of the JAX package are not ported yet.
+through ``mutable=["vq_stats"]``).
+
+``dtype`` is the convolutions' compute type, as in the JAX package
+(``models/layers.py``): with ``torch.bfloat16`` every convolution runs in
+bf16 while the parameters and codebooks stay fp32, so the quantizers receive
+bf16 rows, give ``quantized`` back in bf16 and take ``diff`` in fp32.
+``remat=True`` recomputes the encoders' and decoders' activations in the
+backward pass (``torch.utils.checkpoint``) instead of keeping them, as
+``nn.remat`` does in the JAX package; the quantizers are never recomputed, so
+their EMA step runs once a forward.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from vqvae2_tpu_torch.models.layers import Conv2d, ConvTranspose2d
 from vqvae2_tpu_torch.ops.quantize import (nearest_code, nearest_code_ids,
                                            quantize_lookup)
 
@@ -123,13 +133,13 @@ class Quantize(nn.Module):
 class ResBlock(nn.Module):
     """ReLU → 3×3 → ReLU → 1×1, plus skip.  Works on NCHW views."""
 
-    def __init__(self, in_channel: int, channel: int):
+    def __init__(self, in_channel: int, channel: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Sequential(
             nn.ReLU(),
-            nn.Conv2d(in_channel, channel, 3, padding=1),
+            Conv2d(in_channel, channel, 3, padding=1, dtype=dtype),
             nn.ReLU(inplace=True),
-            nn.Conv2d(channel, in_channel, 1),
+            Conv2d(channel, in_channel, 1, dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -143,25 +153,25 @@ class Encoder(nn.Module):
     """
 
     def __init__(self, in_channel: int, channel: int = 128, n_res_block: int = 2,
-                 n_res_channel: int = 32, stride: int = 4):
+                 n_res_channel: int = 32, stride: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         if stride == 4:
             blocks = [
-                nn.Conv2d(in_channel, channel // 2, 4, stride=2, padding=1),
+                Conv2d(in_channel, channel // 2, 4, stride=2, padding=1, dtype=dtype),
                 nn.ReLU(inplace=True),
-                nn.Conv2d(channel // 2, channel, 4, stride=2, padding=1),
+                Conv2d(channel // 2, channel, 4, stride=2, padding=1, dtype=dtype),
                 nn.ReLU(inplace=True),
-                nn.Conv2d(channel, channel, 3, padding=1),
+                Conv2d(channel, channel, 3, padding=1, dtype=dtype),
             ]
         elif stride == 2:
             blocks = [
-                nn.Conv2d(in_channel, channel // 2, 4, stride=2, padding=1),
+                Conv2d(in_channel, channel // 2, 4, stride=2, padding=1, dtype=dtype),
                 nn.ReLU(inplace=True),
-                nn.Conv2d(channel // 2, channel, 3, padding=1),
+                Conv2d(channel // 2, channel, 3, padding=1, dtype=dtype),
             ]
         else:
             raise ValueError(f"unsupported stride {stride}")
-        blocks += [ResBlock(channel, n_res_channel) for _ in range(n_res_block)]
+        blocks += [ResBlock(channel, n_res_channel, dtype) for _ in range(n_res_block)]
         blocks.append(nn.ReLU(inplace=True))
         self.blocks = nn.Sequential(*blocks)
 
@@ -173,20 +183,21 @@ class Decoder(nn.Module):
     """Transposed-convolution decoder, ``(B, H, W, C)`` in and out."""
 
     def __init__(self, in_channel: int, out_channel: int, channel: int = 128,
-                 n_res_block: int = 2, n_res_channel: int = 32, stride: int = 4):
+                 n_res_block: int = 2, n_res_channel: int = 32, stride: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        blocks = [nn.Conv2d(in_channel, channel, 3, padding=1)]
-        blocks += [ResBlock(channel, n_res_channel) for _ in range(n_res_block)]
+        blocks = [Conv2d(in_channel, channel, 3, padding=1, dtype=dtype)]
+        blocks += [ResBlock(channel, n_res_channel, dtype) for _ in range(n_res_block)]
         blocks.append(nn.ReLU(inplace=True))
         if stride == 4:
             blocks += [
-                nn.ConvTranspose2d(channel, channel // 2, 4, stride=2, padding=1),
+                ConvTranspose2d(channel, channel // 2, 4, stride=2, padding=1, dtype=dtype),
                 nn.ReLU(inplace=True),
-                nn.ConvTranspose2d(channel // 2, out_channel, 4, stride=2, padding=1),
+                ConvTranspose2d(channel // 2, out_channel, 4, stride=2, padding=1, dtype=dtype),
             ]
         elif stride == 2:
             blocks.append(
-                nn.ConvTranspose2d(channel, out_channel, 4, stride=2, padding=1))
+                ConvTranspose2d(channel, out_channel, 4, stride=2, padding=1, dtype=dtype))
         else:
             raise ValueError(f"unsupported stride {stride}")
         self.blocks = nn.Sequential(*blocks)
@@ -201,35 +212,45 @@ class VQVAE(nn.Module):
     Defaults are the reference configuration: channel 128, 2 residual blocks
     of 32 channels, code dimension 64, 512 codes.  ``with_ir_head`` adds the
     extra 1-channel decoder head ``dec_ir`` (two residual blocks deeper).
-    ``restart_threshold`` goes to both quantizers (see :class:`Quantize`)."""
+    ``restart_threshold`` goes to both quantizers (see :class:`Quantize`).
+    ``dtype`` (the convolutions' compute type) and ``remat`` are the JAX
+    module's fields; neither changes the parameters or their names."""
 
     def __init__(self, in_channel: int = 3, channel: int = 128, n_res_block: int = 2,
                  n_res_channel: int = 32, embed_dim: int = 64, n_embed: int = 512,
                  decay: float = 0.99, with_ir_head: bool = False,
-                 restart_threshold: float = 0.0):
+                 restart_threshold: float = 0.0, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = dict(in_channel=in_channel, channel=channel,
                            n_res_block=n_res_block, n_res_channel=n_res_channel,
                            embed_dim=embed_dim, n_embed=n_embed, decay=decay,
                            with_ir_head=with_ir_head, restart_threshold=restart_threshold)
-        self.with_ir_head = with_ir_head
-        self.enc_b = Encoder(in_channel, channel, n_res_block, n_res_channel, stride=4)
-        self.enc_t = Encoder(channel, channel, n_res_block, n_res_channel, stride=2)
-        self.quantize_conv_t = nn.Conv2d(channel, embed_dim, 1)
+        self.with_ir_head, self.dtype, self.remat = with_ir_head, dtype, remat
+        dt = dict(dtype=dtype)
+        self.enc_b = Encoder(in_channel, channel, n_res_block, n_res_channel, stride=4, **dt)
+        self.enc_t = Encoder(channel, channel, n_res_block, n_res_channel, stride=2, **dt)
+        self.quantize_conv_t = Conv2d(channel, embed_dim, 1, **dt)
         self.quantize_t = Quantize(embed_dim, n_embed, decay,
                                    restart_threshold=restart_threshold)
         self.dec_t = Decoder(embed_dim, embed_dim, channel, n_res_block,
-                             n_res_channel, stride=2)
-        self.quantize_conv_b = nn.Conv2d(embed_dim + channel, embed_dim, 1)
+                             n_res_channel, stride=2, **dt)
+        self.quantize_conv_b = Conv2d(embed_dim + channel, embed_dim, 1, **dt)
         self.quantize_b = Quantize(embed_dim, n_embed, decay,
                                    restart_threshold=restart_threshold)
-        self.upsample_t = nn.ConvTranspose2d(embed_dim, embed_dim, 4, stride=2,
-                                             padding=1)
+        self.upsample_t = ConvTranspose2d(embed_dim, embed_dim, 4, stride=2, padding=1, **dt)
         self.dec = Decoder(embed_dim + embed_dim, in_channel, channel, n_res_block,
-                           n_res_channel, stride=4)
+                           n_res_channel, stride=4, **dt)
         if with_ir_head:
             self.dec_ir = Decoder(embed_dim + embed_dim, 1, channel, n_res_block + 2,
-                                  n_res_channel, stride=4)
+                                  n_res_channel, stride=4, **dt)
+
+    def _coder(self, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """An encoder or decoder, its activations recomputed in the backward
+        pass under ``remat`` (only where a backward can follow)."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
 
     @staticmethod
     def _check_size(x: torch.Tensor) -> None:
@@ -259,11 +280,11 @@ class VQVAE(nn.Module):
         quantized fully (``dec_t`` consumes ``quant_t``); returns the top
         results and the input of the bottom quantizer."""
         self._check_size(x)
-        enc_b = self.enc_b(x)
-        enc_t = self.enc_t(enc_b)
+        enc_b = self._coder(self.enc_b, x)
+        enc_t = self._coder(self.enc_t, enc_b)
         qt_in = _conv_nhwc(self.quantize_conv_t, enc_t)
         quant_t, diff_t, id_t = self.quantize_t(qt_in, train=train)
-        dec_t = self.dec_t(quant_t)
+        dec_t = self._coder(self.dec_t, quant_t)
         enc_b = torch.cat([dec_t, enc_b], dim=-1)
         qb_in = _conv_nhwc(self.quantize_conv_b, enc_b)
         return quant_t, diff_t, id_t, qb_in
@@ -287,16 +308,17 @@ class VQVAE(nn.Module):
         return torch.cat([upsample_t, quant_b], dim=-1)
 
     def decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor) -> torch.Tensor:
-        return self.dec(self._merge(quant_t, quant_b))
+        return self._coder(self.dec, self._merge(quant_t, quant_b))
 
     def decode_ir(self, quant_t: torch.Tensor, quant_b: torch.Tensor) -> torch.Tensor:
         """The extra 1-channel IR head."""
-        return self.dec_ir(self._merge(quant_t, quant_b))
+        return self._coder(self.dec_ir, self._merge(quant_t, quant_b))
 
     def decode_code(self, code_t: torch.Tensor, code_b: torch.Tensor) -> torch.Tensor:
-        """Reconstruct from integer codes."""
-        quant_t = self.quantize_t.embed_code(code_t)
-        quant_b = self.quantize_b.embed_code(code_b)
+        """Reconstruct from integer codes; the looked-up codes are cast to
+        the compute type."""
+        quant_t = self.quantize_t.embed_code(code_t).to(self.dtype)
+        quant_b = self.quantize_b.embed_code(code_b).to(self.dtype)
         return self.decode(quant_t, quant_b)
 
 

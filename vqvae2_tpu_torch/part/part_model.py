@@ -19,6 +19,13 @@ would write them:
 * ``NonLocalSelf`` has one inter channel and the unnormalised ``f / N``
   attention, no softmax;
 * the batch norms outside the ABNs are flax's (``models/resnet.py``).
+
+``dtype`` is the convolutions' compute type, passed down as the JAX package
+passes it: every convolution runs in it, each ``InPlaceABN`` stores its output
+in its input's type (bf16 after a bf16 convolution) with fp32 channel math,
+and the batch norms and dense heads, which have no ``dtype`` there, promote to
+fp32.  Where a bf16 tensor meets an fp32 one (a concatenation, the part-mask
+pooling) the result is fp32, as JAX promotes it.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqvae2_tpu_torch.models.abn import InPlaceABN
-from vqvae2_tpu_torch.models.layers import avg_pool, gem_pool, l2_normalize
+from vqvae2_tpu_torch.models.layers import avg_pool, gem_pool, l2_normalize, promote
 from vqvae2_tpu_torch.models.pixelsnail import dropout
 from vqvae2_tpu_torch.models.resnet import (CONFIGS, BatchNorm, Conv2d, Dense, ResNetStem,
                                             _make_layer, expansion, pool_dim)
@@ -39,9 +46,13 @@ PART_DROPOUT = 0.1
 
 
 def _resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """``jax.image.resize(x, (b, h, w, c), "bilinear")`` on ``(B, H, W, C)``."""
-    return F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                         align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    """``jax.image.resize(x, (b, h, w, c), "bilinear")`` on ``(B, H, W, C)``,
+    in ``x``'s type.  A bf16 map is resized in fp32 and rounded once: the
+    antialiased resize takes no bf16 on the CPU, and JAX's rounds its weights
+    and each axis's pass to bf16, which differs by a bf16 rounding or two."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.float32), size=tuple(hw),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -58,13 +69,14 @@ class NonLocalSelf(nn.Module):
     """Self non-local block with the reference's quirks: ``inter_channels = 1``
     and the unnormalised ``f / N`` attention."""
 
-    def __init__(self, in_features: int, inter_channels: int = 1):
+    def __init__(self, in_features: int, inter_channels: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.inter = inter_channels
-        self.g = Conv2d(in_features, inter_channels, 1)
-        self.theta = Conv2d(in_features, inter_channels, 1)
-        self.phi = Conv2d(in_features, inter_channels, 1)
-        self.W_conv = Conv2d(inter_channels, in_features, 1)
+        self.g = Conv2d(in_features, inter_channels, 1, dtype=dtype)
+        self.theta = Conv2d(in_features, inter_channels, 1, dtype=dtype)
+        self.phi = Conv2d(in_features, inter_channels, 1, dtype=dtype)
+        self.W_conv = Conv2d(inter_channels, in_features, 1, dtype=dtype)
         self.W_bn = BatchNorm(in_features, scale_init=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,11 +92,12 @@ class NonLocalSelf(nn.Module):
 class ConvABN(nn.Module):
     """Convolution without bias + InPlaceABN (leaky ReLU 0.01)."""
 
-    def __init__(self, in_features: int, features: int, kernel: int = 1, dilation: int = 1):
+    def __init__(self, in_features: int, features: int, kernel: int = 1, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         pad = (kernel // 2) * dilation if kernel > 1 else 0
         self.conv = Conv2d(in_features, features, kernel, padding=pad, dilation=dilation,
-                           bias=False)
+                           bias=False, dtype=dtype)
         self.abn = InPlaceABN(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,11 +108,13 @@ class PSPModule(nn.Module):
     """Pyramid scene parsing context."""
 
     def __init__(self, in_features: int, out_features: int = 512,
-                 sizes: Sequence[int] = (1, 2, 3, 6)):
+                 sizes: Sequence[int] = (1, 2, 3, 6), dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sizes = tuple(sizes)
-        self.stages = nn.ModuleList(ConvABN(in_features, out_features) for _ in self.sizes)
-        self.bottleneck = ConvABN(in_features + len(self.sizes) * out_features, out_features, 3)
+        self.stages = nn.ModuleList(ConvABN(in_features, out_features, dtype=dtype)
+                                    for _ in self.sizes)
+        self.bottleneck = ConvABN(in_features + len(self.sizes) * out_features, out_features, 3,
+                                  dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1:3]
@@ -112,14 +127,16 @@ class ASPPModule(nn.Module):
     """Atrous spatial pyramid (kept for parity; ``PartModel`` uses PSP)."""
 
     def __init__(self, in_features: int, inner_features: int = 256, out_features: int = 512,
-                 dilations: Sequence[int] = (12, 24, 36)):
+                 dilations: Sequence[int] = (12, 24, 36), dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = ConvABN(in_features, inner_features)
-        self.conv2 = ConvABN(in_features, inner_features)
+        self.conv1 = ConvABN(in_features, inner_features, dtype=dtype)
+        self.conv2 = ConvABN(in_features, inner_features, dtype=dtype)
         self.n_dilated = len(dilations)
         for i, d in enumerate(dilations):     # conv3, conv4, ... as the JAX module names them
-            setattr(self, f"conv{i + 3}", ConvABN(in_features, inner_features, 3, dilation=d))
-        self.bottleneck = ConvABN(inner_features * (2 + len(dilations)), out_features)
+            setattr(self, f"conv{i + 3}",
+                    ConvABN(in_features, inner_features, 3, dilation=d, dtype=dtype))
+        self.bottleneck = ConvABN(inner_features * (2 + len(dilations)), out_features,
+                                  dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -134,14 +151,15 @@ class EdgeModule(nn.Module):
     """Edge branch over (layer1, layer2, layer3) features; the 3x3 logit
     convolution ``conv4`` is shared across the three scales."""
 
-    def __init__(self, in_features: Sequence[int], mid_fea: int = 256, out_fea: int = 2):
+    def __init__(self, in_features: Sequence[int], mid_fea: int = 256, out_fea: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c1, c2, c3 = in_features
-        self.conv1 = ConvABN(c1, mid_fea)
-        self.conv2 = ConvABN(c2, mid_fea)
-        self.conv3 = ConvABN(c3, mid_fea)
-        self.conv4 = Conv2d(mid_fea, out_fea, 3, padding=1)
-        self.conv5 = Conv2d(out_fea * 3, out_fea, 1)
+        self.conv1 = ConvABN(c1, mid_fea, dtype=dtype)
+        self.conv2 = ConvABN(c2, mid_fea, dtype=dtype)
+        self.conv3 = ConvABN(c3, mid_fea, dtype=dtype)
+        self.conv4 = Conv2d(mid_fea, out_fea, 3, padding=1, dtype=dtype)
+        self.conv5 = Conv2d(out_fea * 3, out_fea, 1, dtype=dtype)
 
     def forward(self, x1, x2, x3):
         h, w = x1.shape[1:3]
@@ -157,14 +175,15 @@ class DecoderModule(nn.Module):
     """Parsing decoder: context features up to the layer1 grid, joined with
     48 channels of layer1."""
 
-    def __init__(self, num_classes: int, in_features: Sequence[int]):
+    def __init__(self, num_classes: int, in_features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         ct, cl = in_features
-        self.conv1 = ConvABN(ct, 256)
-        self.conv2 = ConvABN(cl, 48)
-        self.conv3a = ConvABN(256 + 48, 256)
-        self.conv3b = ConvABN(256, 256)
-        self.conv4 = Conv2d(256, num_classes, 1)
+        self.conv1 = ConvABN(ct, 256, dtype=dtype)
+        self.conv2 = ConvABN(cl, 48, dtype=dtype)
+        self.conv3a = ConvABN(256 + 48, 256, dtype=dtype)
+        self.conv3b = ConvABN(256, 256, dtype=dtype)
+        self.conv4 = Conv2d(256, num_classes, 1, dtype=dtype)
 
     def forward(self, xt: torch.Tensor, xl: torch.Tensor):
         h, w = xl.shape[1:3]
@@ -179,14 +198,15 @@ class PartModel(nn.Module):
     are the widths of (x4, x1, x2, x3).  Returns ``([[parsing, fusion],
     [edge]], fused_fea)``."""
 
-    def __init__(self, num_part: int, in_features: Sequence[int]):
+    def __init__(self, num_part: int, in_features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c4, c1, c2, c3 = in_features
-        self.context_encoding = PSPModule(c4, 512)
-        self.decoder = DecoderModule(num_part, (512, c1))
-        self.edge = EdgeModule((c1, c2, c3))
-        self.fusion_abn = ConvABN(256 + 3 * 256, 256)
-        self.fusion_out = Conv2d(256, num_part, 1)
+        self.context_encoding = PSPModule(c4, 512, dtype=dtype)
+        self.decoder = DecoderModule(num_part, (512, c1), dtype=dtype)
+        self.edge = EdgeModule((c1, c2, c3), dtype=dtype)
+        self.fusion_abn = ConvABN(256 + 3 * 256, 256, dtype=dtype)
+        self.fusion_out = Conv2d(256, num_part, 1, dtype=dtype)
 
     def forward(self, x4, x1, x2, x3, generator: Optional[torch.Generator] = None):
         ctx = self.context_encoding(x4)
@@ -207,17 +227,17 @@ class NLTrunk(nn.Module):
     and the last three of layer3, layer4 at stride 1.  Returns
     ``(x2, x3, x4)``."""
 
-    def __init__(self, arch: str = "resnet50"):
+    def __init__(self, arch: str = "resnet50", dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg, e = CONFIGS[arch], expansion(arch)
         layers = cfg["layers"]
-        self.layer2 = _make_layer(cfg["block"], 128, layers[1], 2, 64 * e)
-        self.layer3 = _make_layer(cfg["block"], 256, layers[2], 2, 128 * e)
-        self.layer4 = _make_layer(cfg["block"], 512, layers[3], 1, 256 * e)
+        self.layer2 = _make_layer(cfg["block"], 128, layers[1], 2, 64 * e, dtype)
+        self.layer3 = _make_layer(cfg["block"], 256, layers[2], 2, 128 * e, dtype)
+        self.layer4 = _make_layer(cfg["block"], 512, layers[3], 1, 256 * e, dtype)
         self.nl2_idx = _nl_indices(layers[1], 2)
         self.nl3_idx = _nl_indices(layers[2], 3)
-        self.NL2 = nn.ModuleList(NonLocalSelf(128 * e) for _ in self.nl2_idx)
-        self.NL3 = nn.ModuleList(NonLocalSelf(256 * e) for _ in self.nl3_idx)
+        self.NL2 = nn.ModuleList(NonLocalSelf(128 * e, dtype=dtype) for _ in self.nl2_idx)
+        self.NL3 = nn.ModuleList(NonLocalSelf(256 * e, dtype=dtype) for _ in self.nl3_idx)
 
     def forward(self, x: torch.Tensor):
         h = x
@@ -242,19 +262,21 @@ class EmbedNet2(nn.Module):
     ``(feats, score, part_preds, None, maskedFeatX3, maskedFeat, part_masks,
     partsScore, featsP, scoreP)``; eval mode returns ``(l2(x_pool),
     l2(feats))``.  ``modal`` 0 concatenates (visible or gray, thermal[, gray]);
-    1, 2, 3 run one modality's stem."""
+    1, 2, 3 run one modality's stem.  ``dtype`` — the convolutions' compute
+    type; the outputs come back in the types JAX's promotion gives them (the
+    parsing maps and part masks in ``dtype``, the features and scores fp32)."""
 
     def __init__(self, class_num: int, arch: str = "resnet50", gm_pool: str = "on",
-                 part_num: int = 7):
+                 part_num: int = 7, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.class_num, self.arch, self.gm_pool, self.part_num = class_num, arch, gm_pool, part_num
         e, width = expansion(arch), pool_dim(arch)
-        self.thermal_module = ResNetStem(arch)
-        self.visible_module = ResNetStem(arch)
-        self.gray_module = ResNetStem(arch)
-        self.trunk = NLTrunk(arch)
+        self.thermal_module = ResNetStem(arch, dtype)
+        self.visible_module = ResNetStem(arch, dtype)
+        self.gray_module = ResNetStem(arch, dtype)
+        self.trunk = NLTrunk(arch, dtype)
         self.bottleneck = BatchNorm(width, use_bias=False)
-        self.part = PartModel(part_num, (width, 64 * e, 128 * e, 256 * e))
+        self.part = PartModel(part_num, (width, 64 * e, 128 * e, 256 * e), dtype)
         n = part_num - 1
         self.pd = nn.ModuleList(nn.Sequential(Dense(width, 512), Dense(512, 256))
                                 for _ in range(n))
@@ -292,9 +314,10 @@ class EmbedNet2(nn.Module):
         feat_g = self.bottleneck(x_pool)
 
         pm = _resize(part_masks[..., 1:], (h, w))            # background dropped
-        masked_feat = torch.einsum("bhwr,bhwc->brc", pm, x4f) / (h * w)
+        masked_feat = torch.einsum("bhwr,bhwc->brc", promote(pm, x4f), x4f) / (h * w)
         h3, w3 = x3f.shape[1:3]
-        masked_feat_x3 = torch.einsum("bhwr,bhwc->brc", _resize(pm, (h3, w3)), x3f) / (h3 * w3)
+        pm3 = promote(_resize(pm, (h3, w3)), x3f)
+        masked_feat_x3 = torch.einsum("bhwr,bhwc->brc", pm3, x3f) / (h3 * w3)
 
         parts_score, feats_p = [], []
         for i in range(self.part_num - 1):

@@ -15,6 +15,10 @@ Weights carried across from the JAX package (``pixelsnail_from_jax``) and a
 fresh Adam state on both sides are how the two trainers are held against each
 other: no map of the optimizer state is needed.
 
+``--bf16`` builds the prior with ``dtype=torch.bfloat16``: bf16 convolutions,
+fp32 parameters, attention in fp32 (as the JAX package's promotion has it),
+logits widened to fp32 before the loss.
+
 Run: ``python -m vqvae2_tpu_torch.train.pixelsnail codes.vq2 --hier top
 [flags]``.  The device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -36,11 +40,6 @@ from vqvae2_tpu_torch.train.vqvae import TrainState, create_state
 from vqvae2_tpu_torch.utils import schedules
 from vqvae2_tpu_torch.utils.checkpoint import CheckpointManager
 
-_BF16_NOT_PORTED = (
-    "--bf16 (bfloat16 convolutions and matmuls) is not ported yet: the port's priors "
-    "run in fp32; the bf16 compute mode is queued as slice 4b of the port "
-    "(ROADMAP.md Queue A)")
-
 
 def build_model(hier: str, args, code_hw=(32, 64)) -> PixelSNAIL:
     """The top or bottom prior for code grids ``code_hw = (top, bottom)``.
@@ -49,24 +48,23 @@ def build_model(hier: str, args, code_hw=(32, 64)) -> PixelSNAIL:
     anything else: the attention-free bottom prior conditioned on the top
     codes.  ``args`` carries ``n_class``, ``channel``, ``n_res_block``,
     ``n_res_channel``, ``dropout``, and ``n_out_res_block`` (top) or
-    ``n_cond_res_block`` (bottom); ``args.bf16`` raises, as that mode is not
-    ported."""
-    if getattr(args, "bf16", False):
-        raise NotImplementedError(_BF16_NOT_PORTED)
+    ``n_cond_res_block`` (bottom); ``args.bf16`` selects bf16 compute (fp32
+    parameters)."""
+    dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
     top_hw, bot_hw = code_hw
     if hier == "top":
         return PixelSNAIL(
             shape=(top_hw, top_hw), n_class=args.n_class, channel=args.channel,
             kernel_size=5, n_block=4, n_res_block=args.n_res_block,
             res_channel=args.n_res_channel, dropout=args.dropout,
-            n_out_res_block=args.n_out_res_block,
+            n_out_res_block=args.n_out_res_block, dtype=dtype,
         )
     return PixelSNAIL(
         shape=(bot_hw, bot_hw), n_class=args.n_class, channel=args.channel,
         kernel_size=5, n_block=4, n_res_block=args.n_res_block,
         res_channel=args.n_res_channel, attention=False, dropout=args.dropout,
         n_cond_res_block=args.n_cond_res_block,
-        cond_res_channel=args.n_res_channel,
+        cond_res_channel=args.n_res_channel, dtype=dtype,
     )
 
 
@@ -109,8 +107,6 @@ def make_train_step(model: PixelSNAIL, tx: schedules.AdamSchedule, conditional: 
 def train(args) -> Dict[str, float]:
     device = resolve_device(args.device)
     set_reference_precision()
-    if args.bf16:
-        raise NotImplementedError(_BF16_NOT_PORTED)
     store = CodeStore(args.path)
     th, tw = store.top_shape
     bh, bw = store.bot_shape
@@ -187,7 +183,7 @@ def build_argparser():
     p.add_argument("--n_cond_res_block", type=int, default=3)
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 conv/matmul compute: not ported yet, raises")
+                   help="bfloat16 conv/matmul compute (fp32 params, fp32 logits and loss)")
     p.add_argument("--sched", type=str, default="")
     p.add_argument("--ckpt_dir", type=str, default="")
     p.add_argument("--resume", action="store_true")

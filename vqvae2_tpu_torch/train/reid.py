@@ -50,10 +50,6 @@ from vqvae2_tpu_torch.utils.schedules import multi_step_lr
 
 IMG_H, IMG_W = 288, 144
 FULL_LR_MODULES = ("bottleneck", "classifier")
-_BF16_NOT_PORTED = (
-    "--bf16 (bfloat16 convolutions and matmuls) is not ported yet: the port's ReID "
-    "trainer runs in fp32; the bf16 compute mode is queued as slice 4b of the port "
-    "(ROADMAP.md Queue A)")
 
 
 def param_group(name: str) -> str:
@@ -107,6 +103,8 @@ def make_loss_fn(model: EmbedNet2, num_pos: int, batch_ids: int, img_hw=(IMG_H, 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         out = model(xRGB=batch["rgb"], xIR=batch["ir"], xZ=batch["gray"], modal=0,
                     generator=generator)
+        # bf16 compute stops at the model's boundary: every loss runs in fp32
+        out = _widened(out)
         (feat, score, part_preds, _, parts_feat_x3, parts_feat, part_masks, parts_score,
          feats_p, score_p) = out
 
@@ -157,6 +155,13 @@ def make_loss_fn(model: EmbedNet2, num_pos: int, batch_ids: int, img_hw=(IMG_H, 
         return total, {k: v.detach() for k, v in metrics.items()}
 
     return loss_fn
+
+
+def _widened(tree):
+    """Every tensor of a nested tuple or list of model outputs in fp32."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_widened(t) for t in tree)
+    return tree.to(torch.float32) if isinstance(tree, torch.Tensor) else tree
 
 
 def make_train_step(model: EmbedNet2, tx: MultiStepSGD, num_pos: int, batch_ids: int,
@@ -285,8 +290,6 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def train(args) -> Dict[str, float]:
     device = resolve_device(args.device)
     set_reference_precision()
-    if args.bf16:
-        raise NotImplementedError(_BF16_NOT_PORTED)
     dataset = SYSUData(args.path, part=True, seed=args.seed)
     loader_batch = args.batch_size * args.num_pos
     steps_per_epoch = max(len(dataset) // (loader_batch * args.grad_accum), 1)
@@ -295,7 +298,8 @@ def train(args) -> Dict[str, float]:
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = EmbedNet2(class_num=dataset.num_class, arch=args.arch).to(device)
+        model = EmbedNet2(class_num=dataset.num_class, arch=args.arch,
+                          dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     if args.pretrained:
         # each modality stem and the shared trunk get the same pretrained base
         from vqvae2_tpu_torch.models.resnet import import_torchvision_resnet
@@ -379,7 +383,8 @@ def build_argparser():
     p.add_argument("--grad_accum", type=int, default=1,
                    help="K P×K microbatches a step (one SGD update per superbatch)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 conv/matmul compute: not ported yet, raises")
+                   help="bfloat16 conv/matmul compute (fp32 params, fp32 "
+                        "losses and BN statistics)")
     p.add_argument("--metrics_csv", type=str, default="",
                    help="append per-step scalar metrics to this CSV")
     p.add_argument("--map_csv", type=str, default="",
@@ -392,8 +397,6 @@ def build_argparser():
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     resolve_device(args.device)
-    if args.bf16:
-        raise NotImplementedError(_BF16_NOT_PORTED)
     if not args.synthetic:
         return train(args)
     with tempfile.TemporaryDirectory(prefix="sysu_syn_") as tmp:

@@ -8,6 +8,8 @@ the schedule's values into the optimizer, ``optimizer.step()``.
 ``--grad_accum A`` splits the batch into ``A`` microbatches run one after the
 other: each takes its own EMA step, the gradients are summed and divided by
 ``A``, and one optimizer update follows, as the JAX package's scan does.
+``--bf16`` runs the convolutions in bf16 (``VQVAE(dtype=torch.bfloat16)``):
+parameters, codebooks, the quantizer's search and the loss stay fp32.
 
 Weights carried across from the JAX package (``utils/jax_import.py``:
 parameters and all three codebook buffers) and a fresh Adam state on both sides
@@ -122,10 +124,6 @@ def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 def train(args) -> Dict[str, float]:
     device = resolve_device(args.device)
     set_reference_precision()
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 (bfloat16 convolutions) is not ported yet: the port trains in fp32; "
-            "the bf16 compute mode is queued as slice 4b of the port (ROADMAP.md Queue A)")
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(f"--batch_size {args.batch_size} not divisible by "
                          f"--grad_accum {args.grad_accum}")
@@ -144,7 +142,8 @@ def train(args) -> Dict[str, float]:
         device=device, seed=args.seed, in_channel=3, channel=args.channel,
         n_res_block=args.n_res_block, n_res_channel=args.n_res_channel,
         embed_dim=args.embed_dim, n_embed=args.n_embed,
-        restart_threshold=args.restart_threshold)
+        restart_threshold=args.restart_threshold,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     tx = (schedules.cycle_adam(args.lr, total_steps) if args.sched == "cycle"
           else schedules.adam(args.lr))
     state = create_state(model, tx)
@@ -187,7 +186,7 @@ def train(args) -> Dict[str, float]:
         if args.sample_every and n_done % args.sample_every == 0:
             dec = eval_step(state, imgs[:8])
             head = normalize_to_unit(imgs[:8]) if imgs.dtype == np.uint8 else imgs[:8]
-            grid = np.concatenate([head, dec[:8].cpu().numpy()], axis=0)
+            grid = np.concatenate([head, dec[:8].float().cpu().numpy()], axis=0)
             save_image(grid, f"{args.sample_dir}/{n_done:05d}.png", nrow=8)
         if ckpt and n_done % (steps_per_epoch * 10) == 0:
             ckpt.save_periodic(state.step, state.state_dict())
@@ -225,7 +224,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="split the batch into this many sequential microbatches "
                         "(summed gradients, one optimizer update)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 conv/matmul compute: not ported yet, raises")
+                   help="bfloat16 conv/matmul compute (params stay fp32; the "
+                        "quantizer distance search stays exact fp32)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--ckpt_dir", type=str, default="")
     p.add_argument("--sample_dir", type=str, default="sample")
