@@ -81,14 +81,28 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               ReID model's, each first held against its plain version at the
               standing tolerances, and K4-K6 at the MNIST prior's shape: times
               beside bound, plain and library
-15. cudnn_grads — each convolution's weight gradient of one ReID step with
+15. main_deep — ``train/vqvae_deep.py main`` at its defaults (resnet18, P = K =
+              4) on a 288x144 synthetic SYSU tree: ``ModelAdaptive_Deep`` at its
+              fixed widths, K3 eight times a step and K2 eight times a sample
+              grid at D = 256 (N = 10,368 and 2,592), a validation every
+              epoch; recon falls; one step (batch 2 x 2) on the card against
+              the CPU: the quantizer ids, the losses, each module group's
+              gradient by its norm
+16. main_adaptive, main_gray2color — ``train/adaptive.py`` and
+              ``train/gray2color.py main`` at their defaults on a 288x144 tree:
+              the loss falls, K3 ran at D = 64 (N = 41,472 and 10,368)
+17. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
+              rows against their plain versions, then timed beside bound,
+              plain and library, with the grid's blocks; one deep step's time,
+              peak memory and split by CUDA events
+18. cudnn_grads — each convolution's weight gradient of one ReID step with
               cuDNN as the port sets it and with cuDNN disabled, against a
               float64 backward on the CPU, at the toy size of the card-vs-CPU
               step and at 288x144 (resnet50; 12 images for the float64
               backward); the kernels of each layer by profiler ranges (which
               run cuDNN's FFT or Winograd algorithms); the ReID step at its
               command line's batch with cuDNN disabled for the layers found
-16. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
+19. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
               throughput, the TF32 split's rounding by cvt against integer
               operations, and the rounding of the tensor cores' fp32 sums
 
@@ -145,8 +159,8 @@ PRIOR_BATCH = 32       # the top prior's forward (scoring a batch of code grids)
 SAMPLE_BATCH = 8       # train/sample.py's default
 DECODER_BATCH = 2      # incremental decoder against the full forward
 # image size at which the two samplers are held against each other: the
-# full-forward one takes (128/8)^2 + (128/4)^2 = 1,280 full-width forwards
-COMPARE_SIZE = 128
+# full-forward one takes (96/8)^2 + (96/4)^2 = 720 full-width forwards
+COMPARE_SIZE = 96
 N_HEAD, HEAD_DIM = 8, 16
 
 # Tolerances of the attention kernel against its plain version: fp32 as the JAX
@@ -922,7 +936,7 @@ def attention_awkward_cases(gen: torch.Generator):
         q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(3))
         return (q * scale).to(dtype), k.to(dtype), v.to(dtype)
 
-    yield "the full-forward sampler's shape at 128 px", normal(
+    yield f"the full-forward sampler's shape at {COMPARE_SIZE} px", normal(
         SAMPLE_BATCH * N_HEAD, (COMPARE_SIZE // 8) ** 2, HEAD_DIM)
     yield "N=1 (all zeros)", normal(8, 1, HEAD_DIM)
     yield "N=7", normal(8, 7, HEAD_DIM)
@@ -3417,6 +3431,402 @@ def phase_times_bf16(bf, x, launches_bf16, launches_reid_bf16, mnist_prior, mnis
     return records
 
 
+# ---------------------------------------------------------------------------
+# the adaptation path: train/vqvae_deep.py, train/adaptive.py, train/gray2color.py
+# ---------------------------------------------------------------------------
+
+DEEP_HW = REID_HW                   # SYSU at 288x144
+DEEP_P, DEEP_K = 4, 4               # the three trainers' --batch_size and --num_pos
+DEEP_ARCH = "resnet18"              # their --arch
+DEEP_D, DEEP_CODES = 256, 512       # VQVAE_Deep's fixed embed_dim and n_embed
+DEEP_STEPS = 8
+ADAPTIVE_STEPS = {"adaptive": 6, "gray2color": 6}
+# the deep step on the card against the CPU (batch cut to 2 x 2): the losses
+# within DEEP_METRIC_RTOL; each module group's gradient no further from a
+# float64 backward on the CPU than DEEP_F64_FACTOR times the CPU's own fp32
+# gradient lies from it (plus a thousandth of its norm).  The fp32 gradient is
+# ill-conditioned here: the fusions' batch norms normalise attention averages
+# that barely vary over a sample's positions, and the AdaIN blocks' convolution
+# biases have gradients that are zero in exact arithmetic (1e-17 in float64),
+# so on the CPU alone the adaptor's fp32 gradient lies 5 % of its norm from the
+# float64 one.
+DEEP_METRIC_RTOL = 1e-3
+DEEP_F64_FACTOR = 2.0
+
+
+def sysu_train_batch(seed: int, p: int, k: int, hw, device="cuda"):
+    """A P x K batch (``rgb``, ``ir``, ``label``) of a synthetic SYSU tree, as
+    the adaptation trainers collate it."""
+    from vqvae2_tpu_torch.data.sysu import SYSUData
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import reid as tr
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.make_synthetic_sysu(d, n_ids=REID_IDS, per_id=8, h=hw[0], w=hw[1], seed=seed)
+        ds = SYSUData(d, part=False, seed=seed)
+        ds.samplize(p, k)
+        rows = [ds[i] for i in range(p * k)]
+    return tad.sysu_batch(rows, device)
+
+
+def build_deep(seed: int, device="cuda"):
+    from vqvae2_tpu_torch.models.adaptive import ModelAdaptive_Deep
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return ModelAdaptive_Deep(class_num=REID_IDS, arch=DEEP_ARCH).to(device)
+
+
+@contextlib.contextmanager
+def pinned_gray(seed: int):
+    """The deep trainer's gray mix from numpy weights, the same on any device."""
+    from vqvae2_tpu_torch.train import vqvae_deep as ttd
+
+    saved = ttd.random_gray
+
+    def fixed(generator, img):
+        w = np.random.default_rng(seed).uniform(size=(img.shape[0], 3)).astype(np.float32) + 0.01
+        w = torch.from_numpy(w / w.sum(1, keepdims=True)).to(img.device, img.dtype)
+        return torch.einsum("bhwc,bc->bhw", img, w)[..., None].repeat(1, 1, 1, 3)
+
+    ttd.random_gray = fixed
+    try:
+        yield
+    finally:
+        ttd.random_gray = saved
+
+
+@contextlib.contextmanager
+def quantizer_calls(model):
+    """Each call of the adaptor's quantizers while the block runs, as
+    ``(level, rows, codebook before the call, ids)``."""
+    calls, handles = [], []
+    for level in ("quantize_t", "quantize_b"):
+        q = getattr(model.adaptor, level)
+
+        def pre(mod, args, _level=level):
+            calls.append([_level, args[0].detach().reshape(-1, mod.dim).clone(),
+                          mod.embed.clone(), None])
+
+        def post(mod, args, out):
+            calls[-1][3] = out[2].detach().reshape(-1).clone()
+
+        handles += [q.register_forward_pre_hook(pre), q.register_forward_hook(post)]
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def deep_step_on(model, batch, seed: int = 0):
+    """One deep train step: its metrics, the gradients it left (the ReID
+    net's from its own step, the generator's from the other), and the
+    quantizer calls."""
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import vqvae_deep as ttd
+
+    tx = schedules.adam(3e-4)
+    state = tad.create_state(model, tx, tx)
+    with torch.enable_grad(), pinned_gray(seed), quantizer_calls(model) as calls:
+        _, metrics = ttd.make_train_step(model, tx, tx, 2)(state, batch)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return {k: float(v) for k, v in metrics.items()}, grads, calls
+
+
+def deep_step_against_cpu() -> dict:
+    """One deep step (288x144, the batch cut to 2 x 2) on the card, on the
+    CPU and on the CPU in float64, from the same weights and batch: the
+    quantizer ids of each of the eight calls equal to the CPU's (or apart at
+    near-ties of the CPU's own scores, within TIE_RTOL), the losses within
+    DEEP_METRIC_RTOL, and each module group's gradient on the card no further
+    from the float64 one than DEEP_F64_FACTOR times the CPU's fp32 gradient
+    (plus 1e-3 of its norm).  Reports the card's and the CPU's distances and
+    the tensors that differ most."""
+    batch = sysu_train_batch(9, 2, 2, DEEP_HW, device="cpu")
+    cpu = build_deep(9, "cpu")
+    card = copy.deepcopy(cpu).cuda()
+    c64 = copy.deepcopy(cpu).double()
+    m_gpu, g_gpu, c_gpu = deep_step_on(card, {k: v.cuda() for k, v in batch.items()})
+    m_cpu, g_cpu, c_cpu = deep_step_on(cpu, batch)
+    _, g64, _ = deep_step_on(c64, {k: v.double() if v.is_floating_point() else v
+                                   for k, v in batch.items()})
+    check(len(c_gpu) == len(c_cpu) == 8, f"deep step: {len(c_gpu)} / {len(c_cpu)} quantizer calls")
+    ids = []
+    for (level, flat, embed, id_cpu), (_, _, _, id_gpu) in zip(c_cpu, c_gpu):
+        wrong = (id_gpu.cpu() != id_cpu).nonzero().flatten()
+        rel = 0.0
+        if wrong.numel():
+            scores = qz.nearest_code_scores(flat[wrong], embed)
+            s_cpu = scores.gather(1, id_cpu[wrong].long()[:, None])[:, 0]
+            s_gpu = scores.gather(1, id_gpu.cpu()[wrong].long()[:, None])[:, 0]
+            scale = (flat[wrong] ** 2).sum(1) + (embed[id_cpu[wrong].long()] ** 2).sum(1)
+            rel = float(((s_cpu - s_gpu).abs() / scale).max())
+        check(rel <= TIE_RTOL, f"deep step: {wrong.numel()} {level} ids differ, gap {rel}")
+        ids.append({"level": level, "rows": int(id_cpu.numel()), "differ": int(wrong.numel()),
+                    "largest_rel_gap": rel})
+    for k in m_cpu:
+        check(abs(m_gpu[k] - m_cpu[k]) <= DEEP_METRIC_RTOL * abs(m_cpu[k]) + 1e-6,
+              f"deep card vs CPU step: {k} {m_gpu[k]} vs {m_cpu[k]}")
+    check(set(g_gpu) == set(g_cpu) == set(g64), "deep step: other parameters got gradients")
+    groups = {}
+    for name in g_cpu:
+        top = name.split(".")[0]
+        groups.setdefault("fusion" if top.startswith(("fusion", "resblocks")) else top,
+                          []).append(name)
+
+    def dist(a, b, names):
+        err = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in names)
+        return (err / sum(float((g64[n] ** 2).sum()) for n in names)) ** 0.5
+
+    errors = {}
+    for group, names in groups.items():
+        card_f64, cpu_f64 = dist(g_gpu, g64, names), dist(g_cpu, g64, names)
+        errors[group] = {"card_vs_float64": card_f64, "cpu_fp32_vs_float64": cpu_f64,
+                         "card_vs_cpu": dist(g_gpu, g_cpu, names)}
+        check(card_f64 <= DEEP_F64_FACTOR * cpu_f64 + 1e-3,
+              f"deep step: the card's {group} gradient lies {card_f64} of its norm from "
+              f"float64, the CPU's fp32 one {cpu_f64}")
+    worst = sorted(((relative_error(g_gpu[n], g_cpu[n]), n) for n in g_cpu
+                    if float(g64[n].norm()) > 1e-12), reverse=True)[:5]
+    return {"hw": list(DEEP_HW), "p": 2, "k": 2, "ids": ids, "metrics_card": m_gpu,
+            "metrics_cpu": m_cpu, "grad_norm_rel_err": errors,
+            "worst_tensors": [{"name": n, "card_vs_cpu": e,
+                               "cpu_fp32_vs_float64": relative_error(g_cpu[n], g64[n]),
+                               "card_vs_float64": relative_error(g_gpu[n], g64[n])}
+                              for e, n in worst]}
+
+
+def phase_main_deep(tmp: str) -> dict:
+    """``train.vqvae_deep.main`` at its defaults (resnet18, P = K = 4) on a
+    288x144 synthetic SYSU tree for a few steps, with a sample grid at the
+    last step and a validation every epoch on the raw tree of the ReID phase,
+    the counters at zero before and read after: the statistics kernel ran 8
+    times a step at D = 256, the lookup kernel 8 times a grid, the plain
+    versions never; recon at the last step below the first; every scalar
+    finite; mAP in [0, 1].  Then one step on the card against the CPU."""
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import vqvae_deep as ttd
+
+    root = os.path.join(tmp, "deep")
+    data = tr.make_synthetic_sysu(os.path.join(root, "blobs"), n_ids=REID_IDS, per_id=8,
+                                  h=DEEP_HW[0], w=DEEP_HW[1], seed=7)
+    raw = os.path.join(tmp, "reid", "SYSU-MM01")
+    csv, samples, ckpt = (os.path.join(root, n) for n in ("steps.csv", "samples", "ckpt"))
+    reset_all_counts()
+    with launched_inputs() as seen:
+        t0 = time.perf_counter()
+        last = ttd.main(["--path", data, "--steps", str(DEEP_STEPS), "--log_every", "1",
+                         "--metrics_csv", csv, "--sample_dir", samples, "--sample_every",
+                         str(DEEP_STEPS), "--eval_every", "1", "--eval_path", raw,
+                         "--ckpt_dir", ckpt])
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                       # read just after the deep path
+    recon = csv_column(csv, "recon")
+    scalars = {k: csv_column(csv, k) for k in ("recon", "recon_feat", "latent", "id_ir",
+                                               "feat_ir", "loss_reid", "loss_gen")}
+    check(len(recon) == DEEP_STEPS and all(np.isfinite(v).all() for v in scalars.values()),
+          f"deep trainer: scalars {scalars}")
+    check(recon[-1] < recon[0], f"deep trainer: recon did not fall: {recon}")
+    check(os.path.exists(os.path.join(samples, f"{DEEP_STEPS:05d}.png")),
+          "deep trainer: no sample grid")
+    check(0.0 <= last["mAP"] <= 1.0, f"deep trainer: mAP {last['mAP']}")
+    check(saved_step(ckpt) == DEEP_STEPS, "deep trainer: last.pt does not hold the last step")
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the deep path: {counts['plain_calls']}")
+    want = {"nearest_code_stats": 8 * DEEP_STEPS, "nearest_code_lookup": 8,
+            "nearest_code_ids": 0}
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"deep path launches {counts['launches']}, expected {want}")
+    n = DEEP_P * DEEP_K
+    top, bottom = n * (DEEP_HW[0] // 16) * (DEEP_HW[1] // 16), n * (DEEP_HW[0] // 8) * (
+        DEEP_HW[1] // 8)
+    shapes = {name: sorted(shape for _, shape in seen[name])
+              for name in ("nearest_code_stats", "nearest_code_lookup")}
+    check(all(v == [(top, DEEP_D), (bottom, DEEP_D)] for v in shapes.values()),
+          f"deep path quantizer rows {shapes}, expected N = {top}, {bottom} at D = {DEEP_D}")
+    result = {"steps": DEEP_STEPS, "p": DEEP_P, "k": DEEP_K, "hw": list(DEEP_HW),
+              "seconds": seconds, **scalars, "mAP": last["mAP"], "rows": shapes, **counts,
+              "step_vs_cpu": deep_step_against_cpu()}
+    emit("main_deep", **result)
+    return counts["launches"]
+
+
+def phase_main_adaptive(tmp: str) -> dict:
+    """``train.adaptive.main`` and ``train.gray2color.main`` at their defaults
+    (resnet18, P = K = 4) on a 288x144 synthetic SYSU tree for a few steps
+    each, the counters at zero before and read after each: the loss falls
+    (adaptive's reconstruction: its generator loss rises at first), every
+    scalar is finite, the statistics kernel ran at D = 64 (twice a step
+    and four times a step) and the plain versions never."""
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import gray2color as tg2c
+    from vqvae2_tpu_torch.train import reid as tr
+
+    data = tr.make_synthetic_sysu(os.path.join(tmp, "adaptive_blobs"), n_ids=REID_IDS,
+                                  per_id=8, h=DEEP_HW[0], w=DEEP_HW[1], seed=8)
+    n = DEEP_P * DEEP_K
+    rows = sorted([n * (DEEP_HW[0] // 8) * (DEEP_HW[1] // 8), n * (DEEP_HW[0] // 4) * (
+        DEEP_HW[1] // 4)])
+    out = {}
+    # adaptive's generator loss rises at first (the KL to a ReID net that
+    # sharpens on the real IR view): its reconstruction is what must fall
+    for name, trainer, loss, per_step in (("adaptive", tad, "mse", 2),
+                                          ("gray2color", tg2c, "loss", 4)):
+        steps = ADAPTIVE_STEPS[name]
+        csv = os.path.join(tmp, f"{name}.csv")
+        reset_all_counts()
+        with launched_inputs() as seen:
+            t0 = time.perf_counter()
+            trainer.main(["--path", data, "--steps", str(steps), "--log_every", "1",
+                          "--metrics_csv", csv])
+            seconds = time.perf_counter() - t0
+        counts = all_counts()                   # read just after this trainer's path
+        scalars = {c: csv_column(csv, c) for c in open(csv).readline().strip().split(",")[1:]}
+        check(all(np.isfinite(v).all() and len(v) == steps for v in scalars.values()),
+              f"{name}: scalars {scalars}")
+        check(falling(scalars[loss]), f"{name}: the loss did not fall: {scalars[loss]}")
+        check(not any(counts["plain_calls"].values()),
+              f"a plain version ran on the {name} path: {counts['plain_calls']}")
+        want = {"nearest_code_stats": per_step * steps, "nearest_code_lookup": 0,
+                "nearest_code_ids": 0}
+        check(all(counts["launches"][k] == v for k, v in want.items()),
+              f"{name} path launches {counts['launches']}, expected {want}")
+        got_rows = sorted({shape for _, shape in seen["nearest_code_stats"]})
+        check(got_rows == [(r, D) for r in rows],
+              f"{name}: quantizer rows {got_rows}, expected N = {rows} at D = {D}")
+        out[name] = {"launches": counts["launches"]["nearest_code_stats"]}
+        emit(f"main_{name}", steps=steps, p=DEEP_P, k=DEEP_K, hw=list(DEEP_HW),
+             seconds=seconds, rows=got_rows, **scalars, **counts)
+    return out
+
+
+def deep_step_times(model, batch) -> dict:
+    """One deep train step at the command line's batch (16 images at
+    288x144, the batch on the card): its time by the host's clock and, by CUDA
+    events around the parts of the same steps, the ReID forward + backward,
+    its Adam update, the mask and gray view, the generator's forward, its
+    backward (with the losses) and its Adam update; the peak memory."""
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import vqvae_deep as ttd
+
+    tx = schedules.adam(3e-4)
+    state = tad.create_state(model, tx, tx)
+    step = ttd.make_train_step(model, tx, tx, DEEP_K)
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    def around(fn, before, after):
+        def wrapped(*a, **kw):
+            mark(before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        return wrapped
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        ms = host_ms(lambda: step(state, batch), 5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = ttd.gen_forward
+        state.opt_reid.step = around(state.opt_reid.step, "reid_adam", "reid_adam_end")
+        state.opt_gen.step = around(state.opt_gen.step, "gen_adam", "gen_adam_end")
+        ttd.gen_forward = around(saved, "gen_forward", "gen_forward_end")
+        parts = {}
+        try:
+            for _ in range(5):
+                marks.clear()
+                mark("start")
+                step(state, batch)
+                torch.cuda.synchronize()
+                times = [(a[0], a[1].elapsed_time(b[1])) for a, b in zip(marks, marks[1:])]
+                for label, t in times:
+                    parts.setdefault(label, []).append(t)
+        finally:
+            ttd.gen_forward = saved
+            del state.opt_reid.step, state.opt_gen.step
+    names = {"start": "reid_forward_backward_ms", "reid_adam": "reid_adam_ms",
+             "reid_adam_end": "mask_and_gray_ms", "gen_forward": "gen_forward_ms",
+             "gen_forward_end": "gen_backward_ms", "gen_adam": "gen_adam_ms"}
+    split = {names[k]: float(np.mean(v)) for k, v in parts.items()}
+    return {"images": DEEP_P * DEEP_K, "hw": list(DEEP_HW), "ms": ms,
+            "img_per_s": DEEP_P * DEEP_K / ms * 1e3, "peak_memory_gb": peak,
+            "split_ms": split, "split_sum_ms": sum(split.values())}
+
+
+def deep_records(launches: dict) -> list:
+    """K2 and K3 at D = 256 on the rows a deep train step hands its
+    quantizers (N = 10,368 and 2,592 at 288x144, batch 16; K = 512): against
+    their plain versions at TIE_RTOL and ESUM_RTOL, then timed beside their
+    bounds, the plain versions and one library route each, with the blocks
+    of the grid (one a 128 rows) against the card's SMs and the ptxas lines
+    of the search kernel's variants.  Also the deep step's time and split."""
+    model = build_deep(10)
+    batch = sysu_train_batch(10, DEEP_P, DEEP_K, DEEP_HW)
+    with torch.no_grad(), quantizer_calls(model) as calls:
+        enc_b, enc_t = model.encode_content(batch["rgb"])
+        model.quantize_content(enc_b, enc_t, train=False)
+    rows = {c[1].shape[0]: (c[1], c[2]) for c in calls}
+    check(sorted(rows) == [2592, 10368] and all(f.shape[1] == DEEP_D for f, _ in rows.values()),
+          f"deep quantizer rows {[(n, f.shape[1]) for n, (f, _) in rows.items()]}")
+    cases = {n: compare_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
+    stats = {n: compare_stats_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = {k: v for k, v in ptxas_summary(_build.build_info["quantize"]["log"]).items()
+             if k.startswith("nearest_code_kernel")}
+    emit("kernels_deep", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=list(cases.values()),
+         stats_cases=list(stats.values()), ptxas=ptxas)
+    calls_of = {
+        "nearest_code_lookup": (lambda f, e: qz.nearest_code(f, e, False),
+                                qz.nearest_code_lookup_reference,
+                                lambda f, e: e[torch.cdist(f, e).argmin(1)]),
+        "nearest_code_stats": (lambda f, e: qz.nearest_code(f, e, True),
+                               qz.nearest_code_reference, library_stats),
+    }
+    records = []
+    for name, (kernel, plain, library) in calls_of.items():
+        per_shape = []
+        for n in (10368, 2592):
+            flat, embed = rows[n]
+            work = (stats_work(n, DEEP_D, DEEP_CODES, 4) if name == "nearest_code_stats"
+                    else kernel_work(name, n, DEEP_D, DEEP_CODES, 4))
+            blocks = -(-n // 128)
+            per_shape.append({"shape": {"n": n, "d": DEEP_D, "k": DEEP_CODES},
+                              "ms": cuda_ms(lambda: kernel(flat, embed), reps=20),
+                              "plain_ms": cuda_ms(lambda: plain(flat, embed), reps=5),
+                              "library_ms": cuda_ms(lambda: library(flat, embed), reps=5),
+                              "search_blocks": blocks, "sms": sms, "grid_fill": min(blocks / sms, 1.0),
+                              **work})
+        first = per_shape[0]
+        err = (stats[10368]["esum_max_abs_err_vs_plain_sum"] if name == "nearest_code_stats"
+               else max(cases[10368]["largest_gap"], cases[10368]["q_max_abs_err"]))
+        records.append(renamed({
+            "name": name, **KERNELS[name], "launches": launches[name], "max_abs_err": err,
+            "id_mismatches": cases[10368]["id_mismatches"], "shape": first["shape"],
+            "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "library": "torch.cdist + argmin + index" + (" + bincount + index_add_" if
+                                                         name == "nearest_code_stats" else ""),
+            "share_of_bound": first["bound_ms"] / first["ms"], "shapes": per_shape,
+            "ptxas": ptxas}, "deep D=256"))
+    step = deep_step_times(model, batch)
+    emit("times_deep", step=step,
+         kernels={r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                                 "launches", "share_of_bound")} | {
+             "shapes": [{k: s[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
+                                           "library_ms", "search_blocks", "grid_fill")}
+                        for s in r["shapes"]]} for r in records})
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
@@ -3481,6 +3891,10 @@ def main(argv=None) -> int:
                                               mnist_prior, mnist_codes, launches_mnist)
         del bf, mnist_prior
         torch.cuda.empty_cache()
+        with torch.enable_grad():
+            launches_deep = phase_main_deep(tmp)
+            phase_main_adaptive(tmp)
+        record["kernels"] += deep_records(launches_deep)
         phase_cudnn_grads()
         phase_probe()
         if args.breakdown:

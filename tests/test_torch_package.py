@@ -52,7 +52,10 @@ def test_the_walk_sees_the_port():
             "vqvae2_tpu_torch/part/lovasz.py", "vqvae2_tpu_torch/part/criterion.py",
             "vqvae2_tpu_torch/data/sysu.py", "vqvae2_tpu_torch/eval/reid.py",
             "vqvae2_tpu_torch/losses.py", "vqvae2_tpu_torch/train/reid.py",
-            "vqvae2_tpu_torch/train/pixelsnail_mnist.py"} <= names
+            "vqvae2_tpu_torch/train/pixelsnail_mnist.py", "vqvae2_tpu_torch/models/embed_net.py",
+            "vqvae2_tpu_torch/models/vqvae_deep.py", "vqvae2_tpu_torch/models/adaptive.py",
+            "vqvae2_tpu_torch/train/vqvae_deep.py", "vqvae2_tpu_torch/train/adaptive.py",
+            "vqvae2_tpu_torch/train/gray2color.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -27,8 +27,7 @@ every block's output is fp32 and only the convolutions run in bf16.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,17 +41,6 @@ CONFIGS = {
     "resnet50": {"block": "bottleneck", "layers": (3, 4, 6, 3), "width": 2048},
 }
 
-# flax's default kernel initialiser (LeCun normal: a normal truncated at two
-# standard deviations, scaled to variance 1 / fan_in)
-_TRUNCATED_STD = 0.87962566103423978
-
-
-def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
-    fan_in = weight.shape[1] * math.prod(weight.shape[2:]) if weight.ndim > 1 else 1
-    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
-    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
-
-
 class Conv2d(layers.Conv2d):
     """Convolution on ``(B, H, W, C)`` computing in ``dtype``, with flax's
     initialisers (LeCun normal, zero bias).  The permutes are views: a
@@ -64,7 +52,7 @@ class Conv2d(layers.Conv2d):
         super().__init__(in_features, features, kernel_size, stride=stride, padding=padding,
                          dilation=dilation, bias=bias, dtype=dtype)
         with torch.no_grad():
-            lecun_normal_(self.weight)
+            layers.lecun_normal_(self.weight)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -79,7 +67,7 @@ class Dense(nn.Linear):
     def __init__(self, in_features: int, features: int, bias: bool = True):
         super().__init__(in_features, features, bias=bias)
         with torch.no_grad():
-            lecun_normal_(self.weight)
+            layers.lecun_normal_(self.weight)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -106,8 +94,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
+        """``train`` overrides the module's own mode (flax's
+        ``use_running_average=not train``)."""
+        if self.training if train is None else train:
             dims = tuple(range(x.ndim - 1))
             x32 = x.to(torch.float32)
             mean = torch.mean(x32, dim=dims)
@@ -296,3 +286,11 @@ def import_torchvision_resnet(model: nn.Module,
     if copied == 0:
         raise ValueError("no ResNet stem/trunk pattern found in the model: nothing imported")
     return copied
+
+
+def load_torchvision_weights(model: nn.Module, state_dict_path: str, arch: str = "") -> nn.Module:
+    """Fill ``model``'s ResNet stems and trunks from a torchvision resnet
+    ``.pt`` file (:func:`import_torchvision_resnet`) and return it.  ``arch``
+    is taken and unused, as in the JAX package's signature."""
+    import_torchvision_resnet(model, state_dict_path)
+    return model

@@ -26,6 +26,17 @@ original PyTorch reference's ``state_dict`` layout.  The inverse of
   ``blocks_{b}``, ``res{r}`` and ``out_res_{i}`` are the port's
   ``blocks.{b}``, ``res.{r}`` and ``out_res.{i}``.
 
+* The adaptation models (``EmbedNet``, ``VQVAE_Deep``, ``ModelAdaptive*``):
+  :func:`embed_net_from_jax`, :func:`vqvae_deep_from_jax` and
+  :func:`adaptive_from_jax`.  A spectral-norm convolution's kernel is in
+  ``params`` under ``Conv_0`` (``ConvTranspose_0``), its ``u`` and ``sigma`` in
+  ``batch_stats`` under ``SpectralNorm_0`` with the keys ``"Conv_0/kernel/u"``
+  and ``"Conv_0/kernel/sigma"``: the port's ``weight``, ``bias``, ``u`` and
+  ``sigma``.  ``InstanceNorm``'s ``scale`` is ``weight``; an MLP's
+  ``MLP_0/LinearBlock_k/Dense_0`` is ``mlp.blocks.k.dense``.  A reference
+  ``VQVAE_Deep`` ``state_dict`` loads through
+  :func:`from_reference_deep_state_dict`.
+
 Inputs are nested dicts of **numpy** arrays (the caller does the
 ``np.asarray``); nothing here imports JAX.
 """
@@ -65,7 +76,8 @@ def _numbered(params: Mapping[str, Any], prefix: str):
 def _put_conv(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
               transposed: bool = False) -> None:
     out[f"{name}.weight"] = (conv_transpose_weight if transposed else conv_weight)(p["kernel"])
-    out[f"{name}.bias"] = _array(p["bias"])
+    if "bias" in p:
+        out[f"{name}.bias"] = _array(p["bias"])
 
 
 def _put_resblock(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
@@ -95,8 +107,10 @@ def _put_decoder(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) 
 
 def vqvae_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's VQVAE ``{"params": ..., "vq_stats": ...}`` (nested
-    dicts of numpy arrays) as a ``state_dict`` of the port's ``VQVAE``."""
-    params, stats = variables["params"], variables["vq_stats"]
+    dicts of numpy arrays) as a ``state_dict`` of the port's ``VQVAE``.
+    Without ``vq_stats`` (a tree of the parameters alone, an optimizer's
+    moments) the codebook buffers are left out."""
+    params, stats = variables["params"], variables.get("vq_stats", {})
     out: Dict[str, torch.Tensor] = {}
     _put_encoder(out, "enc_b", params["enc_b"])
     _put_encoder(out, "enc_t", params["enc_t"])
@@ -107,7 +121,7 @@ def vqvae_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _put_decoder(out, "dec", params["dec"])
     if "dec_ir" in params:
         _put_decoder(out, "dec_ir", params["dec_ir"])
-    for q in _QUANTIZERS:
+    for q in filter(stats.__contains__, _QUANTIZERS):
         for buf in ("embed", "cluster_size", "embed_avg"):
             out[f"{q}.{buf}"] = _array(stats[q][buf])
     return out
@@ -253,4 +267,215 @@ def embed_net2_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         for path, leaf, value in _walk(variables.get(collection, {})):
             name = ".".join(filter(None, (_reid_name(path), _REID_LEAVES.get(leaf, "weight"))))
             out[name] = _reid_leaf(leaf, value)
+    return out
+
+
+
+def embed_net_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EmbedNet`` ``{"params": ..., "batch_stats": ...}``
+    as a ``state_dict`` of the port's: the names are those of the ReID path
+    (:func:`embed_net2_from_jax`); the part head's ``local_conv<i>``,
+    ``local_bn<i>`` and ``fc<i>`` and the neck's ``bottleneck.bn`` keep theirs."""
+    return embed_net2_from_jax(variables)
+
+
+# ---------------------------------------------------------------------------
+# The adaptation models
+# ---------------------------------------------------------------------------
+
+def _stage_positions(sizes) -> tuple:
+    """Indices in a Sequential of the layers of stages of ``sizes`` layers
+    each, one ReLU between two layers of a stage and none between stages;
+    and the index after the last stage."""
+    positions, pos = [], 0
+    for n in sizes:
+        positions += [pos + 2 * j for j in range(n)]
+        pos += 2 * n - 1
+    return positions, pos
+
+
+# number of convolutions (transposed convolutions) -> their stages, by stride
+_ENCODER_STAGES = {2: (2,), 3: (3,), 5: (2, 3), 6: (3, 3)}
+_DECODER_STAGES = {1: (1,), 2: (2,), 3: (2, 1), 4: (2, 2)}
+
+
+def _put_dense(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel"]).T))
+    if "bias" in p:
+        out[f"{name}.bias"] = _array(p["bias"])
+
+
+def _put_deep_encoder(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    convs = _numbered(p, "Conv")
+    positions, first_res = _stage_positions(_ENCODER_STAGES[len(convs)])
+    for pos, key in zip(positions, convs):
+        _put_conv(out, f"{name}.blocks.{pos}", p[key])
+    for j, key in enumerate(_numbered(p, "ResBlock")):
+        _put_resblock(out, f"{name}.blocks.{first_res + j}", p[key])
+
+
+def _put_deep_decoder(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    _put_conv(out, f"{name}.conv1", p["conv1"])
+    for j, key in enumerate(_numbered(p, "ResBlock")):
+        _put_resblock(out, f"{name}.blocks.{j}", p[key])
+    j = 0
+    while f"adain{j}" in p:
+        a = p[f"adain{j}"]
+        for conv in ("conv1", "conv2"):
+            _put_conv(out, f"{name}.blocks.{j}.{conv}", a[conv])
+        for norm in ("norm1", "norm2"):
+            _put_dense(out, f"{name}.blocks.{j}.{norm}.fc", a[norm]["fc"])
+        j += 1
+    tconvs = _numbered(p, "ConvTranspose")
+    positions, _ = _stage_positions(_DECODER_STAGES[len(tconvs)])
+    for pos, key in zip(positions, tconvs):
+        _put_conv(out, f"{name}.up_sample.{pos}", p[key], transposed=True)
+
+
+def vqvae_deep_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``VQVAE_Deep`` ``{"params": ..., "vq_stats": ...}``
+    as a ``state_dict`` of the port's: flax's ``Conv_k`` of an encoder onto
+    the conv positions of its ``blocks`` (stride 6: ``0, 2, 3, 5, 7``, then
+    the residual blocks), ``ConvTranspose_k`` onto those of ``up_sample``,
+    ``adain<j>`` onto ``blocks.<j>``.  Without ``vq_stats`` the codebook
+    buffers are left out."""
+    params, stats = variables["params"], variables.get("vq_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    _put_deep_encoder(out, "enc_b", params["enc_b"])
+    _put_deep_encoder(out, "enc_t", params["enc_t"])
+    _put_deep_decoder(out, "dec_t", params["dec_t"])
+    _put_deep_decoder(out, "dec", params["dec"])
+    for conv in ("quantize_conv_t", "quantize_conv_b"):
+        _put_conv(out, conv, params[conv])
+    _put_conv(out, "upsample_t", params["upsample_t"], transposed=True)
+    for q in filter(stats.__contains__, _QUANTIZERS):
+        for buf in ("embed", "cluster_size", "embed_avg"):
+            out[f"{q}.{buf}"] = _array(stats[q][buf])
+    return out
+
+
+def _put_sn(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
+            st: Mapping[str, Any]) -> None:
+    """A spectral-norm convolution: the kernel (and bias) from ``params``,
+    ``u`` and ``sigma`` from ``batch_stats``."""
+    (layer,) = p.keys()
+    _put_conv(out, name, p[layer], transposed=layer.startswith("ConvTranspose"))
+    if "SpectralNorm_0" in st:
+        sn = st["SpectralNorm_0"]
+        out[f"{name}.u"] = _array(sn[f"{layer}/kernel/u"])
+        out[f"{name}.sigma"] = _array(sn[f"{layer}/kernel/sigma"])
+
+
+def _put_residual_block(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
+                        st: Mapping[str, Any]) -> None:
+    for conv in ("conv1", "conv2"):
+        _put_sn(out, f"{name}.{conv}", p[conv], st.get(conv, {}))
+    for norm in ("in1", "in2"):
+        out[f"{name}.{norm}.weight"] = _array(p[norm]["scale"])
+        out[f"{name}.{norm}.bias"] = _array(p[norm]["bias"])
+
+
+def _put_nonlocal(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any],
+                  st: Mapping[str, Any]) -> None:
+    for conv in ("g", "theta", "phi", "W_conv"):
+        _put_conv(out, f"{name}.{conv}", p[conv])
+    out[f"{name}.W_bn.weight"] = _array(p["W_bn"]["scale"])
+    out[f"{name}.W_bn.bias"] = _array(p["W_bn"]["bias"])
+    if "W_bn" in st:
+        out[f"{name}.W_bn.running_mean"] = _array(st["W_bn"]["mean"])
+        out[f"{name}.W_bn.running_var"] = _array(st["W_bn"]["var"])
+
+
+def _put_mlp(out: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    for k, key in enumerate(_numbered(p, "LinearBlock")):
+        _put_dense(out, f"{name}.blocks.{k}.dense", p[key]["Dense_0"])
+        if "prelu_a" in p[key]:
+            out[f"{name}.blocks.{k}.prelu_a"] = _array(p[key]["prelu_a"])
+
+
+def _prefixed(prefix: str, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in tensors.items()}
+
+
+def adaptive_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ModelAdaptive``, ``ModelAdaptive_Deep`` or
+    ``ModelAdaptiveBi_Deep`` ``{"params", "batch_stats", "vq_stats"}`` as a
+    ``state_dict`` of the port's model of the same class: ``person_id`` by
+    :func:`embed_net_from_jax`, a deep adaptor by
+    :func:`vqvae_deep_from_jax`, the classic one by :func:`vqvae_from_jax`,
+    ``resblocks1_0`` -> ``resblocks1.0``, ``encoder_s_1`` -> ``encoder_s.1``,
+    the discriminator's MLP as ``discriminator.mlp``.  A tree of
+    ``params`` alone (an optimizer's moments) maps the parameters alone."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    vq = variables.get("vq_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    for key, p in params.items():
+        st = stats.get(key, {})
+        listed = re.match(r"^(resblocks\d?|encoder_s)_(\d+)$", key)
+        name = f"{listed.group(1)}.{listed.group(2)}" if listed else key
+        if key == "person_id":
+            out.update(_prefixed(key, embed_net_from_jax({"params": p, "batch_stats": st})))
+        elif key.startswith("adaptor"):
+            sub = {"params": p, "vq_stats": vq.get(key, {})}
+            deep = "conv1" in p["dec"]
+            out.update(_prefixed(key, vqvae_deep_from_jax(sub) if deep else vqvae_from_jax(sub)))
+        elif key.startswith("fusion"):
+            _put_nonlocal(out, key, p, st)
+        elif key.startswith("resblocks"):
+            _put_residual_block(out, name, p, st)
+        elif key.startswith("encoder_s"):
+            _put_encoder(out, name, p)
+        elif key in ("conv1", "conv2"):
+            _put_sn(out, key, p, st)
+        elif key == "discriminator":
+            _put_mlp(out, "discriminator.mlp", p["MLP_0"])
+        else:
+            raise KeyError(f"no map for the JAX module {key!r}")
+    return out
+
+
+def adaptive_deep_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """:func:`adaptive_from_jax` of a ``ModelAdaptive_Deep``."""
+    return adaptive_from_jax(variables)
+
+
+def _natural(key: str):
+    return [int(t) if t.isdigit() else t for t in key.split(".")]
+
+
+def from_reference_deep_state_dict(state_dict: Mapping[str, Any],
+                                   model) -> Dict[str, torch.Tensor]:
+    """A reference ``VQVAE_Deep`` ``state_dict`` as one of ``model`` (the
+    port's ``VQVAE_Deep`` of the same configuration), as the JAX package's
+    ``import_vqvae_deep`` reads it: the convolutions of an encoder's
+    ``blocks`` and of a decoder's ``up_sample`` in the order of their indices
+    onto the port's in call order; every other tensor by name (the decoders'
+    names are the reference's, an ``upsample_t.0`` wrapper dropped), codebooks
+    ``(D, K)`` transposed; tensors the port has no place for (an
+    ``AdainResBlk``'s ``conv`` Sequential, which the reference never calls)
+    are left out.  Every tensor of ``model`` must be filled."""
+    sd = {(("upsample_t." + k[len("upsample_t.0."):]) if k.startswith("upsample_t.0.") else k):
+          torch.as_tensor(v) for k, v in state_dict.items()}
+    ours = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for prefix in ("enc_b.blocks.", "enc_t.blocks.", "dec_t.up_sample.", "dec.up_sample."):
+        theirs = sorted((k for k in sd if k.startswith(prefix) and k.endswith(".weight")
+                         and sd[k].ndim == 4), key=_natural)
+        mine = sorted((k for k in ours if k.startswith(prefix) and k.endswith(".weight")),
+                      key=_natural)
+        if len(theirs) != len(mine):
+            raise ValueError(f"{prefix}: {len(theirs)} convolutions in the checkpoint, "
+                             f"{len(mine)} in the model")
+        for t, m in zip(theirs, mine):
+            out[m] = sd[t]
+            out[m[:-len("weight")] + "bias"] = sd[t[:-len("weight")] + "bias"]
+    for k, v in sd.items():
+        if k in ours and k not in out and not k.startswith(
+                ("enc_b.blocks.", "enc_t.blocks.", "dec_t.up_sample.", "dec.up_sample.")):
+            out[k] = v
+    out = _transpose_codebooks(out)
+    missing = sorted(set(ours) - set(out))
+    if missing:
+        raise KeyError(f"the checkpoint lacks {missing[:5]}{'...' if len(missing) > 5 else ''}")
     return out
