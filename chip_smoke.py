@@ -90,11 +90,16 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               gradient by its norm
 16. main_adaptive, main_gray2color — ``train/adaptive.py`` and
               ``train/gray2color.py main`` at their defaults on a 288x144 tree:
-              the loss falls, K3 ran at D = 64 (N = 41,472 and 10,368)
+              the loss falls (adaptive: mse; its loss_gen is the sum of its
+              terms and its KL term carries the rise), K3 ran at D = 64
+              (N = 41,472 and 10,368)
 17. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
-              rows against their plain versions, then timed beside bound,
-              plain and library, with the grid's blocks; one deep step's time,
-              peak memory and split by CUDA events
+              rows, with codebooks drawn among those rows (many codes in use),
+              against their plain versions, then timed beside bound, plain and
+              library, with the grid's blocks and the codes in use; the kernels
+              timed again on the untrained codebooks (one code in use, as the
+              main path's first steps run); one deep step's time, peak memory
+              and split by CUDA events
 18. cudnn_grads — each convolution's weight gradient of one ReID step with
               cuDNN as the port sets it and with cuDNN disabled, against a
               float64 backward on the CPU, at the toy size of the card-vs-CPU
@@ -159,8 +164,8 @@ PRIOR_BATCH = 32       # the top prior's forward (scoring a batch of code grids)
 SAMPLE_BATCH = 8       # train/sample.py's default
 DECODER_BATCH = 2      # incremental decoder against the full forward
 # image size at which the two samplers are held against each other: the
-# full-forward one takes (96/8)^2 + (96/4)^2 = 720 full-width forwards
-COMPARE_SIZE = 96
+# full-forward one takes (128/8)^2 + (128/4)^2 = 1,280 full-width forwards
+COMPARE_SIZE = 128
 N_HEAD, HEAD_DIM = 8, 16
 
 # Tolerances of the attention kernel against its plain version: fp32 as the JAX
@@ -936,7 +941,7 @@ def attention_awkward_cases(gen: torch.Generator):
         q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(3))
         return (q * scale).to(dtype), k.to(dtype), v.to(dtype)
 
-    yield f"the full-forward sampler's shape at {COMPARE_SIZE} px", normal(
+    yield "the full-forward sampler's shape at 128 px", normal(
         SAMPLE_BATCH * N_HEAD, (COMPARE_SIZE // 8) ** 2, HEAD_DIM)
     yield "N=1 (all zeros)", normal(8, 1, HEAD_DIM)
     yield "N=7", normal(8, 7, HEAD_DIM)
@@ -3652,11 +3657,27 @@ def phase_main_deep(tmp: str) -> dict:
     return counts["launches"]
 
 
+def adaptive_loss_gen_checks(scalars: dict, latent_weight: float) -> None:
+    """adaptive's generator loss at every step is the sum of its logged terms
+    (to the CSV's six digits), and the KL term carries at least half of its
+    change over the run."""
+    total = (np.asarray(scalars["mse"]) + latent_weight * np.asarray(scalars["latent"])
+             + np.asarray(scalars["id_fake"]) + np.asarray(scalars["feat"])
+             + np.asarray(scalars["kl_fake"]))
+    check(np.allclose(total, scalars["loss_gen"], rtol=1e-4, atol=1e-5),
+          f"adaptive: loss_gen {scalars['loss_gen']} is not the sum of its terms {total}")
+    rise = scalars["loss_gen"][-1] - scalars["loss_gen"][0]
+    kl_rise = scalars["kl_fake"][-1] - scalars["kl_fake"][0]
+    check(rise <= 0 or kl_rise >= 0.5 * rise,
+          f"adaptive: loss_gen rose by {rise}, its KL term by {kl_rise} only")
+
+
 def phase_main_adaptive(tmp: str) -> dict:
     """``train.adaptive.main`` and ``train.gray2color.main`` at their defaults
     (resnet18, P = K = 4) on a 288x144 synthetic SYSU tree for a few steps
     each, the counters at zero before and read after each: the loss falls
-    (adaptive's reconstruction: its generator loss rises at first), every
+    (adaptive's reconstruction: its generator loss rises at first, the sum of
+    its terms, the KL term carrying the rise), every
     scalar is finite, the statistics kernel ran at D = 64 (twice a step
     and four times a step) and the plain versions never."""
     from vqvae2_tpu_torch.train import adaptive as tad
@@ -3670,7 +3691,8 @@ def phase_main_adaptive(tmp: str) -> dict:
         DEEP_HW[1] // 4)])
     out = {}
     # adaptive's generator loss rises at first (the KL to a ReID net that
-    # sharpens on the real IR view): its reconstruction is what must fall
+    # sharpens on the real IR view; tests/test_torch_train_adaptive.py shows
+    # the JAX package's doing the same): its reconstruction is what must fall
     for name, trainer, loss, per_step in (("adaptive", tad, "mse", 2),
                                           ("gray2color", tg2c, "loss", 4)):
         steps = ADAPTIVE_STEPS[name]
@@ -3686,6 +3708,8 @@ def phase_main_adaptive(tmp: str) -> dict:
         check(all(np.isfinite(v).all() and len(v) == steps for v in scalars.values()),
               f"{name}: scalars {scalars}")
         check(falling(scalars[loss]), f"{name}: the loss did not fall: {scalars[loss]}")
+        if name == "adaptive":
+            adaptive_loss_gen_checks(scalars, tad.LATENT_LOSS_WEIGHT)
         check(not any(counts["plain_calls"].values()),
               f"a plain version ran on the {name} path: {counts['plain_calls']}")
         want = {"nearest_code_stats": per_step * steps, "nearest_code_lookup": 0,
@@ -3759,28 +3783,66 @@ def deep_step_times(model, batch) -> dict:
             "split_ms": split, "split_sum_ms": sum(split.values())}
 
 
-def deep_records(launches: dict) -> list:
-    """K2 and K3 at D = 256 on the rows a deep train step hands its
-    quantizers (N = 10,368 and 2,592 at 288x144, batch 16; K = 512): against
-    their plain versions at TIE_RTOL and ESUM_RTOL, then timed beside their
-    bounds, the plain versions and one library route each, with the blocks
-    of the grid (one a 128 rows) against the card's SMs and the ptxas lines
-    of the search kernel's variants.  Also the deep step's time and split."""
-    model = build_deep(10)
-    batch = sysu_train_batch(10, DEEP_P, DEEP_K, DEEP_HW)
+def deep_quantizer_rows(model, batch) -> dict:
+    """``{level: (rows, codebook, ids)}`` of the deep adaptor's two quantizers
+    on ``batch``'s RGB view, as a sample grid runs them."""
     with torch.no_grad(), quantizer_calls(model) as calls:
         enc_b, enc_t = model.encode_content(batch["rgb"])
         model.quantize_content(enc_b, enc_t, train=False)
-    rows = {c[1].shape[0]: (c[1], c[2]) for c in calls}
-    check(sorted(rows) == [2592, 10368] and all(f.shape[1] == DEEP_D for f, _ in rows.values()),
-          f"deep quantizer rows {[(n, f.shape[1]) for n, (f, _) in rows.items()]}")
+    return {level: (flat, embed, ids) for level, flat, embed, ids in calls}
+
+
+def seed_deep_codebooks(model, batch) -> None:
+    """As ``seed_codebooks_from_data``: each of the deep adaptor's codebooks
+    drawn (from a seed) among the rows its quantizer sees, top first since the
+    bottom rows depend on the top codes."""
+    device = model.adaptor.quantize_t.embed.device
+    gen = torch.Generator(device=device).manual_seed(0)
+    for level in ("quantize_t", "quantize_b"):
+        flat = deep_quantizer_rows(model, batch)[level][0]
+        quantizer = getattr(model.adaptor, level)
+        pick = torch.randperm(flat.shape[0], generator=gen, device=device)[:quantizer.n_embed]
+        quantizer.embed.copy_(flat[pick])
+        quantizer.embed_avg.copy_(flat[pick])
+
+
+def deep_records(launches: dict) -> list:
+    """K2 and K3 at D = 256 on the rows a deep train step hands its
+    quantizers (N = 10,368 and 2,592 at 288x144, batch 16; K = 512).  The
+    untrained adaptor puts every row on one code, so the kernels are first
+    timed on its own codebooks (``one_code_ms``, the main path's first
+    steps); then each codebook is drawn among its rows, the rows taken again,
+    and the kernels held against their plain versions at TIE_RTOL and
+    ESUM_RTOL with many codes in use, then timed beside their bounds, the
+    plain versions and one library route each, with the blocks of the grid
+    (one a 128 rows) against the card's SMs and the ptxas lines of the
+    search kernel's variants.  Also the deep step's time and split."""
+    model = build_deep(10)
+    batch = sysu_train_batch(10, DEEP_P, DEEP_K, DEEP_HW)
+
+    def by_rows(model):
+        got = {flat.shape[0]: (flat, embed, int(ids.unique().numel()))
+               for flat, embed, ids in deep_quantizer_rows(model, batch).values()}
+        check(sorted(got) == [2592, 10368] and all(f.shape[1] == DEEP_D for f, _, _ in
+                                                   got.values()),
+              f"deep quantizer rows {[(n, f.shape[1]) for n, (f, _, _) in got.items()]}")
+        return got
+
+    untrained = by_rows(model)
+    seed_deep_codebooks(model, batch)
+    seeded = by_rows(model)
+    rows = {n: (f, e) for n, (f, e, _) in seeded.items()}
+    codes_used = {n: {"untrained": untrained[n][2], "drawn_from_rows": seeded[n][2]}
+                  for n in rows}
+    check(all(c["drawn_from_rows"] > 1 for c in codes_used.values()),
+          f"deep quantizer codes in use with codebooks drawn from the rows: {codes_used}")
     cases = {n: compare_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
     stats = {n: compare_stats_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas = {k: v for k, v in ptxas_summary(_build.build_info["quantize"]["log"]).items()
              if k.startswith("nearest_code_kernel")}
-    emit("kernels_deep", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=list(cases.values()),
-         stats_cases=list(stats.values()), ptxas=ptxas)
+    emit("kernels_deep", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, codes_used=codes_used,
+         cases=list(cases.values()), stats_cases=list(stats.values()), ptxas=ptxas)
     calls_of = {
         "nearest_code_lookup": (lambda f, e: qz.nearest_code(f, e, False),
                                 qz.nearest_code_lookup_reference,
@@ -3796,8 +3858,12 @@ def deep_records(launches: dict) -> list:
             work = (stats_work(n, DEEP_D, DEEP_CODES, 4) if name == "nearest_code_stats"
                     else kernel_work(name, n, DEEP_D, DEEP_CODES, 4))
             blocks = -(-n // 128)
+            one_flat, one_embed, _ = untrained[n]
             per_shape.append({"shape": {"n": n, "d": DEEP_D, "k": DEEP_CODES},
+                              "codes_used": codes_used[n]["drawn_from_rows"],
                               "ms": cuda_ms(lambda: kernel(flat, embed), reps=20),
+                              "one_code_ms": cuda_ms(lambda: kernel(one_flat, one_embed),
+                                                     reps=20),
                               "plain_ms": cuda_ms(lambda: plain(flat, embed), reps=5),
                               "library_ms": cuda_ms(lambda: library(flat, embed), reps=5),
                               "search_blocks": blocks, "sms": sms, "grid_fill": min(blocks / sms, 1.0),
@@ -3808,6 +3874,7 @@ def deep_records(launches: dict) -> list:
         records.append(renamed({
             "name": name, **KERNELS[name], "launches": launches[name], "max_abs_err": err,
             "id_mismatches": cases[10368]["id_mismatches"], "shape": first["shape"],
+            "codes_used": first["codes_used"], "one_code_ms": first["one_code_ms"],
             "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
@@ -3817,10 +3884,11 @@ def deep_records(launches: dict) -> list:
             "ptxas": ptxas}, "deep D=256"))
     step = deep_step_times(model, batch)
     emit("times_deep", step=step,
-         kernels={r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
-                                                 "launches", "share_of_bound")} | {
-             "shapes": [{k: s[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
-                                           "library_ms", "search_blocks", "grid_fill")}
+         kernels={r["name"]: {k: r[k] for k in ("ms", "one_code_ms", "bound_ms", "plain_ms",
+                                                 "library_ms", "launches", "share_of_bound")} | {
+             "shapes": [{k: s[k] for k in ("shape", "codes_used", "ms", "one_code_ms",
+                                           "bound_ms", "plain_ms", "library_ms",
+                                           "search_blocks", "grid_fill")}
                         for s in r["shapes"]]} for r in records})
     del model
     torch.cuda.empty_cache()

@@ -270,13 +270,9 @@ def embed_net2_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return out
 
 
-
-def embed_net_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``EmbedNet`` ``{"params": ..., "batch_stats": ...}``
-    as a ``state_dict`` of the port's: the names are those of the ReID path
-    (:func:`embed_net2_from_jax`); the part head's ``local_conv<i>``,
-    ``local_bn<i>`` and ``fc<i>`` and the neck's ``bottleneck.bn`` keep theirs."""
-    return embed_net2_from_jax(variables)
+# ``EmbedNet`` shares the ReID path's names; its part head's ``local_conv<i>``,
+# ``local_bn<i>`` and ``fc<i>`` and its neck's ``bottleneck.bn`` keep theirs.
+embed_net_from_jax = embed_net2_from_jax
 
 
 # ---------------------------------------------------------------------------
@@ -435,9 +431,7 @@ def adaptive_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def adaptive_deep_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """:func:`adaptive_from_jax` of a ``ModelAdaptive_Deep``."""
-    return adaptive_from_jax(variables)
+adaptive_deep_from_jax = adaptive_from_jax
 
 
 def _natural(key: str):
