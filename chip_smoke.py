@@ -93,21 +93,37 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               the loss falls (adaptive: mse; its loss_gen is the sum of its
               terms and its KL term carries the rise), K3 ran at D = 64
               (N = 41,472 and 10,368)
-17. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
+17. main_deep_bi, main_deep_ir, main_stargan — the cross-modal trainers at
+              their defaults (resnet18, P = K = 4) at 288x144, each with the
+              counters at zero before and read after: ``train/vqvae_deep_bi.py``
+              (K3 eight times a step: the four ``VQVAE_Deep`` passes of the
+              cycle; the latent loss falls, the generator's loss is the sum
+              of its terms), ``train/vqvae_deep_ir.py`` on a
+              corpus that ``data/persons.py`` writes, three reconstruction
+              steps and three full ones (K3 twice and four times a step, K2
+              four times a sample grid), each with one step (batch 2 x 2) on
+              the card against the CPU and a float64 backward;
+              ``train/stargan_bi.py`` with the discriminator every other step
+              (its parameters still over each masked step), a sample grid and
+              an identity-preservation eval (no quantizer kernel runs), R1's
+              gradient against a float64 backward, and one step with and
+              without ``remat`` bit for bit; each phase's step time by CUDA
+              events and its peak memory
+18. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
               rows, with codebooks drawn among those rows (many codes in use),
               against their plain versions, then timed beside bound, plain and
               library, with the grid's blocks and the codes in use; the kernels
               timed again on the untrained codebooks (one code in use, as the
               main path's first steps run); one deep step's time, peak memory
               and split by CUDA events
-18. cudnn_grads — each convolution's weight gradient of one ReID step with
+19. cudnn_grads — each convolution's weight gradient of one ReID step with
               cuDNN as the port sets it and with cuDNN disabled, against a
               float64 backward on the CPU, at the toy size of the card-vs-CPU
               step and at 288x144 (resnet50; 12 images for the float64
               backward); the kernels of each layer by profiler ranges (which
               run cuDNN's FFT or Winograd algorithms); the ReID step at its
               command line's batch with cuDNN disabled for the layers found
-19. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
+20. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
               throughput, the TF32 split's rounding by cvt against integer
               operations, and the rounding of the tensor cores' fp32 sums
 
@@ -3806,7 +3822,7 @@ def seed_deep_codebooks(model, batch) -> None:
         quantizer.embed_avg.copy_(flat[pick])
 
 
-def deep_records(launches: dict) -> list:
+def deep_records(by_path: dict) -> list:
     """K2 and K3 at D = 256 on the rows a deep train step hands its
     quantizers (N = 10,368 and 2,592 at 288x144, batch 16; K = 512).  The
     untrained adaptor puts every row on one code, so the kernels are first
@@ -3816,7 +3832,10 @@ def deep_records(launches: dict) -> list:
     ESUM_RTOL with many codes in use, then timed beside their bounds, the
     plain versions and one library route each, with the blocks of the grid
     (one a 128 rows) against the card's SMs and the ptxas lines of the
-    search kernel's variants.  Also the deep step's time and split."""
+    search kernel's variants.  Also the deep step's time and split.
+    ``by_path`` holds the launch counts of each path that runs these
+    kernels at D = 256; a record's ``launches`` is their sum."""
+    launches = {k: sum(c[k] for c in by_path.values()) for k in by_path["deep"]}
     model = build_deep(10)
     batch = sysu_train_batch(10, DEEP_P, DEEP_K, DEEP_HW)
 
@@ -3872,7 +3891,9 @@ def deep_records(launches: dict) -> list:
         err = (stats[10368]["esum_max_abs_err_vs_plain_sum"] if name == "nearest_code_stats"
                else max(cases[10368]["largest_gap"], cases[10368]["q_max_abs_err"]))
         records.append(renamed({
-            "name": name, **KERNELS[name], "launches": launches[name], "max_abs_err": err,
+            "name": name, **KERNELS[name], "launches": launches[name],
+            "launches_by_path": {path: c[name] for path, c in by_path.items()},
+            "max_abs_err": err,
             "id_mismatches": cases[10368]["id_mismatches"], "shape": first["shape"],
             "codes_used": first["codes_used"], "one_code_ms": first["one_code_ms"],
             "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
@@ -3893,6 +3914,497 @@ def deep_records(launches: dict) -> list:
     del model
     torch.cuda.empty_cache()
     return records
+
+
+# ---------------------------------------------------------------------------
+# the cross-modal trainers: train/vqvae_deep_bi.py, train/vqvae_deep_ir.py,
+# train/stargan_bi.py, and data/persons.py
+# ---------------------------------------------------------------------------
+
+CROSS_STEPS = {"deep_bi": 6, "deep_ir": 6, "stargan": 4}
+CARD = "cuda"
+IR_STAGE = 3                          # --stage_reconstruction of the IR phase
+STARGAN_D_EVERY = 2
+# the StarGAN discriminator's gradient of R1 alone on the card against a
+# float64 backward on the CPU: no further from it than STARGAN_F64_FACTOR times
+# the CPU's own fp32 gradient lies from it, plus R1_F64_FLOOR of its norm
+STARGAN_F64_FACTOR = 2.0
+R1_F64_FLOOR = 1e-3
+
+
+class StepTimer:
+    """CUDA events around each call of a step function built by
+    ``module.<factory>`` while the block runs: ``ms`` is the mean over the
+    calls after the first."""
+
+    def __init__(self, module, factory: str):
+        self.module, self.factory, self.times = module, factory, []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.factory)
+
+        def factory(*args, **kwargs):
+            step = self.saved(*args, **kwargs)
+
+            def timed(*a, **k):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step(*a, **k)
+                end.record()
+                end.synchronize()
+                self.times.append(start.elapsed_time(end))
+                return out
+            return timed
+
+        setattr(self.module, self.factory, factory)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.factory, self.saved)
+        self.peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def report(self, images: int) -> dict:
+        ms = float(np.mean(self.times[1:])) if len(self.times) > 1 else float("nan")
+        return {"step_ms": ms, "step_ms_each": self.times, "step_img_per_s": images / ms * 1e3,
+                "peak_memory_gb": self.peak_gb}
+
+
+@contextlib.contextmanager
+def adaptor_quantizer_calls(model, adaptors):
+    """Each call of the named adaptors' quantizers while the block runs, as
+    ``(level, rows, codebook before the call, ids)``."""
+    calls, handles = [], []
+    for name in adaptors:
+        for level in ("quantize_t", "quantize_b"):
+            q = getattr(getattr(model, name), level)
+
+            def pre(mod, args, _level=f"{name}.{level}"):
+                calls.append([_level, args[0].detach().reshape(-1, mod.dim).clone(),
+                              mod.embed.clone(), None])
+
+            def post(mod, args, out):
+                calls[-1][3] = out[2].detach().reshape(-1).clone()
+
+            handles += [q.register_forward_pre_hook(pre), q.register_forward_hook(post)]
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def ids_against_cpu(c_gpu: list, c_cpu: list, label: str) -> list:
+    """Each quantizer call's ids on the card equal to the CPU's, or apart at
+    near-ties of the CPU's own scores (TIE_RTOL)."""
+    check(len(c_gpu) == len(c_cpu), f"{label}: {len(c_gpu)} / {len(c_cpu)} quantizer calls")
+    out = []
+    for (level, flat, embed, id_cpu), (_, _, _, id_gpu) in zip(c_cpu, c_gpu):
+        wrong = (id_gpu.cpu() != id_cpu).nonzero().flatten()
+        rel = 0.0
+        if wrong.numel():
+            scores = qz.nearest_code_scores(flat[wrong], embed)
+            s_cpu = scores.gather(1, id_cpu[wrong].long()[:, None])[:, 0]
+            s_gpu = scores.gather(1, id_gpu.cpu()[wrong].long()[:, None])[:, 0]
+            scale = (flat[wrong] ** 2).sum(1) + (embed[id_cpu[wrong].long()] ** 2).sum(1)
+            rel = float(((s_cpu - s_gpu).abs() / scale).max())
+        check(rel <= TIE_RTOL, f"{label}: {wrong.numel()} {level} ids differ, gap {rel}")
+        out.append({"level": level, "rows": int(id_cpu.numel()), "differ": int(wrong.numel()),
+                    "largest_rel_gap": rel})
+    return out
+
+
+def grads_against_float64(g_gpu: dict, g_cpu: dict, g64: dict, label: str,
+                          factor: float = DEEP_F64_FACTOR, floor: float = 1e-3) -> dict:
+    """Each top-level module's gradient on the card no further from the
+    float64 one than ``factor`` times the CPU's fp32 gradient (plus ``floor``
+    of its norm); the distances as fractions of the float64 norm."""
+    check(set(g_gpu) == set(g_cpu) == set(g64), f"{label}: other parameters got gradients")
+    groups = {}
+    for name in g_cpu:
+        groups.setdefault(name.split(".")[0], []).append(name)
+
+    def dist(a, b, names):
+        err = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in names)
+        return (err / max(sum(float((g64[n] ** 2).sum()) for n in names), 1e-300)) ** 0.5
+
+    errors = {}
+    for group, names in groups.items():
+        card, cpu = dist(g_gpu, g64, names), dist(g_cpu, g64, names)
+        errors[group] = {"card_vs_float64": card, "cpu_fp32_vs_float64": cpu,
+                         "card_vs_cpu": dist(g_gpu, g_cpu, names)}
+        check(card <= factor * cpu + floor,
+              f"{label}: the card's {group} gradient lies {card} of its norm from float64, "
+              f"the CPU's fp32 one {cpu}")
+    return errors
+
+
+def cross_batch(seed: int, p: int, k: int, hw, device):
+    """A P x K batch of a synthetic SYSU tree as the cross-modal trainers
+    build it (gray mix, augmented views)."""
+    from vqvae2_tpu_torch.data.sysu import SYSUData
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import vqvae_deep_bi as tbi
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.make_synthetic_sysu(d, n_ids=REID_IDS, per_id=8, h=hw[0], w=hw[1], seed=seed)
+        ds = SYSUData(d, part=False, seed=seed)
+        ds.samplize(p, k)
+        rows = [ds[i] for i in range(p * k)]
+    return tbi.cross_modal_batch(rows, np.random.default_rng(seed), device)
+
+
+def cross_step_against_cpu(label: str, build, run_step, adaptors, n_calls: int) -> dict:
+    """One step (288x144, the batch cut to 2 x 2) on the card, on the CPU and
+    on the CPU in float64, from the same weights and batch: the quantizer ids
+    as ``deep_step_against_cpu``, the losses within DEEP_METRIC_RTOL, each
+    module's gradient (what the step's last backward left) against the
+    float64 one.  ``run_step(model, batch) -> metrics``."""
+    t0 = time.perf_counter()
+    batch = cross_batch(9, 2, 2, DEEP_HW, "cpu")
+    cpu = build()
+    card, c64 = copy.deepcopy(cpu).to(CARD), copy.deepcopy(cpu).double()
+    results = []
+    for model, b in ((card, {k: v.to(CARD) for k, v in batch.items()}), (cpu, batch),
+                     (c64, {k: v.double() if v.is_floating_point() else v
+                            for k, v in batch.items()})):
+        with torch.enable_grad(), adaptor_quantizer_calls(model, adaptors) as calls:
+            metrics = run_step(model, b)
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        results.append(({k: float(v) for k, v in metrics.items()}, grads, calls))
+    (m_gpu, g_gpu, c_gpu), (m_cpu, g_cpu, c_cpu), (_, g64, _) = results
+    check(len(c_cpu) == n_calls, f"{label}: {len(c_cpu)} quantizer calls, expected {n_calls}")
+    ids = ids_against_cpu(c_gpu, c_cpu, label)
+    for k in m_cpu:
+        check(abs(m_gpu[k] - m_cpu[k]) <= DEEP_METRIC_RTOL * abs(m_cpu[k]) + 1e-6,
+              f"{label}: {k} {m_gpu[k]} on the card, {m_cpu[k]} on the CPU")
+    del card
+    torch.cuda.empty_cache()
+    return {"hw": list(DEEP_HW), "p": 2, "k": 2, "ids": ids, "metrics_card": m_gpu,
+            "metrics_cpu": m_cpu,
+            "grad_norm_rel_err": grads_against_float64(g_gpu, g_cpu, g64, label),
+            "seconds": time.perf_counter() - t0}
+
+
+def expect_launches(counts: dict, want: dict, label: str) -> None:
+    check(not any(counts["plain_calls"].values()),
+          f"a plain version ran on the {label} path: {counts['plain_calls']}")
+    check(all(counts["launches"][k] == v for k, v in want.items()),
+          f"{label} path launches {counts['launches']}, expected {want}")
+
+
+def deep_rows() -> list:
+    """The deep quantizers' rows at 288x144, batch P x K: ``[(N, D)]`` of the
+    top and the bottom level."""
+    n = DEEP_P * DEEP_K
+    return [(n * (DEEP_HW[0] // 16) * (DEEP_HW[1] // 16), DEEP_D),
+            (n * (DEEP_HW[0] // 8) * (DEEP_HW[1] // 8), DEEP_D)]
+
+
+def phase_main_deep_bi(tmp: str) -> dict:
+    """``train.vqvae_deep_bi.main`` at its defaults (resnet18, P = K = 4) on a
+    288x144 synthetic SYSU tree, the counters at zero before and read after:
+    the statistics kernel ran 8 times a step at D = 256 (the four
+    ``VQVAE_Deep`` passes of the cycle), the other kernels and the plain
+    versions never; every scalar finite; the generator's loss the sum of its
+    terms and the latent loss at the last step below the first (the cycle
+    loss rises at first, as in the JAX package); ``last.pt`` holds the last
+    step.  Then one step on the card against the CPU (batch 2 x 2)."""
+    from vqvae2_tpu_torch.models.adaptive import ModelAdaptiveBi_Deep
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import vqvae_deep_bi as tbi
+    from vqvae2_tpu_torch.utils import schedules as sch
+
+    steps = CROSS_STEPS["deep_bi"]
+    root = os.path.join(tmp, "deep_bi")
+    data = tr.make_synthetic_sysu(os.path.join(root, "blobs"), n_ids=REID_IDS, per_id=8,
+                                  h=DEEP_HW[0], w=DEEP_HW[1], seed=11)
+    csv, ckpt = os.path.join(root, "steps.csv"), os.path.join(root, "ckpt")
+    reset_all_counts()
+    with launched_inputs() as seen, StepTimer(tbi, "make_train_step") as timer:
+        t0 = time.perf_counter()
+        tbi.main(["--path", data, "--steps", str(steps), "--log_every", "1",
+                  "--metrics_csv", csv, "--ckpt_dir", ckpt])
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                       # read just after the bi path
+    scalars = {k: csv_column(csv, k) for k in ("cycle", "latent", "id_ir", "feat_ir",
+                                               "disc_fake", "loss_gen", "loss_reid",
+                                               "img_per_s")}
+    check(all(len(v) == steps and np.isfinite(v).all() for v in scalars.values()),
+          f"deep_bi: scalars {scalars}")
+    # the cycle loss rises over the first steps at the defaults, in the JAX
+    # package too (tests/test_torch_train_vqvae_deep_bi.py): the ReID step
+    # moves the styles; the codebooks' commitment falls
+    check(scalars["latent"][-1] < scalars["latent"][0],
+          f"deep_bi: the latent loss did not fall: {scalars['latent']}")
+    terms = (np.asarray(scalars["cycle"]) + tbi.LATENT_LOSS_WEIGHT * np.asarray(scalars["latent"])
+             + 0.5 * (np.asarray(scalars["id_ir"]) + np.asarray(scalars["feat_ir"])
+                      + np.asarray(scalars["disc_fake"])))
+    check(np.allclose(terms, scalars["loss_gen"], rtol=1e-4, atol=1e-5),
+          f"deep_bi: loss_gen {scalars['loss_gen']} is not the sum of its terms {terms}")
+    check(saved_step(ckpt) == steps, "deep_bi: last.pt does not hold the last step")
+    expect_launches(counts, {"nearest_code_stats": 8 * steps, "nearest_code_lookup": 0,
+                             "nearest_code_ids": 0}, "deep_bi")
+    rows = sorted(shape for _, shape in seen["nearest_code_stats"])
+    check(rows == deep_rows(), f"deep_bi: quantizer rows {rows}, expected {deep_rows()}")
+
+    def build():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(9)
+            return ModelAdaptiveBi_Deep(class_num=REID_IDS, arch=DEEP_ARCH)
+
+    def run_step(model, batch):
+        tx_reid = sch.SGDSchedule(tbi.reid_lr_schedule(0.1, 1), weight_decay=5e-4)
+        tx_gen = sch.adam(3e-4)
+        state = tbi.create_state(model, tx_reid, tx_gen)
+        return tbi.make_train_step(model, tx_reid, tx_gen, 2)(state, batch)[1]
+
+    result = {"steps": steps, "p": DEEP_P, "k": DEEP_K, "hw": list(DEEP_HW), "seconds": seconds,
+              **timer.report(DEEP_P * DEEP_K), "command_line_img_per_s": scalars["img_per_s"][-1],
+              **scalars, "rows": rows, **counts,
+              "step_vs_cpu": cross_step_against_cpu("deep_bi step", build, run_step,
+                                                    ("adaptor1", "adaptor2"), 8)}
+    emit("main_deep_bi", **result)
+    return counts["launches"]
+
+
+def phase_main_deep_ir(tmp: str) -> dict:
+    """``train.vqvae_deep_ir.main`` at its defaults with ``--stage_reconstruction
+    3`` on a 288x144 persons corpus written by ``data/persons.py``, so both
+    step functions run, with a sample grid at the last step, the counters at
+    zero before and read after: the statistics kernel 2 times a
+    reconstruction step and 4 times a full step, the lookup kernel 4 times a
+    grid, the plain versions never; every scalar finite; the reconstruction
+    falls over its stage; ``last.pt`` holds the last step.  Then one full
+    step on the card against the CPU (batch 2 x 2; the ReID step's Adam at
+    rate 0, so the generator step meets the same ReID net everywhere)."""
+    from vqvae2_tpu_torch.data import persons
+    from vqvae2_tpu_torch.models.adaptive import ModelAdaptive_Deep
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import vqvae_deep_ir as tir
+    from vqvae2_tpu_torch.utils import schedules as sch
+
+    steps = CROSS_STEPS["deep_ir"]
+    root = os.path.join(tmp, "deep_ir")
+    t0 = time.perf_counter()
+    data = persons.save_person_sysu(os.path.join(root, "persons"), n_ids=REID_IDS, per_id=8,
+                                    hw=DEEP_HW, seed=0)
+    corpus_seconds = time.perf_counter() - t0
+    csv, ckpt, samples = (os.path.join(root, n) for n in ("steps.csv", "ckpt", "samples"))
+    reset_all_counts()
+    with launched_inputs() as seen, StepTimer(tir, "make_full_step") as timer:
+        t0 = time.perf_counter()
+        tir.main(["--path", data, "--steps", str(steps), "--stage_reconstruction", str(IR_STAGE),
+                  "--log_every", "1", "--metrics_csv", csv, "--ckpt_dir", ckpt,
+                  "--sample_dir", samples, "--sample_every", str(steps)])
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                       # read just after the IR path
+    scalars = {k: csv_column(csv, k) for k in ("recon", "latent", "loss_gen", "loss_reid",
+                                               "img_per_s")}
+    check(all(len(v) == steps and np.isfinite(v).all() for v in scalars.values()),
+          f"deep_ir: scalars {scalars}")
+    recon = scalars["recon"]
+    check(recon[IR_STAGE - 1] < recon[0] and all(r == 0.0 for r in recon[IR_STAGE:]),
+          f"deep_ir: the reconstruction did not fall over its stage: {recon}")
+    check(all(r == 0.0 for r in scalars["loss_reid"][:IR_STAGE])
+          and all(r > 0.0 for r in scalars["loss_reid"][IR_STAGE:]),
+          f"deep_ir: the ReID step ran outside the full stage: {scalars['loss_reid']}")
+    check(os.path.exists(os.path.join(samples, f"{steps:05d}.png")), "deep_ir: no sample grid")
+    check(saved_step(ckpt) == steps, "deep_ir: last.pt does not hold the last step")
+    full = steps - IR_STAGE
+    expect_launches(counts, {"nearest_code_stats": 2 * IR_STAGE + 4 * full,
+                             "nearest_code_lookup": 4, "nearest_code_ids": 0}, "deep_ir")
+    shapes = {name: sorted({shape for _, shape in seen[name]})
+              for name in ("nearest_code_stats", "nearest_code_lookup")}
+    check(all(v == deep_rows() for v in shapes.values()),
+          f"deep_ir: quantizer rows {shapes}, expected {deep_rows()}")
+
+    def build():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(9)
+            return ModelAdaptive_Deep(class_num=REID_IDS, arch=DEEP_ARCH)
+
+    def run_step(model, batch):
+        # the ReID step's Adam at rate 0: the generator step that follows runs
+        # through the ReID net, and Adam's first update moves each of its
+        # weights by about lr * sign(g), which for the weights whose gradient
+        # is rounding noise differs between the devices
+        tx_reid, tx_gen = sch.adam(0.0), sch.adam(3e-4)
+        state = tad.create_state(model, tx_reid, tx_gen)
+        return tir.make_full_step(model, tx_reid, tx_gen, 2)(state, batch)[1]
+
+    result = {"steps": steps, "stage_reconstruction": IR_STAGE, "p": DEEP_P, "k": DEEP_K,
+              "hw": list(DEEP_HW), "corpus_seconds": corpus_seconds, "seconds": seconds,
+              **{f"full_{k}": v for k, v in timer.report(DEEP_P * DEEP_K).items()},
+              "command_line_img_per_s": scalars["img_per_s"][-1], **scalars, "rows": shapes,
+              **counts,
+              "full_step_vs_cpu": cross_step_against_cpu("deep_ir full step", build, run_step,
+                                                         ("adaptor",), 4)}
+    emit("main_deep_ir", **result)
+    return counts["launches"]
+
+
+def stargan_r1_against_float64(model) -> dict:
+    """The gradient of R1 alone in the discriminator's parameters at 288x144
+    (one image a domain) on the card, on the CPU and on the CPU in float64,
+    from the run's own weights: the card's no further from float64 than
+    STARGAN_F64_FACTOR times the CPU's fp32 one, plus R1_F64_FLOOR."""
+    t0 = time.perf_counter()
+    batch = cross_batch(12, 1, 1, DEEP_HW, "cpu")
+    disc = copy.deepcopy(model.discriminator).cpu()
+    out = []
+    for dev, dt in ((CARD, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        d = copy.deepcopy(disc).to(dev, dt)
+        x = torch.cat([batch["gray"][:1], batch["ir"][:1]]).mean(-1, keepdim=True).repeat(
+            1, 1, 1, 3).to(dev, dt).requires_grad_(True)
+        y = torch.tensor([1, 0], device=dev)
+        with torch.enable_grad():
+            grad_x, = torch.autograd.grad(d(x, y).sum(), x, create_graph=True)
+            r1 = 0.5 * torch.mean(torch.sum(torch.square(grad_x.reshape(2, -1)), dim=1))
+            r1.backward()
+        # a parameter that R1 does not reach (the head's bias) has no gradient
+        out.append((float(r1.detach()), {n: (torch.zeros_like(p) if p.grad is None else
+                                             p.grad).detach().cpu()
+                                         for n, p in d.named_parameters()}))
+    (r_gpu, g_gpu), (r_cpu, g_cpu), (r64, g64) = out
+    names = list(g64)
+
+    def dist(a):
+        err = sum(float(((a[n].double() - g64[n]) ** 2).sum()) for n in names)
+        return (err / sum(float((g64[n] ** 2).sum()) for n in names)) ** 0.5
+
+    card, cpu = dist(g_gpu), dist(g_cpu)
+    check(r64 > 0 and card <= STARGAN_F64_FACTOR * cpu + R1_F64_FLOOR,
+          f"stargan: R1's gradient on the card lies {card} of its norm from float64, "
+          f"the CPU's fp32 one {cpu}")
+    return {"r1_card": r_gpu, "r1_cpu": r_cpu, "r1_float64": r64, "card_vs_float64": card,
+            "cpu_fp32_vs_float64": cpu, "factor": STARGAN_F64_FACTOR, "floor": R1_F64_FLOOR,
+            "seconds": time.perf_counter() - t0}
+
+
+def stargan_remat_bit_equal() -> dict:
+    """One StarGAN step (288x144, batch 2 x 2) with ``remat`` on and off from
+    the same weights and batch: every gradient the step leaves and every
+    parameter after it bit-equal (deterministic cuDNN); the peak memory and
+    time of each."""
+    from vqvae2_tpu_torch.models.stargan import ModelStarGAN
+    from vqvae2_tpu_torch.train import stargan_bi as tsb
+    from vqvae2_tpu_torch.utils import schedules as sch
+
+    batch = cross_batch(13, 2, 2, DEEP_HW, CARD)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        base = ModelStarGAN(class_num=REID_IDS, arch=DEEP_ARCH,
+                            img_size=tsb._generator_img_size(*DEEP_HW))
+    out, runs = {}, {}
+    for remat in (True, False):
+        model = copy.deepcopy(base).to(CARD)
+        model.remat = remat
+        tx_reid, tx_gen, tx_disc = sch.SGDSchedule(0.1), sch.adam(1e-4), sch.adam(1e-4)
+        state = tsb.create_state(model, tx_reid, tx_gen, tx_disc)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            _, metrics = tsb.make_train_step(model, tx_reid, tx_gen, tx_disc, 2)(state, batch)
+        torch.cuda.synchronize()
+        out[f"remat_{remat}"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        runs[remat] = ({n: p.grad.clone() for n, p in model.named_parameters()},
+                       {k: v.clone() for k, v in model.state_dict().items()},
+                       {k: float(v) for k, v in metrics.items()})
+        del model, state
+    differ = [n for n in runs[True][0] if not torch.equal(runs[True][0][n], runs[False][0][n])]
+    differ += [k for k in runs[True][1] if not torch.equal(runs[True][1][k], runs[False][1][k])]
+    check(not differ and runs[True][2] == runs[False][2],
+          f"stargan: remat on and off differ at {differ[:5]} ({len(differ)} tensors)")
+    torch.cuda.empty_cache()
+    return {"p": 2, "k": 2, "bit_equal": True, "tensors": len(runs[True][0]), **out}
+
+
+def phase_main_stargan(tmp: str) -> dict:
+    """``train.stargan_bi.main`` at its defaults (resnet18, P = K = 4; the
+    generators at ``img_size`` 128) on a 288x144 synthetic SYSU tree with
+    ``--d_every 2``, a sample grid and an identity-preservation eval at the
+    last step, the counters at zero before and read after: no quantizer
+    kernel and no plain version ran; every scalar finite and R1 > 0; the
+    discriminator's parameters unchanged over each masked step and changed
+    over each other; the mAP in [0, 1]; ``last.pt`` holds the last step.
+    Then R1's gradient against float64 and ``remat`` on and off bit for
+    bit."""
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import stargan_bi as tsb
+
+    steps = CROSS_STEPS["stargan"]
+    root = os.path.join(tmp, "stargan")
+    data = tr.make_synthetic_sysu(os.path.join(root, "blobs"), n_ids=REID_IDS, per_id=8,
+                                  h=DEEP_HW[0], w=DEEP_HW[1], seed=12)
+    csv, ckpt, samples = (os.path.join(root, n) for n in ("steps.csv", "ckpt", "samples"))
+    moved, models = [], []
+    saved_create = tsb.create_state
+
+    def create_state(model, *a, **k):
+        models.append(model)
+        return saved_create(model, *a, **k)
+
+    def d_params():
+        return [p.detach().clone() for p in models[0].discriminator.parameters()]
+
+    reset_all_counts()
+    tsb.create_state = create_state
+    try:
+        with StepTimer(tsb, "make_train_step") as timer:
+            saved_factory = tsb.make_train_step
+
+            def watching(*a, **k):
+                step = saved_factory(*a, **k)
+
+                def watched(state, batch, knobs=None):
+                    before = d_params()
+                    out = step(state, batch, knobs)
+                    moved.append((float(knobs["d_mask"]), any(
+                        not torch.equal(x, y) for x, y in zip(before, d_params()))))
+                    return out
+                return watched
+
+            tsb.make_train_step = watching
+            t0 = time.perf_counter()
+            last = tsb.main(["--path", data, "--steps", str(steps), "--log_every", "1",
+                             "--metrics_csv", csv, "--ckpt_dir", ckpt, "--d_every",
+                             str(STARGAN_D_EVERY), "--sample_dir", samples, "--sample_every",
+                             str(steps), "--eval_every", str(steps), "--idpres_trials", "2"])
+            seconds = time.perf_counter() - t0
+    finally:
+        tsb.create_state = saved_create
+    counts = all_counts()                       # read just after the StarGAN path
+    scalars = {k: csv_column(csv, k) for k in ("cycle", "id_ir", "feat_ir", "g_adv",
+                                               "loss_reid", "loss_gen", "loss_disc", "d_real",
+                                               "d_fake", "r1", "img_per_s")}
+    check(all(len(v) == steps and np.isfinite(v).all() for v in scalars.values()),
+          f"stargan: scalars {scalars}")
+    check(all(r > 0 for r in scalars["r1"]), f"stargan: R1 {scalars['r1']}")
+    want_moved = [(1.0 if i % STARGAN_D_EVERY == 0 else 0.0, i % STARGAN_D_EVERY == 0)
+                  for i in range(steps)]
+    check(moved == want_moved, f"stargan: (d_mask, D moved) a step {moved}, "
+                               f"expected {want_moved}")
+    check(0.0 <= last["idpres_map"] <= 1.0, f"stargan: mAP {last['idpres_map']}")
+    check(os.path.exists(os.path.join(samples, f"{steps:05d}.png")), "stargan: no sample grid")
+    check(saved_step(ckpt) == steps, "stargan: last.pt does not hold the last step")
+    expect_launches(counts, {k: 0 for k in ("nearest_code_stats", "nearest_code_lookup",
+                                            "nearest_code_ids")}, "stargan")
+    r1 = stargan_r1_against_float64(models[0])
+    del models[:]
+    torch.cuda.empty_cache()
+    result = {"steps": steps, "p": DEEP_P, "k": DEEP_K, "hw": list(DEEP_HW),
+              "img_size": tsb._generator_img_size(*DEEP_HW), "d_every": STARGAN_D_EVERY,
+              "seconds": seconds, **timer.report(DEEP_P * DEEP_K),
+              "command_line_img_per_s": scalars["img_per_s"][-1], **scalars,
+              "d_mask_and_moved": moved, "idpres_map": last["idpres_map"], **counts,
+              "r1_vs_float64": r1, "remat": stargan_remat_bit_equal()}
+    emit("main_stargan", **result)
+    return counts["launches"]
 
 
 def main(argv=None) -> int:
@@ -3962,7 +4474,10 @@ def main(argv=None) -> int:
         with torch.enable_grad():
             launches_deep = phase_main_deep(tmp)
             phase_main_adaptive(tmp)
-        record["kernels"] += deep_records(launches_deep)
+            by_path = {"deep": launches_deep, "deep_bi": phase_main_deep_bi(tmp),
+                       "deep_ir": phase_main_deep_ir(tmp)}
+            phase_main_stargan(tmp)
+        record["kernels"] += deep_records(by_path)
         phase_cudnn_grads()
         phase_probe()
         if args.breakdown:

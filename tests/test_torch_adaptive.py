@@ -128,6 +128,8 @@ def test_classic_variable_tree_name_for_name(probe):
 
 
 def test_bi_variable_tree_name_for_name():
+    """Every method of the JAX module (its fusions none calls, so the port
+    has none)."""
     jm = ja.ModelAdaptiveBi_Deep(class_num=CLASSES, style_dim=16)
 
     def probe(m, img):
@@ -135,7 +137,7 @@ def test_bi_variable_tree_name_for_name():
         outs = []
         for i in (1, 2):
             b, t = getattr(m, f"encode_content_{i}")(img)
-            content, _ = getattr(m, f"quantize_content_{i}")(m.fusion1(b, x3), m.fusion2(t, x4))
+            content, _ = getattr(m, f"quantize_content_{i}")(b, t)
             outs.append(getattr(m, f"decode_{i}")(content, feat))
         return outs, m.discriminate(feat)
 
@@ -145,6 +147,7 @@ def test_bi_variable_tree_name_for_name():
                                                 method=probe))
         mp.setattr(ta, "VQVAE_Deep", functools.partial(ta.VQVAE_Deep, **NARROW))
         model = ta.ModelAdaptiveBi_Deep(class_num=CLASSES, style_dim=16)
+    assert sorted(shapes["params"]) == ["adaptor1", "adaptor2", "discriminator", "person_id"]
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     assert_same_tree(adaptive_from_jax(zeros), model)
 

@@ -8,8 +8,8 @@ fusion and a feature discriminator.
 * :class:`ModelAdaptive_Deep` — ``EmbedNet(gm_pool="off")`` + ``VQVAE_Deep``
   with two non-local fusions against the ReID net's x3 / x4 features and a
   discriminator with ``2 * class_num`` outputs;
-* :class:`ModelAdaptiveBi_Deep` — two ``VQVAE_Deep`` adaptors sharing that
-  plumbing.
+* :class:`ModelAdaptiveBi_Deep` — two ``VQVAE_Deep`` adaptors, the ReID net
+  and that discriminator (no fusions: nothing calls the JAX module's).
 
 The methods are the JAX modules' (``encode_person``, ``encode_content``,
 ``quantize_content``, ``fuse``, ``decode``, ...), with their ``train=``:
@@ -20,8 +20,8 @@ EMA step only with ``train``.
 
 Only the parameters that flax creates exist here.  ``ModelAdaptive_Deep`` of
 the JAX package declares two spectral-norm convolutions ``conv1`` and
-``conv2`` that no method calls, so flax gives them no variables: the port has
-no such modules.
+``conv2`` that no method calls, and ``ModelAdaptiveBi_Deep`` two fusions, so
+flax gives them no variables: the port has no such modules.
 """
 
 from __future__ import annotations
@@ -181,20 +181,18 @@ class ModelAdaptive_Deep(nn.Module):
 
 class ModelAdaptiveBi_Deep(nn.Module):
     """The bidirectional variant (reference ``ModelAdaptiveBi_Deep``): two
-    independent adaptors (gray -> IR and IR -> gray) sharing the fusion and
-    discriminator plumbing."""
+    independent adaptors (gray -> IR and IR -> gray), the ReID net and the
+    discriminator.  The JAX module also declares two fusions, but no method
+    of it and no trainer calls them, so flax creates no variables for them:
+    the port has none."""
 
     def __init__(self, class_num: int = 395, arch: str = "resnet18", style_dim: int = 256,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         dt = dict(dtype=dtype)
-        e = expansion(arch)
         self.person_id = EmbedNet(class_num, arch=arch, gm_pool="off")
         self.adaptor1 = VQVAE_Deep(style_dim=pool_dim(arch), **dt)
         self.adaptor2 = VQVAE_Deep(style_dim=pool_dim(arch), **dt)
-        c = self.adaptor1.channel
-        self.fusion1 = NonLocal(c, 256 * e, reduc_ratio=1, **dt)
-        self.fusion2 = NonLocal(c, 512 * e, reduc_ratio=1, **dt)
         self.discriminator = Discriminator(pool_dim(arch), class_num * 2)
 
     def encode_person(self, rgb: torch.Tensor, train: bool = False):

@@ -215,14 +215,14 @@ def build_argparser():
     return p
 
 
-def run_synthetic(train_fn, args):
-    """``train_fn(args)`` on ``--path``, or on a synthetic SYSU tree of 96x48
-    images with ``--synthetic``."""
+def run_synthetic(train_fn, args, hw=(96, 48)):
+    """``train_fn(args)`` on ``--path``, or on a synthetic SYSU tree of
+    ``hw`` (96x48) images with ``--synthetic``."""
     resolve_device(args.device)
     if not args.synthetic:
         return train_fn(args)
     with tempfile.TemporaryDirectory(prefix="sysu_syn_") as tmp:
-        args.path = make_synthetic_sysu(tmp, h=96, w=48)
+        args.path = make_synthetic_sysu(tmp, h=hw[0], w=hw[1])
         return train_fn(args)
 
 

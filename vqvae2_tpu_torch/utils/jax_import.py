@@ -37,6 +37,8 @@ original PyTorch reference's ``state_dict`` layout.  The inverse of
   ``VQVAE_Deep`` ``state_dict`` loads through
   :func:`from_reference_deep_state_dict`.
 
+* StarGAN v2 (``ModelStarGAN`` and its modules): :func:`stargan_from_jax`.
+
 Inputs are nested dicts of **numpy** arrays (the caller does the
 ``np.asarray``); nothing here imports JAX.
 """
@@ -432,6 +434,67 @@ def adaptive_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 adaptive_deep_from_jax = adaptive_from_jax
+
+
+
+# ---------------------------------------------------------------------------
+# StarGAN v2
+# ---------------------------------------------------------------------------
+
+_STARGAN_RENAMES = [
+    (re.compile(r"^(enc_bottleneck|dec_bottleneck|enc|dec|blk|shared)(\d+)$"), r"\1.\2"),
+    (re.compile(r"^dom(\d+)_(\d+)$"), r"dom.\1.\2"),
+    (re.compile(r"^dom(\d+)_out$"), r"dom_out.\1"),
+    (re.compile(r"^dom(\d+)$"), r"dom.\1"),
+    (re.compile(r"^Conv_0$"), "conv_in"),
+    (re.compile(r"^Conv_1$"), "conv_out"),
+    (re.compile(r"^Conv_2$"), "head"),
+]
+
+
+def _stargan_name(path) -> str:
+    parts = []
+    for name in path:
+        for pattern, repl in _STARGAN_RENAMES:
+            if pattern.match(name):
+                name = pattern.sub(repl, name)
+                break
+        parts.append(name)
+    return ".".join(parts)
+
+
+def stargan_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ModelStarGAN`` ``{"params", "batch_stats"}`` (or
+    one of its modules' ``{"params"}``: ``Generator``, ``MappingNetwork``,
+    ``StyleEncoder``, ``DiscriminatorV2``, ``ResBlk``, ``AdainResBlkV2``) as a
+    ``state_dict`` of the port's module of the same class: ``person_id`` by
+    :func:`embed_net_from_jax`; ``enc0`` -> ``enc.0`` (likewise ``dec``,
+    ``enc_bottleneck``, ``dec_bottleneck``, ``blk``, ``shared``),
+    ``dom<d>_<i>`` -> ``dom.<d>.<i>``, ``dom<d>_out`` -> ``dom_out.<d>``, a
+    style encoder's ``dom<d>`` -> ``dom.<d>``, ``Conv_0`` / ``Conv_1`` /
+    ``Conv_2`` -> ``conv_in`` / ``conv_out`` / ``head``; kernels as
+    :func:`embed_net_from_jax` lays them out, the instance norms' ``in<k>_scale``
+    / ``in<k>_bias`` as they are.  A tree of ``params`` alone (an optimizer's
+    moments) maps the parameters alone."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    for key, p in params.items():
+        if key == "person_id":
+            out.update(_prefixed(key, embed_net_from_jax(
+                {"params": p, "batch_stats": stats.get(key, {})})))
+            continue
+        sub = {key: p} if isinstance(p, Mapping) else {}
+        if not sub:                       # a module's own leaf (to_rgb_in_scale)
+            out[key] = _array(p)
+            continue
+        for path, leaf, value in _walk(sub):
+            name = _stargan_name(path)
+            if leaf == "kernel":
+                out[f"{name}.weight"] = _reid_leaf(leaf, value)
+            else:
+                out[f"{name}.{leaf}"] = _array(value)
+    return out
 
 
 def _natural(key: str):

@@ -95,6 +95,41 @@ class AdamSchedule:
             group["betas"] = (b1, group["betas"][1])
 
 
+class SGDSchedule:
+    """``optax.sgd(lr, momentum, nesterov)``, after
+    ``optax.add_decayed_weights(weight_decay)`` where ``weight_decay > 0``:
+    :meth:`build` makes the ``torch.optim.SGD`` (its momentum buffer starts
+    at the first gradient, as optax's trace starts at zero, and its weight
+    decay is added to the gradient before the momentum, as the chain does);
+    :meth:`apply` writes ``lr(step)`` into its groups and must run before
+    each ``optimizer.step()``."""
+
+    def __init__(self, lr: Union[float, Schedule], momentum: float = 0.9,
+                 nesterov: bool = True, weight_decay: float = 0.0):
+        self.lr, self.momentum, self.nesterov, self.weight_decay = (lr, momentum, nesterov,
+                                                                     weight_decay)
+
+    def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.SGD:
+        return torch.optim.SGD(params, lr=AdamSchedule._at(self.lr, 0), momentum=self.momentum,
+                               nesterov=self.nesterov, weight_decay=self.weight_decay)
+
+    def apply(self, optimizer: torch.optim.Optimizer, step: int) -> None:
+        for group in optimizer.param_groups:
+            group["lr"] = AdamSchedule._at(self.lr, step)
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for each parameter of ``optimizer`` that took none.
+    optax updates every leaf of its tree, and a parameter the loss does not
+    reach has a zero gradient there: its moments decay, its step count
+    moves, weight decay still applies.  ``torch.optim`` skips a parameter
+    whose ``grad`` is None; with this it does what optax does."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def adam(lr: float) -> AdamSchedule:
     """Plain Adam at a fixed ``lr`` (``optax.adam(lr)``)."""
     return AdamSchedule(lr)
