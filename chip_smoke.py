@@ -109,21 +109,36 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               gradient against a float64 backward, and one step with and
               without ``remat`` bit for bit; each phase's step time by CUDA
               events and its peak memory
-18. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
+18. main_ssd, main_maskrcnn — the detection trainers at their command
+              lines' defaults with ``--synthetic --eval``: ``train/detection.py``
+              (SSD300 at 300 px, batch 8, resnet18, 14 classes) and
+              ``train/maskrcnn.py`` (256 px, batch 4, 64 proposals and 64
+              ground-truth slots), each with the counters at zero before and
+              read after (no kernel of the port runs on these paths, and no
+              plain version): the losses finite and falling, the Mask R-CNN
+              loss the sum of its five terms, the AP numbers in [0, 1]; one
+              step (batch 2 and 1) on the card against the CPU and a float64
+              backward; ``encode_targets`` with two ground truths on one best
+              box against the CPU (classes bit for bit); ``roi_align`` on the card
+              against the CPU on a step's own p2 and RoIs; whether two Mask
+              R-CNN gradients from one state repeat bit for bit (reported);
+              each phase's step time by CUDA events, its peak memory, the
+              command line's img/s and the evaluation's host seconds
+19. kernels_deep, times_deep — K2 and K3 at D = 256 on the deep step's own
               rows, with codebooks drawn among those rows (many codes in use),
               against their plain versions, then timed beside bound, plain and
               library, with the grid's blocks and the codes in use; the kernels
               timed again on the untrained codebooks (one code in use, as the
               main path's first steps run); one deep step's time, peak memory
               and split by CUDA events
-19. cudnn_grads — each convolution's weight gradient of one ReID step with
+20. cudnn_grads — each convolution's weight gradient of one ReID step with
               cuDNN as the port sets it and with cuDNN disabled, against a
               float64 backward on the CPU, at the toy size of the card-vs-CPU
               step and at 288x144 (resnet50; 12 images for the float64
               backward); the kernels of each layer by profiler ranges (which
               run cuDNN's FFT or Winograd algorithms); the ReID step at its
               command line's batch with cuDNN disabled for the layers found
-20. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
+21. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
               throughput, the TF32 split's rounding by cvt against integer
               operations, and the rounding of the tensor cores' fp32 sums
 
@@ -4407,6 +4422,325 @@ def phase_main_stargan(tmp: str) -> dict:
     return counts["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the detection trainers: train/detection.py (SSD300) and train/maskrcnn.py
+# ---------------------------------------------------------------------------
+
+DET_STEPS = {"ssd": 8, "maskrcnn": 8}
+# each module group's gradient of one step on the card no further from a
+# float64 backward on the CPU than DET_F64_FACTOR times the CPU's own fp32
+# gradient lies from it, plus DET_F64_FLOOR of its norm; the losses within
+# DET_METRIC_RTOL of the CPU's
+DET_F64_FACTOR = 2.0
+DET_F64_FLOOR = 1e-3
+DET_METRIC_RTOL = 1e-4
+ROI_ALIGN_RTOL = 1e-6
+# encode_targets' offsets pass through log and divisions, whose CUDA and CPU
+# versions may round apart by an ulp; its class targets must be bit-equal
+LOC_TARGET_RTOL = 1e-6
+DET_CLASSES = 14                      # make_synthetic_coco's 13 classes and background
+
+
+class EvalTimer:
+    """Host seconds of each call of ``module.<name>`` while the block runs
+    (the evaluators run NMS and mask pasting on the host)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = self.saved(*a, **k)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"]).splitlines()[0]
+
+
+def rate_after_first(csv: str, batch: int) -> float:
+    """The command line's img/s over its steps after the first, from the
+    cumulative rates it logged every step (``n * batch / elapsed``)."""
+    steps, rates = csv_column(csv, "step"), csv_column(csv, "img_per_s")
+    elapsed = [n * batch / r for n, r in zip(steps, rates)]
+    return (steps[-1] - steps[0]) * batch / (elapsed[-1] - elapsed[0])
+
+
+def detection_grads(model, run_step, batch) -> tuple:
+    """``run_step(model, batch)``'s metrics and the gradients it left, on
+    the CPU."""
+    metrics = run_step(model, batch)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None})
+
+
+def detection_step_against_cpu(label: str, build, run_step, batch: dict,
+                               device: str = CARD) -> dict:
+    """One train step of ``build()``'s weights on the card, on the CPU and
+    on the CPU in float64, on ``batch`` (numpy): the metrics within
+    DET_METRIC_RTOL of the CPU's, and each module group's gradient on the
+    card within DET_F64_FACTOR times the CPU's fp32 distance from float64
+    (plus DET_F64_FLOOR).  Returns the distances."""
+    cpu = build()
+    card = copy.deepcopy(cpu).to(device)
+    c64 = copy.deepcopy(cpu).double()
+
+    def on(dev, dtype=None):
+        return {k: torch.from_numpy(v).to(dev, dtype if dtype and v.dtype == np.float32
+                                           else None) for k, v in batch.items()}
+
+    with torch.enable_grad():
+        m_card, g_card = detection_grads(card, run_step, on(device))
+        m_cpu, g_cpu = detection_grads(cpu, run_step, on("cpu"))
+        _, g64 = detection_grads(c64, run_step, on("cpu", torch.float64))
+    for k in m_cpu:
+        check(abs(m_card[k] - m_cpu[k]) <= DET_METRIC_RTOL * abs(m_cpu[k]) + 1e-6,
+              f"{label} card vs CPU step: {k} {m_card[k]} vs {m_cpu[k]}")
+    check(set(g_card) == set(g_cpu) == set(g64), f"{label}: other parameters got gradients")
+    groups = {}
+    for name in g_cpu:
+        groups.setdefault(name.split(".")[0], []).append(name)
+
+    def dist(a, b, names):
+        err = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in names)
+        return (err / max(sum(float((g64[n] ** 2).sum()) for n in names), 1e-300)) ** 0.5
+
+    errors = {}
+    for group, names in groups.items():
+        card_f64, cpu_f64 = dist(g_card, g64, names), dist(g_cpu, g64, names)
+        errors[group] = {"card_vs_float64": card_f64, "cpu_fp32_vs_float64": cpu_f64,
+                         "card_vs_cpu": dist(g_card, g_cpu, names)}
+        check(card_f64 <= DET_F64_FACTOR * cpu_f64 + DET_F64_FLOOR,
+              f"{label}: the card's {group} gradient lies {card_f64} of its norm from "
+              f"float64, the CPU's fp32 one {cpu_f64}")
+    return {"metrics_card": m_card, "metrics_cpu": m_cpu, "grad_norm_rel_err": errors}
+
+
+def shared_best_box_targets(device: str = CARD) -> dict:
+    """``encode_targets`` on the card and on the CPU on a batch where two
+    ground truths are one box (one best default box, which the later one
+    must claim) and padded rows follow them: the class targets bit for bit,
+    the offsets within LOC_TARGET_RTOL."""
+    from vqvae2_tpu_torch.detection import boxes as dbx
+
+    db = torch.from_numpy(dbx.default_boxes_ssd300())
+    gt = torch.zeros(2, 6, 4)
+    labels = torch.zeros(2, 6, dtype=torch.int32)
+    gt[0, 0] = gt[0, 2] = torch.tensor([0.30, 0.30, 0.50, 0.55])
+    gt[0, 1] = torch.tensor([0.05, 0.60, 0.25, 0.95])
+    labels[0, :3] = torch.tensor([3, 5, 7], dtype=torch.int32)
+    gt[1, 0] = torch.tensor([0.55, 0.10, 0.90, 0.40])
+    gt[1, 1] = dbx.ltrb_from_cxcywh(db[0])
+    labels[1, :2] = torch.tensor([2, 4], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", device):
+        out[dev] = [t.cpu() for t in dbx.encode_targets(
+            gt.to(dev), labels.to(dev), dbx.ltrb_from_cxcywh(db).to(dev), db.to(dev))]
+    (loc_cpu, cls_cpu), (loc_card, cls_card) = out["cpu"], out[device]
+    best = int(torch.argmax(dbx.box_iou(dbx.ltrb_from_cxcywh(db), gt[0, :1])[:, 0]))
+    loc_err = relative_error(loc_card, loc_cpu)
+    check(torch.equal(cls_card, cls_cpu), "ssd: encode_targets' classes on the card differ "
+                                          f"from the CPU's at {int((cls_card != cls_cpu).sum())}")
+    check(loc_err <= LOC_TARGET_RTOL, f"ssd: encode_targets' offsets on the card lie {loc_err} "
+                                      f"of the largest from the CPU's")
+    check(int(cls_card[0, best]) == 7, f"ssd: the shared best box took label "
+                                       f"{int(cls_card[0, best])}, not the last claim's 7")
+    return {"classes_bit_equal": True, "offsets_bit_equal": bool(torch.equal(loc_card, loc_cpu)),
+            "offsets_rel_err": loc_err, "matched": int((cls_card > 0).sum()), "shared_box": best}
+
+
+def phase_main_ssd(tmp: str, device: str = CARD) -> dict:
+    """``train.detection.main --synthetic --eval`` at the command line's
+    defaults (300 px, batch 8, resnet18, 14 classes) for DET_STEPS["ssd"]
+    steps, the counters at zero before and read after: no kernel of the port
+    and no plain version ran; every loss finite and the last below the
+    first; mAP and AP50 in [0, 1].  Then one step at batch 2 on the card
+    against the CPU and float64, and ``encode_targets`` with a shared best
+    box on the card against the CPU."""
+    from vqvae2_tpu_torch.detection.data import CocoDetectionDataset, make_synthetic_coco
+    from vqvae2_tpu_torch.detection.ssd import SSD300
+    from vqvae2_tpu_torch.train import detection as tdet
+
+    steps = DET_STEPS["ssd"]
+    csv = os.path.join(tmp, "ssd_steps.csv")
+    reset_all_counts()
+    with StepTimer(tdet, "make_train_step") as timer, EvalTimer(tdet, "evaluate") as ev:
+        t0 = time.perf_counter()
+        last = tdet.main(["--synthetic", "--steps", str(steps), "--log_every", "1",
+                          "--metrics_csv", csv, "--eval", "--device", device])
+        seconds = time.perf_counter() - t0
+    counts = all_counts()                        # read just after the SSD path
+    expect_launches(counts, {k: 0 for k in counts["launches"]}, "ssd")
+    losses, rates = csv_column(csv, "loss"), csv_column(csv, "img_per_s")
+    check(len(losses) == steps and np.isfinite(losses).all(), f"ssd: losses {losses}")
+    check(losses[-1] < losses[0], f"ssd: the loss did not fall: {losses}")
+    check(all(0.0 <= last[k] <= 1.0 for k in ("mAP", "AP50")),
+          f"ssd: mAP {last['mAP']}, AP50 {last['AP50']}")
+
+    data = os.path.join(tmp, "ssd_coco")
+    img_dir, ann = make_synthetic_coco(data, size=300)
+    imgs, gt_boxes, gt_labels, _ = next(CocoDetectionDataset(img_dir, ann, size=300).batches(
+        2, seed=5))
+
+    def build():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(7)
+            return SSD300(num_classes=DET_CLASSES)
+
+    def run_step(model, batch):
+        tx = tdet.make_optimizer(0.002, 100)
+        state = tdet.create_state(model, tx)
+        _, loss = tdet.make_train_step(model, tx, tdet.B.default_boxes_ssd300())(
+            state, batch["imgs"], batch["boxes"], batch["labels"])
+        return {"loss": loss}
+
+    result = {"card": card_name(), "steps": steps, "batch": 8, "size": 300, "arch": "resnet18",
+              "classes": DET_CLASSES, "seconds": seconds, **timer.report(8),
+              "command_line_img_per_s": rates[-1],
+              "command_line_img_per_s_after_first": rate_after_first(csv, 8), "losses": losses,
+              "eval_host_seconds": ev.seconds,
+              **{k: last[k] for k in ("mAP", "AP50", "AP75")}, **counts,
+              "step_vs_cpu": detection_step_against_cpu(
+                  "ssd", build, run_step,
+                  {"imgs": imgs, "boxes": gt_boxes, "labels": gt_labels}, device),
+              "encode_targets": shared_best_box_targets(device)}
+    emit("main_ssd", **result)
+    return result
+
+
+def roi_align_against_cpu(model, batch: dict, anchors: np.ndarray) -> dict:
+    """``roi_align`` at 7 and 14 on the card against the CPU on one train-mode
+    step's own p2 and RoIs (the top-K proposals and the ground truth),
+    within ROI_ALIGN_RTOL of the largest sample."""
+    from vqvae2_tpu_torch.detection import mask_rcnn as dm
+
+    dev = next(model.parameters()).device
+    anchors_t = torch.from_numpy(anchors).to(dev)
+    gt = torch.from_numpy(batch["boxes"]).to(dev)
+    with torch.no_grad():
+        obj, reg, p2 = model.train()(torch.from_numpy(batch["imgs"]).to(dev))
+        rois = torch.cat([dm.decode_proposals(anchors_t, obj, reg, model.num_proposals)[0], gt],
+                         dim=1)
+        out = {}
+        for size in (7, 14):
+            card = dm.roi_align(p2, rois, size).cpu()
+            cpu = dm.roi_align(p2.cpu(), rois.cpu(), size)
+            err = relative_error(card, cpu)
+            check(err <= ROI_ALIGN_RTOL, f"maskrcnn: roi_align at {size} on the card lies {err} "
+                                         f"of its largest sample from the CPU's")
+            out[str(size)] = {"rel_err": err, "bit_equal": bool(torch.equal(card, cpu)),
+                              "shape": list(card.shape)}
+    return out
+
+
+def phase_main_maskrcnn(tmp: str, device: str = CARD) -> dict:
+    """``train.maskrcnn.main --synthetic --eval`` at the command line's
+    defaults (256 px, batch 4, 64 proposals, 64 ground-truth slots, anchors
+    32/64/128) for DET_STEPS["maskrcnn"] steps, the counters at zero before
+    and read after: no kernel of the port and no plain version ran; each of
+    the five loss terms finite, ``loss`` their sum, and the loss falls;
+    mAP, mask_mAP and mask_mIoU in [0, 1].  Then one step at batch 1 on the
+    card against the CPU and float64, ``roi_align`` on the card against the
+    CPU on that step's p2 and RoIs, and (reported, not checked) whether two
+    gradients from one state are bit-equal on the card."""
+    from vqvae2_tpu_torch.detection import mask_rcnn as dm
+    from vqvae2_tpu_torch.detection.data import CocoDetectionDataset, make_synthetic_coco
+    from vqvae2_tpu_torch.train import maskrcnn as tmr
+    from vqvae2_tpu_torch.utils import schedules as sch
+
+    steps = DET_STEPS["maskrcnn"]
+    terms = ("rpn_cls", "rpn_reg", "roi_cls", "roi_reg", "mask")
+    csv = os.path.join(tmp, "maskrcnn_steps.csv")
+    seen = []
+    saved = tmr.make_train_step
+
+    def watching(*a, **k):
+        step = saved(*a, **k)
+
+        def watched(*args):
+            state, metrics = step(*args)
+            seen.append({n: float(v) for n, v in metrics.items()})
+            return state, metrics
+        return watched
+
+    reset_all_counts()
+    tmr.make_train_step = watching
+    try:
+        with StepTimer(tmr, "make_train_step") as timer, EvalTimer(tmr, "evaluate_instances") as ev:
+            t0 = time.perf_counter()
+            last = tmr.main(["--synthetic", "--steps", str(steps), "--log_every", "1",
+                             "--metrics_csv", csv, "--eval", "--device", device])
+            seconds = time.perf_counter() - t0
+    finally:
+        tmr.make_train_step = saved
+    counts = all_counts()                        # read just after the Mask R-CNN path
+    expect_launches(counts, {k: 0 for k in counts["launches"]}, "maskrcnn")
+    check(len(seen) == steps and all(np.isfinite(m[k]) for m in seen for k in terms + ("loss",)),
+          f"maskrcnn: losses {seen}")
+    for m in seen:
+        total = sum(m[k] for k in terms)
+        check(abs(m["loss"] - total) <= 1e-5 * abs(total), f"maskrcnn: loss {m['loss']} is not "
+                                                           f"the sum of its terms {total}")
+    losses = [m["loss"] for m in seen]
+    check(falling(losses), f"maskrcnn: the loss did not fall: {losses}")
+    check(all(0.0 <= last[k] <= 1.0 for k in ("mAP", "mask_mAP", "mask_mIoU")),
+          f"maskrcnn: mAP {last['mAP']}, mask_mAP {last['mask_mAP']}, "
+          f"mask_mIoU {last['mask_mIoU']}")
+
+    img_dir, ann = make_synthetic_coco(os.path.join(tmp, "maskrcnn_coco"), size=256,
+                                       with_masks=True)
+    imgs, gt_boxes, gt_labels, _, gt_masks = next(CocoDetectionDataset(
+        img_dir, ann, size=256, with_masks=True, max_boxes=64).batches(1, seed=5,
+                                                                       with_masks=True))
+    batch = {"imgs": imgs, "boxes": gt_boxes, "labels": gt_labels, "masks": gt_masks}
+    anchors = dm.generate_anchors(256, sizes=(32, 64, 128))
+    args = tmr.build_argparser().parse_args(["--seed", "7"])
+
+    def build():
+        return tmr.build_model(args, DET_CLASSES, "cpu")
+
+    def run_step(model, batch):
+        tx = sch.adam(1e-4)
+        state = tmr.create_state(model, tx)
+        return tmr.make_train_step(model, tx, anchors)(
+            state, batch["imgs"], batch["boxes"], batch["labels"], batch["masks"])[1]
+
+    vs_cpu = detection_step_against_cpu("maskrcnn", build, run_step, batch, device)
+    grads = []
+    for _ in range(2):
+        card = build().to(device)
+        with torch.enable_grad():
+            grads.append(detection_grads(card, run_step, {
+                k: torch.from_numpy(v).to(device) for k, v in batch.items()})[1])
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+    result = {"card": card_name(), "steps": steps, "batch": 4, "size": 256, "num_proposals": 64,
+              "max_boxes": 64,
+              "arch": "resnet18", "seconds": seconds, **timer.report(4),
+              "command_line_img_per_s": csv_column(csv, "img_per_s")[-1],
+              "command_line_img_per_s_after_first": rate_after_first(csv, 4),
+              "losses": {k: [m[k] for m in seen] for k in terms + ("loss",)},
+              "eval_host_seconds": ev.seconds,
+              **{k: last[k] for k in ("mAP", "AP50", "mask_mAP", "mask_AP50", "mask_mIoU")},
+              **counts, "step_vs_cpu": vs_cpu,
+              "roi_align_vs_cpu": roi_align_against_cpu(build().to(device), batch, anchors),
+              "repeat_bit_equal": {"equal": not differ, "tensors_differ": len(differ),
+                                   "of": len(grads[0]), "first": differ[:5]}}
+    emit("main_maskrcnn", **result)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
@@ -4477,6 +4811,8 @@ def main(argv=None) -> int:
             by_path = {"deep": launches_deep, "deep_bi": phase_main_deep_bi(tmp),
                        "deep_ir": phase_main_deep_ir(tmp)}
             phase_main_stargan(tmp)
+            phase_main_ssd(tmp)
+            phase_main_maskrcnn(tmp)
         record["kernels"] += deep_records(by_path)
         phase_cudnn_grads()
         phase_probe()

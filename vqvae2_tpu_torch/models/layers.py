@@ -173,6 +173,14 @@ class _SpectralNormConv(nn.Module):
         return self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
 
+def same_pads(size: int, kernel: int, stride: int):
+    """flax's ``"SAME"`` pad of one spatial axis, (low, high): the total pad
+    split with the smaller half first, so a strided convolution may pad (0, 1)
+    where PyTorch's ``padding=1`` pads (1, 1)."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class SNConv(_SpectralNormConv):
     """Spectral-norm convolution with flax's ``"SAME"`` padding, ``(B, H, W,
     C)`` in and out."""
@@ -186,10 +194,7 @@ class SNConv(_SpectralNormConv):
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         weight = self.normalized_weight(update_stats)
         k, s = self.kernel_size, self.stride
-        pads = []
-        for size in (x.shape[2], x.shape[1]):           # F.pad order: W, then H
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
+        pads = [*same_pads(x.shape[2], k, s), *same_pads(x.shape[1], k, s)]   # W, then H
         x = F.pad(x.permute(0, 3, 1, 2), pads)
         y = cast_conv(lambda a, w, b: F.conv2d(a, w, b, s), x, weight, self.bias, self.dtype)
         return y.permute(0, 2, 3, 1)

@@ -254,8 +254,10 @@ def import_torchvision_resnet(model: nn.Module,
     ``state_dict`` (or the path of a file holding one), in place.
 
     Any sub-module with ``conv1``, ``bn1`` and ``layer1`` is a stem, filled
-    from ``conv1``/``bn1``/``layer1``; any with ``layer2``-``layer4`` is a
-    trunk, filled from those.  Several stems (the ReID modality stems) all get
+    from ``conv1``/``bn1``/``layer1``; each ``layer2``, ``layer3`` or
+    ``layer4`` block list a sub-module has is filled from that layer, as the
+    JAX package fills every ``layer{L}_{i}`` it finds (the detection models
+    stop at ``layer3``).  Several stems (the ReID modality stems) all get
     the same weights, as the reference's deep copies of one pretrained base do.
     Keys the checkpoint lacks are left as they are; a shape that differs
     raises.  Returns the number of tensors copied."""
@@ -268,9 +270,8 @@ def import_torchvision_resnet(model: nn.Module,
             groups: List[str] = []
             if all(hasattr(module, a) for a in ("conv1", "bn1", "layer1")):
                 groups += ["conv1", "bn1", "layer1"]
-            if all(isinstance(getattr(module, a, None), nn.ModuleList)
-                   for a in ("layer2", "layer3", "layer4")):
-                groups += ["layer2", "layer3", "layer4"]
+            groups += [a for a in ("layer2", "layer3", "layer4")
+                       if isinstance(getattr(module, a, None), nn.ModuleList)]
             for group in groups:
                 for key, dst in getattr(module, group).state_dict(
                         prefix=f"{group}.", keep_vars=True).items():

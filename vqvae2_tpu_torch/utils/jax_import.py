@@ -39,6 +39,17 @@ original PyTorch reference's ``state_dict`` layout.  The inverse of
 
 * StarGAN v2 (``ModelStarGAN`` and its modules): :func:`stargan_from_jax`.
 
+* The detection models: :func:`ssd_from_jax` (``SSD300``; an extra block's
+  ``Conv_0``/``BatchNorm_0``/``Conv_1``/``BatchNorm_1`` are ``conv1``/``bn1``/
+  ``conv2``/``bn2``, ``loc3`` is ``loc.3``) and :func:`maskrcnn_from_jax`
+  (``MaskRCNN``; the box head's ``Dense_0``/``Dense_1`` are ``fc0``/``fc1``);
+  the ResNet parts as in :func:`embed_net2_from_jax`.
+
+* A reference ``PixelSNAIL`` ``state_dict`` (weight norm's ``weight_v`` /
+  ``weight_g``, the causal and gated wrappers' ``.conv`` levels):
+  :func:`to_reference_pixelsnail_state_dict` and
+  :func:`from_reference_pixelsnail_state_dict`.
+
 Inputs are nested dicts of **numpy** arrays (the caller does the
 ``np.asarray``); nothing here imports JAX.
 """
@@ -536,3 +547,139 @@ def from_reference_deep_state_dict(state_dict: Mapping[str, Any],
     if missing:
         raise KeyError(f"the checkpoint lacks {missing[:5]}{'...' if len(missing) > 5 else ''}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The detection models
+# ---------------------------------------------------------------------------
+
+_DETECTION_RENAMES = (
+    (re.compile(r"^Conv_(\d)$"), lambda m: f"conv{int(m.group(1)) + 1}"),      # extra blocks
+    (re.compile(r"^BatchNorm_(\d)$"), lambda m: f"bn{int(m.group(1)) + 1}"),
+    (re.compile(r"^Dense_(\d)$"), lambda m: f"fc{m.group(1)}"),                # box head
+    (re.compile(r"^(loc|conf)(\d)$"), lambda m: f"{m.group(1)}.{m.group(2)}"),  # SSD heads
+)
+
+
+def _detection_name(path) -> str:
+    parts = []
+    for name in path:
+        for pattern, repl in _DETECTION_RENAMES:
+            if pattern.match(name):
+                name = pattern.sub(repl, name)
+                break
+        else:
+            name = _reid_name((name,))
+        parts.append(name)
+    return ".".join(parts)
+
+
+def _detection_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf, value in _walk(variables.get(collection, {})):
+            name = ".".join(filter(None, (_detection_name(path),
+                                          _REID_LEAVES.get(leaf, "weight"))))
+            out[name] = _reid_leaf(leaf, value)
+    return out
+
+
+def ssd_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SSD300`` ``{"params", "batch_stats"}`` (nested dicts
+    of numpy arrays; or ``params`` alone, an optimizer's moments) as a
+    ``state_dict`` of the port's ``SSD300``: the stem and ``layer2_<i>`` /
+    ``layer3_<i>`` as :func:`embed_net2_from_jax` maps a ResNet,
+    ``extra<k>``'s ``Conv_0``/``BatchNorm_0``/``Conv_1``/``BatchNorm_1`` ->
+    ``conv1``/``bn1``/``conv2``/``bn2``, ``loc<i>``/``conf<i>`` ->
+    ``loc.<i>``/``conf.<i>``."""
+    return _detection_from_jax(variables)
+
+
+def maskrcnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MaskRCNN`` variables (the union of the trainer's
+    two ``init`` calls: the backbone, ``fpn`` and ``rpn`` of the first, the
+    ``box_head`` and ``mask_head`` of the second) as a ``state_dict`` of the
+    port's ``MaskRCNN``: the ResNet parts as :func:`embed_net2_from_jax` maps
+    them, the box head's ``Dense_0``/``Dense_1`` -> ``fc0``/``fc1``, every
+    other name as it is."""
+    return _detection_from_jax(variables)
+
+
+# ---------------------------------------------------------------------------
+# A reference PixelSNAIL state_dict
+# ---------------------------------------------------------------------------
+
+def _pixelsnail_reference_names(model) -> Dict[str, tuple]:
+    """{port module path: (reference prefix, dense)} of every weight-normed
+    layer of ``model`` (the port's ``PixelSNAIL``).  A reference causal
+    convolution wraps a ``WNConv2d`` at ``.conv``, which wraps its ``Conv2d``
+    at ``.conv``; ``res.<j>`` is ``resblocks.<j>``; the conditioning net's
+    ``conv_in`` and ``res.<j>`` are its ``blocks.0`` and ``blocks.<j + 1>``;
+    ``out_res.<j>`` is ``out.<j>``, and ``out_conv`` is ``out.<n + 1>`` after
+    the ELU at ``out.<n>``."""
+    from vqvae2_tpu_torch.models.pixelsnail import CausalConv, WNConv, WNDense
+
+    n_out = len(model.out_res)
+    rules = (
+        (re.compile(r"\.res\.(\d+)(?=\.|$)"), r".resblocks.\1"),
+        (re.compile(r"^cond_resnet\.conv_in$"), "cond_resnet.blocks.0"),
+        (re.compile(r"^cond_resnet\.resblocks\.(\d+)"),
+         lambda m: f"cond_resnet.blocks.{int(m.group(1)) + 1}"),
+        (re.compile(r"^out_res\.(\d+)"), r"out.\1"),
+        (re.compile(r"^out_conv$"), f"out.{n_out + 1}"),
+    )
+    names = {}
+    for path, module in model.named_modules():
+        if not isinstance(module, (WNConv, WNDense)):
+            continue
+        ref = path
+        for pattern, repl in rules:
+            ref = pattern.sub(repl, ref)
+        if isinstance(module, CausalConv):
+            ref += ".conv.conv"
+        elif isinstance(module, WNConv):
+            ref += ".conv"
+        names[path] = (ref, isinstance(module, WNDense))
+    return names
+
+
+def to_reference_pixelsnail_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The port's ``PixelSNAIL`` ``model`` as a reference ``state_dict``:
+    ``weight_v`` ``(O, I, kh, kw)`` (a dense layer's ``(O, I)``, the port's
+    ``v`` transposed), ``weight_g`` ``(O, 1, 1, 1)`` (``(O, 1)``) and
+    ``bias``."""
+    sd = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for path, (ref, dense) in _pixelsnail_reference_names(model).items():
+        v, g = sd[f"{path}.v"], sd[f"{path}.g"]
+        out[f"{ref}.weight_v"] = (v.t() if dense else v).contiguous().clone()
+        out[f"{ref}.weight_g"] = g.reshape(-1, *([1] * (1 if dense else 3))).clone()
+        if f"{path}.b" in sd:
+            out[f"{ref}.bias"] = sd[f"{path}.b"].clone()
+    return out
+
+
+def from_reference_pixelsnail_state_dict(state_dict: Mapping[str, Any],
+                                         model) -> Dict[str, torch.Tensor]:
+    """A reference ``PixelSNAIL`` ``state_dict`` as one of ``model`` (the
+    port's ``PixelSNAIL`` of the same configuration), as the JAX package's
+    ``import_pixelsnail`` reads it: ``weight_v`` as it is (the reference
+    zeroes its causal taps at run time; the port's kernel mask zeroes the
+    same taps before the norm), ``weight_g`` flattened; the buffers its
+    ``state_dict`` holds are ``model``'s own.  Every
+    parameter of ``model`` must be filled."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for path, (ref, dense) in _pixelsnail_reference_names(model).items():
+        if f"{ref}.weight_v" not in sd:
+            continue
+        v = sd[f"{ref}.weight_v"]
+        out[f"{path}.v"] = (v.t() if dense else v).contiguous()
+        out[f"{path}.g"] = sd[f"{ref}.weight_g"].reshape(-1)
+        if f"{ref}.bias" in sd:
+            out[f"{path}.b"] = sd[f"{ref}.bias"]
+    ours = {k for k, _ in model.named_parameters()}
+    missing = sorted(ours - set(out))
+    if missing:
+        raise KeyError(f"the checkpoint lacks {missing[:5]}{'...' if len(missing) > 5 else ''}")
+    return {**{k: v.clone() for k, v in model.state_dict().items() if k not in ours}, **out}

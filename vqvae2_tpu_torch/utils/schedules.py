@@ -118,6 +118,18 @@ class SGDSchedule:
             group["lr"] = AdamSchedule._at(self.lr, step)
 
 
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:
+    """``optax.linear_schedule``: ``init_value`` at step 0, linear to
+    ``end_value`` at ``transition_steps``, constant after; in fp32, as optax
+    computes it."""
+    f32 = np.float32
+
+    def schedule(step):
+        frac = f32(1) - f32(min(max(step, 0), transition_steps)) / f32(transition_steps)
+        return float(f32(init_value - end_value) * frac + f32(end_value))
+    return schedule
+
+
 def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
     """A zero gradient for each parameter of ``optimizer`` that took none.
     optax updates every leaf of its tree, and a parameter the loss does not
