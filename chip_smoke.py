@@ -141,6 +141,18 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
 21. probe   — what the tensor cores offer the attention kernels: mma.sync TF32
               throughput, the TF32 split's rounding by cvt against integer
               operations, and the rounding of the tensor cores' fp32 sums
+22. parallel — (run after main_maskrcnn) the data-parallel layer: ``train.vqvae``,
+              ``extract_codes`` and the top prior through their command lines
+              under a ``torchrun`` environment of one rank (``launch`` forms an
+              NCCL group of one) and without one, checkpoints and code stores
+              bit for bit; then two ``gloo`` ranks spawned on the one card
+              (both on cuda:0): a stage-1 step, a top-prior step at dropout 0,
+              the 13 ABNs of EmbedNet2 at 288x144 forward and backward
+              (``InPlaceABNSync``), and extraction with a last batch of one
+              image, each against the world-1 run on the global batch; every
+              rank's counters show K3, K4-K6 and K7/K8 launched and no plain
+              version, every rank's state is rank 0's bit for bit; the step
+              times and the all-reduce time a step in both worlds
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -163,10 +175,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from PIL import Image
 
 import vqvae2_tpu_torch as port
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.data.codestore import CodeStore
 from vqvae2_tpu_torch.data.datasets import SyntheticImages
 from vqvae2_tpu_torch.models import build_vqvae
@@ -4741,6 +4755,566 @@ def phase_main_maskrcnn(tmp: str, device: str = CARD) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: the data-parallel layer (parallel/) on the card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3                       # each trainer's steps in the world-1 runs
+PAR_EXTRACT_BATCH = 16              # extract_codes.main --synthetic: 4 batches, 64 images
+GLOO_WORLD = 2                      # ranks on the one card, all on cuda:0
+GLOO_DEVICE = "cuda:0"
+GLOO_EXTRACT = dict(n_images=9, batch=4)   # a last batch of one image: rank 1 gets none
+GLOO_TIMED_STEPS = 4                # timed steps of each trainer at world 2, after the first
+GLOO_JOIN_SECONDS = 600.0
+# World 2 against world 1 on the card: each gradient tensor within GRAD_RTOL
+# of its largest element, as the card is held to the CPU (a floor of a
+# thousandth of the whole gradient's largest, for tensors whose gradient
+# vanishes analytically).  Not tighter: cuDNN takes other algorithms for half
+# the batch, which round an image's activations otherwise, so a few ids flip
+# at near-ties and move the stage-1 gradient by 1.9e-4 of a tensor's largest
+# element (this phase on one NVIDIA H100 80GB HBM3, 700 W; the ranks' shares
+# are also summed in another order).
+PAR_GRAD_RTOL = GRAD_RTOL
+# The same rounding moves a few of world 1's results by more than a rounding:
+# an id that flips at a near-tie moves a row between two codes of the
+# codebook, and, in the ABNs, a pre-activation that the moments' last bit
+# moves across the leaky ReLU's kink changes its dy by 99 %.  So the codebooks
+# after the step and the ABNs' z, dx, dweight, dbias and running statistics
+# are held as whole tensors, each within PAR_NORM_RTOL of its norm (what the
+# ReID step on the card is held to against the CPU), with the elementwise
+# errors reported; ids may flip in at most PAR_FLIP_SHARE of the rows, the top
+# quantizer's (whose rows come from the encoder alone) only at near-ties
+# (TIE_RTOL); the bottom quantizer's rows carry the top's flips.
+PAR_NORM_RTOL = REID_GRAD_NORM_RTOL
+PAR_FLIP_SHARE = 1e-2
+
+
+@contextlib.contextmanager
+def torchrun_world_of_one():
+    """The environment that ``torchrun --nproc_per_node 1`` gives its rank."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port_no)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def group_seen(module, name: str, seen: list):
+    """Record, at each call of ``module.<name>``, the process group it runs in."""
+    saved = getattr(module, name)
+
+    def watched(*args, **kwargs):
+        seen.append({"group": par.is_initialized(), "world": par.get_world_size(),
+                     "backend": dist.get_backend() if par.is_initialized() else None})
+        return saved(*args, **kwargs)
+
+    setattr(module, name, watched)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, saved)
+
+
+class ParallelStepTimer(StepTimer):
+    """A StepTimer that also times each ``parallel.all_reduce`` made inside a
+    step (the quantizers' statistics, the gradient sum) by CUDA events on the
+    current stream, read after the step's own synchronise: no wait is added."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.in_step, self.pending, self.calls = False, [], []
+        self.saved_all_reduce = par.all_reduce
+        saved_factory = getattr(self.module, self.factory)
+
+        def factory(*args, **kwargs):
+            step = saved_factory(*args, **kwargs)
+
+            def flagged(*a, **k):
+                self.in_step = True
+                try:
+                    return step(*a, **k)
+                finally:
+                    self.in_step = False
+                    self.calls += [(len(self.times) - 1, start.elapsed_time(end), nbytes)
+                                   for start, end, nbytes in self.pending]
+                    self.pending = []
+            return flagged
+
+        def timed_all_reduce(x):
+            if not self.in_step:
+                return self.saved_all_reduce(x)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.saved_all_reduce(x)
+            end.record()
+            self.pending.append((start, end, x.numel() * x.element_size()))
+            return out
+
+        setattr(self.module, self.factory, factory)
+        par.all_reduce = timed_all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        par.all_reduce = self.saved_all_reduce
+        super().__exit__(*exc)
+
+    def report(self, images: int) -> dict:
+        out = super().report(images)
+        later = [c for c in self.calls if c[0] >= 1]          # the steps after the first
+        n = max(len(self.times) - 1, 1)
+        ms = sum(c[1] for c in later) / n
+        out.update({"all_reduce_ms_per_step": ms, "all_reduce_calls_per_step": len(later) / n,
+                    "all_reduce_mb_per_step": sum(c[2] for c in later) / n / 2 ** 20,
+                    "all_reduce_share_of_step": ms / out["step_ms"] if self.times[1:] else None})
+        return out
+
+
+def differing(a, b, path: str = "") -> list:
+    """Where two checkpoints (nested dicts and lists of tensors and numbers)
+    differ, bit for bit."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in differing(x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor):
+        return [] if a.shape == b.shape and torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def parallel_world_of_one(tmp: str) -> dict:
+    """``train.vqvae``, ``extract_codes`` and the top prior through their
+    command lines, each once under a ``torchrun`` environment of one rank
+    (``launch`` forms an NCCL group of one) and once without: the
+    checkpoints and the code stores bit for bit; the counters at zero before
+    and read after the group's runs (K3, K4-K6 launched, no plain version);
+    the stage-1 and top-prior step times and their all-reduce time in
+    both."""
+    runs = {}
+    for mode in ("alone", "nccl"):
+        root = os.path.join(tmp, "parallel", mode)
+        dirs = {k: os.path.join(root, k) for k in ("vqvae", "top")}
+        codes = os.path.join(root, "codes.vq2")
+        group = torchrun_world_of_one if mode == "nccl" else contextlib.nullcontext
+        seen: list = []
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with group(), group_seen(tv, "train", seen), ParallelStepTimer(tv, "make_train_step") as t1:
+            tv.main(["--synthetic", "--size", str(SIZE), "--batch_size",
+                     str(TRAIN_BATCH["vqvae"]), "--steps", str(PAR_STEPS), "--log_every", "1",
+                     "--ckpt_dir", dirs["vqvae"]])
+        with group(), group_seen(extract_codes, "_extract_main", seen):
+            n = extract_codes.main(["--synthetic", "--ckpt_dir", dirs["vqvae"], "--size",
+                                    str(SIZE), "--batch_size", str(PAR_EXTRACT_BATCH),
+                                    "--name", codes])
+        with group(), group_seen(tp, "train", seen), ParallelStepTimer(tp, "make_train_step") as t2:
+            tp.main([codes, "--hier", "top", "--batch", str(TRAIN_BATCH["top"]), "--steps",
+                     str(PAR_STEPS), "--log_every", "1", "--ckpt_dir", dirs["top"]])
+        counts = all_counts()                    # read just after the three command lines
+        check(not par.is_initialized(), f"{mode}: launch left a process group behind")
+        want = {"group": mode == "nccl", "world": 1, "backend": "nccl" if mode == "nccl" else None}
+        check(seen == [want] * 3, f"{mode}: the command lines ran in {seen}, not {want}")
+        check(not any(counts["plain_calls"].values()),
+              f"{mode}: a plain version ran: {counts['plain_calls']}")
+        launched = {k: counts["launches"][k] for k in (
+            "nearest_code_stats", "nearest_code_ids", "causal_flash_attention",
+            "causal_flash_attention_dq", "causal_flash_attention_dkv")}
+        check(all(launched.values()), f"{mode}: kernels launched {launched}")
+        runs[mode] = {"seconds": time.perf_counter() - t0, "rows": n, "launches": launched,
+                      "stage1_step": t1.report(TRAIN_BATCH["vqvae"]),
+                      "top_prior_step": t2.report(TRAIN_BATCH["top"]), "dirs": dirs,
+                      "codes": codes}
+    result = {"steps": PAR_STEPS}
+    for name in ("vqvae", "top"):
+        a, b = (torch.load(os.path.join(runs[m]["dirs"][name], "last.pt"), map_location="cpu",
+                           weights_only=True) for m in ("alone", "nccl"))
+        diff = differing(a, b)
+        check(not diff, f"world-1 NCCL {name}: the checkpoint differs from the run without a "
+                        f"group at {diff[:5]}")
+        result[f"{name}_checkpoint_bit_equal"] = True
+    with open(runs["alone"]["codes"], "rb") as fa_, open(runs["nccl"]["codes"], "rb") as fb_:
+        check(fa_.read() == fb_.read(), "world-1 NCCL: the code store differs from the run "
+                                        "without a group")
+    result["code_store_bit_equal"] = True
+    for mode, run in runs.items():
+        result[mode] = {k: v for k, v in run.items() if k not in ("dirs", "codes")}
+    return result
+
+
+def _state_digest(state: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Each tensor's largest difference as a fraction of its largest element,
+    floored at a thousandth of the whole gradient's largest."""
+    floor = 1e-3 * max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), floor, 1e-30)
+            for k, w in want.items()}
+
+
+def _recorded_ema(model) -> list:
+    """Each quantizer's EMA step inputs, recorded as they come."""
+    from vqvae2_tpu_torch.models.vqvae import Quantize
+
+    records = []
+    for q in (m for m in model.modules() if isinstance(m, Quantize)):
+        def wrapped(flat, csum, esum, q=q, orig=q._ema_update):
+            records.append({"rows": flat.detach().clone(), "embed": q.embed.clone(),
+                            "csum": csum.clone(), "esum": esum.clone()})
+            orig(flat, csum, esum)
+        q._ema_update = wrapped
+    return records
+
+
+def score_gap(rows: torch.Tensor, embed: torch.Tensor, ids_a: torch.Tensor,
+              ids_b: torch.Tensor) -> float:
+    """The largest gap between the scores of codes ``ids_a`` and ``ids_b``
+    under ``rows``, as a fraction of ``|x|^2 + |e|^2`` (as compare_with_plain
+    measures a near-tie)."""
+    scores = qz.nearest_code_scores(rows, embed)
+    sa, sb = scores.gather(1, ids_a[:, None])[:, 0], scores.gather(1, ids_b[:, None])[:, 0]
+    scale = (rows.float() ** 2).sum(1) + (embed[ids_a] ** 2).sum(1)
+    return float(((sa - sb).abs() / scale.clamp_min(1e-30)).max())
+
+
+def near_tie_flips(rows_a: torch.Tensor, rows_b: torch.Tensor, embed: torch.Tensor) -> dict:
+    """The ids of two versions of the same rows (one image through batches of
+    two sizes, where cuDNN may round otherwise) that differ, and the largest
+    gap between the two codes' scores under ``rows_a`` (``score_gap``)."""
+    ids_a = qz.nearest_code_ids(rows_a.contiguous(), embed).long()
+    ids_b = qz.nearest_code_ids(rows_b.contiguous(), embed).long()
+    flip = (ids_a != ids_b).nonzero().flatten()
+    gap = score_gap(rows_a[flip], embed, ids_a[flip], ids_b[flip]) if flip.numel() else 0.0
+    return {"rows": rows_a.shape[0], "flips": int(flip.numel()), "largest_rel_gap": gap}
+
+
+def stage1_statistics_against(got: list, want: list, start: int, stop: int, images: int) -> list:
+    """Each quantizer's statistics at world N against world 1: the ids that
+    flip between this rank's rows and world 1's same rows, with their score
+    gaps, and the counts' L1 distance (at most two a flip, summed over the
+    ranks)."""
+    out = []
+    for g, w in zip(got, want):
+        hw = w["rows"].shape[0] // images
+        flips = near_tie_flips(w["rows"][start * hw:stop * hw], g["rows"], w["embed"])
+        out.append({**flips, "csum_l1": float((g["csum"] - w["csum"]).abs().sum()),
+                    "codes_moved": int((g["csum"] != w["csum"]).sum()),
+                    "esum_norm_err": norm_err(g["esum"], w["esum"])})
+    return out
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``|got - want| / |want|`` over the whole tensor."""
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-300))
+
+
+def store_against_world_one(one: str, two: str, model, dataset, batch: int) -> dict:
+    """The code store of world N against world 1's: bit for bit, or else the
+    same rows, labels and names with ids that differ only at near-ties (the
+    encoder's rows of world 1 decide)."""
+    with open(one, "rb") as a, open(two, "rb") as b:
+        if a.read() == b.read():
+            return {"bit_equal": True, "flips": 0, "largest_rel_gap": 0.0}
+    a, b = CodeStore(one), CodeStore(two)
+    n = len(a)
+    check(len(b) == n, f"gloo extraction: {len(b)} rows against world 1's {n}")
+    ta, ba, la, na = a.gather(np.arange(n), with_names=True)
+    tb, bb, lb, nb = b.gather(np.arange(n), with_names=True)
+    a.close()
+    b.close()
+    check(np.array_equal(la, lb) and na == nb, "gloo extraction: labels or names differ")
+    flips, gap = 0, 0.0
+    dev = next(model.parameters()).device
+    for s in range(0, n, batch):
+        imgs = torch.from_numpy(np.stack([dataset[i][0] for i in range(s, min(s + batch, n))]))
+        with torch.no_grad():
+            rows = capture_quantizer_inputs(model.eval(), imgs.to(dev))
+        for rows_q, q, ids_a, ids_b in zip(rows, (model.quantize_t, model.quantize_b),
+                                           (ta[s:s + batch], ba[s:s + batch]),
+                                           (tb[s:s + batch], bb[s:s + batch])):
+            ia_ = torch.from_numpy(ids_a.reshape(-1).astype(np.int64)).to(dev)
+            ib_ = torch.from_numpy(ids_b.reshape(-1).astype(np.int64)).to(dev)
+            flip = (ia_ != ib_).nonzero().flatten()
+            if flip.numel():
+                gap = max(gap, score_gap(rows_q[flip], q.embed, ia_[flip], ib_[flip]))
+                flips += int(flip.numel())
+    return {"bit_equal": False, "flips": flips, "largest_rel_gap": gap}
+
+
+def _stage1_case(dev: str):
+    """``VQVAE()`` with codebooks drawn among its rows, and a global batch."""
+    gen = np.random.default_rng(7)
+    x = torch.from_numpy(gen.normal(scale=0.5, size=(TRAIN_BATCH["vqvae"], SIZE, SIZE, 3))
+                         .astype(np.float32)).to(dev)
+    model = build_vqvae(device=dev, seed=0)
+    with torch.no_grad():
+        seed_codebooks_from_data(model, x)
+    return model, x
+
+
+def _stage1_run(model, x, steps: int = 1):
+    """One ``train.vqvae`` step (and ``steps - 1`` more, timed) from a copy of
+    ``model``; its gradients, statistics and state after the first step."""
+    m = copy.deepcopy(model).train()
+    tx = schedules.adam(3e-4)
+    state = tv.create_state(m, tx)
+    ema = _recorded_ema(m)
+    with ParallelStepTimer(tv, "make_train_step") as timer:
+        step = tv.make_train_step(m, tx)
+        state, _ = step(state, x)
+        out = {"grads": {k: p.grad.clone() for k, p in m.named_parameters()},
+               "state": {k: v.clone() for k, v in m.state_dict().items()}, "ema": ema[:]}
+        for _ in range(steps - 1):
+            state, _ = step(state, x)
+    return out, timer.report(x.shape[0])
+
+
+def _top_case(dev: str):
+    args = tp.build_argparser().parse_args(["codes", "--dropout", "0"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = build_model("top", args, code_hw=(TOP_HW, BOTTOM_HW)).to(dev)
+    g = np.random.default_rng(3)
+    codes = torch.from_numpy(g.integers(0, K, size=(TRAIN_BATCH["top"], TOP_HW, TOP_HW))
+                             .astype(np.int64)).to(dev)
+    return model, codes
+
+
+def _top_run(model, codes, steps: int = 1):
+    m = copy.deepcopy(model).train()
+    tx = schedules.adam(3e-4)
+    state = tv.create_state(m, tx)
+    with ParallelStepTimer(tp, "make_train_step") as timer:
+        step = tp.make_train_step(m, tx, False, seed=1)
+        state, _ = step(state, {"target": codes})
+        out = {"grads": {k: p.grad.clone() for k, p in m.named_parameters()},
+               "state": {k: v.clone() for k, v in m.state_dict().items()}}
+        for _ in range(steps - 1):
+            state, _ = step(state, {"target": codes})
+    return out, timer.report(codes.shape[0])
+
+
+def _abn_cases(dev: str):
+    """The 13 ABN inputs of ``EmbedNet2(resnet50)`` on a train batch of 72
+    images at 288x144, each with a weight, a bias and an upstream gradient."""
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH).to(dev)
+    inputs = capture_abn_inputs(model, reid_batch(4, REID_P, REID_K, REID_HW, REID_IDS))
+    del model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+    for name, x in inputs:
+        m, c = x.shape
+        cases.append({"name": name, "x": x,
+                      "w": torch.randn(c, generator=gen, device=dev),
+                      "b": 0.3 * torch.randn(c, generator=gen, device=dev),
+                      "dz": torch.randn(m, c, generator=gen, device=dev) / (m * c)})
+    return cases
+
+
+def _abn_run(case, sync: bool):
+    """``InPlaceABN`` (``InPlaceABNSync`` under a group) on this rank's rows of
+    the case, backward from its rows of dz, then the gradient all-reduce."""
+    from vqvae2_tpu_torch.models.abn import InPlaceABN, InPlaceABNSync
+
+    c = case["x"].shape[1]
+    abn = (InPlaceABNSync(c) if sync else InPlaceABN(c)).to(case["x"].device)
+    with torch.no_grad():
+        abn.weight.copy_(case["w"])
+        abn.bias.copy_(case["b"])
+    x = par.shard_batch(case["x"]).clone().requires_grad_(True)
+    z = abn(x)
+    z.backward(par.shard_batch(case["dz"]))
+    par.all_reduce_grads(abn.parameters())
+    return {"z": z.detach(), "dx": x.grad, "dweight": abn.weight.grad, "dbias": abn.bias.grad,
+            "running_mean": abn.running_mean, "running_var": abn.running_var}
+
+
+def gloo_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the ``gloo`` world on the card: the world-1 references on
+    the global batch first (no group yet), then the group, the same work on
+    this rank's rows, and the comparisons; the results go to a file."""
+    try:
+        torch.cuda.set_device(0)
+        port.set_reference_precision()
+        dev = GLOO_DEVICE
+        stage1_model, x = _stage1_case(dev)
+        top_model, codes = _top_case(dev)
+        abn_cases = _abn_cases(dev)
+        ref = {"stage1": _stage1_run(stage1_model, x)[0], "top": _top_run(top_model, codes)[0],
+               "abn": [_abn_run(c, sync=False) for c in abn_cases]}
+        extract_dir = os.path.join(out_dir, "extract")
+        dataset = SyntheticImages(n=GLOO_EXTRACT["n_images"], size=SIZE)
+        if rank == 0:
+            os.makedirs(extract_dir, exist_ok=True)
+            extract_codes.extract(stage1_model, dataset, os.path.join(extract_dir, "one.vq2"),
+                                  batch_size=GLOO_EXTRACT["batch"], size=SIZE, workers=0,
+                                  device=dev)
+        torch.cuda.synchronize()
+
+        par.init_distributed(store, world, rank, device=dev, backend="gloo")
+        try:
+            reset_all_counts()
+            s1, s1_times = _stage1_run(stage1_model, x, 1 + GLOO_TIMED_STEPS)
+            top, top_times = _top_run(top_model, codes, 1 + GLOO_TIMED_STEPS)
+            abn = [_abn_run(c, sync=True) for c in abn_cases]
+            extract_codes.extract(stage1_model, dataset, os.path.join(extract_dir, "two.vq2"),
+                                  batch_size=GLOO_EXTRACT["batch"], size=SIZE, workers=0,
+                                  device=dev)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            start, stop = par.shard_rows(x.shape[0])
+        finally:
+            dist.destroy_process_group()
+
+        res = {"rank": rank, "counts": counts, "rows": [start, stop],
+               "stage1_step": s1_times, "top_prior_step": top_times,
+               "stage1_grad_err": max(_grad_errors(s1["grads"], ref["stage1"]["grads"]).values()),
+               "top_grad_err": max(_grad_errors(top["grads"], ref["top"]["grads"]).values()),
+               "quantizers": stage1_statistics_against(s1["ema"], ref["stage1"]["ema"], start,
+                                                       stop, x.shape[0]),
+               "codebook_norm_err": {
+                   k: norm_err(v, ref["stage1"]["state"][k]) for k, v in s1["state"].items()
+                   if k.split(".")[-1] in ("embed", "embed_avg", "cluster_size")},
+               "digests": {"stage1": _state_digest(s1["state"]), "top": _state_digest(top["state"]),
+                           "abn": _state_digest({f"{i}.{k}": a[k] for i, a in enumerate(abn)
+                                                 for k in ("dweight", "dbias", "running_mean",
+                                                           "running_var")})},
+               "abn": []}
+        for case, got, want in zip(abn_cases, abn, ref["abn"]):
+            lo, hi = par.shard_rows(case["x"].shape[0], par.Mesh(world, rank, torch.device(dev)))
+            rows = {"z": want["z"][lo:hi], "dx": want["dx"][lo:hi]}
+            res["abn"].append({
+                "name": case["name"], "m": case["x"].shape[0], "c": case["x"].shape[1],
+                **{f"{k}_norm_err": norm_err(got[k], rows.get(k, want[k]))
+                   for k in ("z", "dx", "dweight", "dbias", "running_mean", "running_var")},
+                **{f"{k}_max_abs_err": float((got[k] - rows.get(k, want[k])).abs().max())
+                   for k in ("z", "dx", "dweight", "dbias")}})
+        if rank == 0:
+            res["store"] = store_against_world_one(
+                os.path.join(extract_dir, "one.vq2"), os.path.join(extract_dir, "two.vq2"),
+                stage1_model, dataset, GLOO_EXTRACT["batch"])
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def gloo_world_of_two(tmp: str) -> dict:
+    """Two ``gloo`` ranks on the one card, spawned: a stage-1 step, a
+    top-prior step (dropout 0), the ABNs of EmbedNet2 forward and backward,
+    and extraction with a ragged last batch, each against the world-1 run on
+    the global batch; every rank's counters (K3, K4-K6, K7/K8 launched, no
+    plain version) and state (bit-equal to rank 0's).  What fails is listed
+    under ``failures`` for the phase to report after it has printed."""
+    import multiprocessing
+
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    store = "file://" + os.path.join(out_dir, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank, args=(r, GLOO_WORLD, store, out_dir))
+             for r in range(GLOO_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GLOO_JOIN_SECONDS
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = [open(os.path.join(out_dir, f"rank{r}.err")).read() for r in range(GLOO_WORLD)
+              if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    check(not hung and not errors and all(p.exitcode == 0 for p in procs),
+          f"gloo world: ranks {hung} hung; exit codes {[p.exitcode for p in procs]}; "
+          + "\n".join(errors))
+    ranks_ = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+              for r in range(GLOO_WORLD)]
+    seconds = time.perf_counter() - t0
+    want = {"nearest_code_stats", "causal_flash_attention", "causal_flash_attention_dq",
+            "causal_flash_attention_dkv", "abn_forward", "abn_backward"}
+    failures = []
+
+    def expect(cond, message: str) -> None:         # collected: the phase prints first
+        if not cond:
+            failures.append(message)
+
+    for r in ranks_:
+        tag = f"gloo rank {r['rank']}"
+        expect(all(r["counts"]["launches"][k] for k in want) and
+               not any(r["counts"]["plain_calls"].values()),
+               f"{tag}: launches {r['counts']['launches']}, plain {r['counts']['plain_calls']}")
+        expect(r["stage1_grad_err"] <= PAR_GRAD_RTOL,
+               f"{tag}: stage-1 gradients off world 1 by {r['stage1_grad_err']} (> {PAR_GRAD_RTOL})")
+        expect(r["top_grad_err"] <= PAR_GRAD_RTOL,
+               f"{tag}: top-prior gradients off world 1 by {r['top_grad_err']}")
+        expect(max(r["codebook_norm_err"].values()) <= PAR_NORM_RTOL,
+               f"{tag}: codebooks off world 1: {r['codebook_norm_err']}")
+        expect(r["quantizers"][0]["largest_rel_gap"] <= TIE_RTOL,
+               f"{tag}: top ids flipped against world 1 beyond near-ties: {r['quantizers'][0]}")
+        expect(all(q["flips"] <= PAR_FLIP_SHARE * q["rows"] for q in r["quantizers"]),
+               f"{tag}: ids flipped against world 1 in more than {PAR_FLIP_SHARE} of the rows: "
+               f"{r['quantizers']}")
+        for a in r["abn"]:
+            worst = max(v for k, v in a.items() if k.endswith("_norm_err"))
+            expect(worst <= PAR_NORM_RTOL, f"{tag}: ABN {a['name']} off world 1: {a}")
+        expect(r["digests"] == ranks_[0]["digests"], f"{tag}: state differs from rank 0's")
+    for i in range(len(ranks_[0]["quantizers"])):
+        flips = sum(r["quantizers"][i]["flips"] for r in ranks_)
+        l1 = ranks_[0]["quantizers"][i]["csum_l1"]
+        expect(l1 <= 2 * flips, f"gloo world: quantizer {i}'s counts moved by {l1} with {flips} "
+                                "near-tie flips")
+    store = ranks_[0]["store"]
+    expect(store["largest_rel_gap"] <= TIE_RTOL,
+           f"gloo world: the code store differs from world 1's beyond near-ties: {store}")
+    return {"world": GLOO_WORLD, "device": GLOO_DEVICE, "seconds": seconds,
+            "extract": dict(GLOO_EXTRACT), "ranks": [
+                {k: v for k, v in r.items() if k not in ("digests",)} for r in ranks_],
+            "states_bit_equal_across_ranks": all(r["digests"] == ranks_[0]["digests"]
+                                                 for r in ranks_),
+            "failures": failures}
+
+
+def phase_parallel(tmp: str) -> dict:
+    result = {"card": card_name(), "world_1_nccl": parallel_world_of_one(tmp),
+              "world_2_gloo": gloo_world_of_two(tmp)}
+    emit("parallel", **result)
+    failures = result["world_2_gloo"]["failures"]
+    check(not failures, "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
@@ -4813,6 +5387,7 @@ def main(argv=None) -> int:
             phase_main_stargan(tmp)
             phase_main_ssd(tmp)
             phase_main_maskrcnn(tmp)
+            phase_parallel(tmp)
         record["kernels"] += deep_records(by_path)
         phase_cudnn_grads()
         phase_probe()

@@ -63,7 +63,8 @@ def test_the_walk_sees_the_port():
             "vqvae2_tpu_torch/detection/mask_rcnn.py", "vqvae2_tpu_torch/detection/data.py",
             "vqvae2_tpu_torch/detection/coco_eval.py", "vqvae2_tpu_torch/detection/visualize.py",
             "vqvae2_tpu_torch/train/detection.py", "vqvae2_tpu_torch/train/maskrcnn.py",
-            "vqvae2_tpu_torch/utils/config.py", "vqvae2_tpu_torch/utils/transforms.py"} <= names
+            "vqvae2_tpu_torch/utils/config.py", "vqvae2_tpu_torch/utils/transforms.py",
+            "vqvae2_tpu_torch/parallel/__init__.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -29,9 +29,14 @@ def resolve_device(device="cuda") -> torch.device:
 
     Raises ``RuntimeError`` when a CUDA device is asked for (the default) and
     none is present: nothing carries on on the CPU unless the caller said
-    ``device="cpu"``."""
+    ``device="cpu"``.  Under a process group a bare ``cuda`` is the rank's own
+    card, ``cuda:LOCAL_RANK`` (``parallel.get_local_rank``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
+        from vqvae2_tpu_torch import parallel
+
+        if dev.index is None and parallel.is_initialized():
+            dev = torch.device("cuda", parallel.get_local_rank())
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {str(dev)!r} was requested but torch.cuda.is_available() "

@@ -5,20 +5,28 @@ norm + activation.  Inputs are ``(..., C)`` with channels last.
 Running statistics are buffers with torch's semantics, as in the JAX package:
 ``running = (1 - m) * running + m * batch`` with ``m = 0.1``, the variance
 corrected to unbiased by ``count / (count - 1)``.  At ``count == 1`` (one row a
-channel) that raises ``ZeroDivisionError``, as the JAX package does.  ``InPlaceABNSync``
-(moments over several devices) is not ported: it comes with
-``torch.distributed``.
+channel) that raises ``ZeroDivisionError``, as the JAX package does.
+
+Under a process group (``parallel``) the in-place ABN is synchronised: moments,
+``count`` and the backward sums are the global batch's, as the JAX package's
+are under GSPMD (``axis_name=None``) and under ``shard_map`` with
+``axis_name="data"``.  The port has that one data axis, so ``InPlaceABNSync``
+is ``InPlaceABN(axis_name="data")`` and behaves as ``InPlaceABN`` does; both
+names stay so that modules read as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vqvae2_tpu_torch.models.resnet import BatchNorm
-from vqvae2_tpu_torch.ops.inplace_abn import (ACT_ELU, ACT_LEAKY_RELU, ACT_NONE, batch_moments,
-                                              inplace_abn)
+from vqvae2_tpu_torch.parallel import DATA_AXIS
+from vqvae2_tpu_torch.ops.inplace_abn import (ACT_ELU, ACT_LEAKY_RELU, ACT_NONE,
+                                              batch_statistics, inplace_abn)
 
 
 class InPlaceABN(nn.Module):
@@ -29,9 +37,13 @@ class InPlaceABN(nn.Module):
     stored in bf16."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 affine: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01):
+                 affine: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01,
+                 axis_name: Optional[str] = None):
         super().__init__()
+        if axis_name not in (None, DATA_AXIS):
+            raise ValueError(f"the port has one axis, {DATA_AXIS!r}; got axis_name={axis_name!r}")
         self.num_features, self.eps, self.momentum = num_features, eps, momentum
+        self.axis_name = axis_name
         self.activation, self.slope = activation, slope
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
@@ -46,9 +58,9 @@ class InPlaceABN(nn.Module):
         c = self.num_features
         if x.shape[-1] != c:
             raise ValueError(f"expected {c} channels, got {tuple(x.shape)}")
+        count = None
         if self.training:
-            mean, var = batch_moments(x)
-            count = x.numel() // c
+            mean, var, count = batch_statistics(x)
             with torch.no_grad():
                 self.running_mean.copy_((1 - self.momentum) * self.running_mean
                                         + self.momentum * mean)
@@ -57,7 +69,13 @@ class InPlaceABN(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         return inplace_abn(x, self.weight, self.bias, mean, var, self.eps, self.activation,
-                           self.slope, self.training)
+                           self.slope, self.training, count)
+
+
+def InPlaceABNSync(num_features: int, axis_name: str = DATA_AXIS, **kw) -> InPlaceABN:
+    """Cross-rank-synced ABN (reference ``InPlaceABNSync``): moments and
+    gradient sums over the ranks of the process group."""
+    return InPlaceABN(num_features, axis_name=axis_name, **kw)
 
 
 class ABN(nn.Module):

@@ -22,7 +22,10 @@ Dropout follows the module's mode: in ``train()`` with a rate above zero the
 forward needs a ``generator`` (a ``torch.Generator`` on the input's device),
 from which every dropout draw of the call is taken — the residual blocks'
 Bernoulli masks, and the seed of the attention kernel's counter-based draw on
-the probabilities.  In ``eval()`` nothing is drawn.
+the probabilities.  In ``eval()`` nothing is drawn.  Inside
+:func:`batch_rows` (a data-parallel step) the residual blocks draw the global
+batch's masks and keep this rank's rows, as flax's dropout does not depend on
+the sharding: the ranks together drop what one process drops.
 
 ``dtype`` is the compute type of the convolutions, as in the JAX package: the
 weight norm is taken in fp32, then input, kernel and bias are cast to
@@ -34,6 +37,8 @@ q, k and v are fp32 in either mode, and so is its output.
 
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -167,17 +172,40 @@ class CausalConv(WNConv):
         self.padding_mode = padding_mode
 
 
+# ``(start, total)``: this rank's first row and the global batch's rows while
+# a data-parallel step runs (set by ``batch_rows``; None outside one).
+_BATCH_ROWS: ContextVar[Optional[Tuple[int, int]]] = ContextVar("batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(start: int, total: int):
+    """Within the block, this process holds rows ``start:`` of a global batch
+    of ``total`` rows: :func:`dropout` draws the ``total`` rows' mask and keeps
+    this process's rows."""
+    token = _BATCH_ROWS.set((start, total))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout (``flax.linen.Dropout``): keep with probability
     ``1 - rate`` and scale by ``1 / (1 - rate)``; the draw comes from
-    ``generator``, which training with ``rate > 0`` requires."""
+    ``generator``, which training with ``rate > 0`` requires.  Inside
+    :func:`batch_rows` the mask is the global batch's, cut to this rank's
+    rows, and the generator advances as one process's does."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a generator (pass generator=...)")
-    keep = torch.empty(x.shape, dtype=torch.float32, device=x.device).bernoulli_(
+    rows = _BATCH_ROWS.get()
+    shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+    keep = torch.empty(shape, dtype=torch.float32, device=x.device).bernoulli_(
         1.0 - rate, generator=generator)
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + x.shape[0]]
     return torch.where(keep != 0, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -15,7 +15,10 @@ so such a checkpoint loads after the codebook buffers are transposed
 
 ``train=True`` runs the statistics flavour of the quantizer kernel and
 updates the three codebook buffers in place (the JAX package threads them
-through ``mutable=["vq_stats"]``).
+through ``mutable=["vq_stats"]``).  Under a process group the statistics are
+those of the global batch: the counts and sums are summed over the ranks
+before the EMA step, and the dead-code restart draws from the global rows, so
+every rank's codebook takes the single-process step (``parallel``).
 
 ``dtype`` is the convolutions' compute type, as in the JAX package
 (``models/layers.py``): with ``torch.bfloat16`` every convolution runs in
@@ -35,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.models.layers import Conv2d, ConvTranspose2d
 from vqvae2_tpu_torch.ops.quantize import (nearest_code, nearest_code_ids,
                                            quantize_lookup)
@@ -88,10 +92,10 @@ class Quantize(nn.Module):
         flat = x.reshape(-1, self.dim).contiguous()
         indices, quantized, csum, esum = nearest_code(flat, self.embed, with_stats=train)
         if train:
-            self._ema_update(flat, csum, esum)
+            self._ema_update(flat, par.all_reduce(csum), par.all_reduce(esum))
         indices = indices.reshape(x.shape[:-1])
         quantized = quantized.reshape(x.shape).to(x.dtype)
-        diff = torch.mean(
+        diff = par.local_mean(
             torch.square(quantized.detach().to(torch.float32) - x.to(torch.float32)))
         quantized = x + (quantized - x).detach()
         return quantized, diff, indices
@@ -99,7 +103,8 @@ class Quantize(nn.Module):
     @torch.no_grad()
     def _ema_update(self, flat: torch.Tensor, csum: torch.Tensor, esum: torch.Tensor) -> None:
         """The EMA step of the JAX module (``vqvae2_tpu/models/vqvae.py:83-120``),
-        term for term, written into the buffers in place."""
+        term for term, written into the buffers in place, from the global
+        batch's ``csum`` and ``esum``; ``flat`` holds this rank's rows."""
         probs = csum / torch.clamp(torch.sum(csum), min=1.0)
         self.perplexity = torch.exp(-torch.sum(probs * torch.log(torch.clamp(probs, min=1e-10))))
         new_cluster = self.cluster_size * self.decay + (1 - self.decay) * csum
@@ -108,10 +113,12 @@ class Quantize(nn.Module):
         smoothed = (new_cluster + self.eps) / (n + self.n_embed * self.eps) * n
         new_embed = new_avg / smoothed[:, None]
         if self.restart_threshold > 0:
-            # dead-code restart from rows of the batch, a draw fixed by its content
+            # dead-code restart from rows of the global batch, a draw fixed by
+            # its content: row arange(K) % N of all ranks' rows in rank order
             dead = new_cluster < self.restart_threshold
-            take = torch.arange(self.n_embed, device=flat.device) % flat.shape[0]
-            repl = flat[take].to(torch.float32)
+            offset, total = par.row_offset(flat.shape[0], flat.device)
+            take = torch.arange(self.n_embed, device=flat.device) % total
+            repl = par.take_rows(flat, take, offset).to(torch.float32)
             new_embed = torch.where(dead[:, None], repl, new_embed)
             new_avg = torch.where(dead[:, None], repl, new_avg)
             new_cluster = torch.where(dead, torch.ones_like(new_cluster), new_cluster)

@@ -5,7 +5,8 @@
 //   abn_forward_kernel         <- _fwd_kernel  (launched by _pallas_elementwise via
 //                                               _abn_fwd_launch; entry abn_forward)
 //   abn_backward_*_kernel      <- _bwd_kernel  (launched by _pallas_bwd via
-//                                               _abn_bwd_launch; entry abn_backward),
+//                                               _abn_bwd_launch; entries
+//                                               abn_backward_sums, abn_backward_dx),
 //                                 with the per-channel sums that the JAX package
 //                                 leaves to XLA reductions (inplace_abn.py:266-276)
 //
@@ -22,6 +23,9 @@
 //   The elu clamp keeps a z rounded onto the asymptote -1 finite (log1p(-1) is
 //   -inf and dz * 0 would make NaNs in the sums).  In eval mode the sums are
 //   zero and inv_count is 0.
+//   The sums and the dx pass are two entries, so that the synchronised ABN can
+//   sum edz and eydz over the ranks between them (and pass the global
+//   1 / count as inv_count).
 //
 // What bounds it on this card: bytes.  The forward does a handful of flops for
 // 8 bytes (fp32) moved an element; the backward a few dozen for 12.  At the
@@ -422,30 +426,35 @@ int forward(const void* x, void* z, const float* mean, const float* scale, const
 }
 
 template <typename T, int ACT>
-int backward_act(const void* z, const void* dz, void* dx, const float* bias_t,
-                 const float* weight_t, const float* mul, float* edz, float* eydz, float* scratch,
-                 long long m, int c, float slope, float inv_count, bool training,
-                 cudaStream_t s) {
+int sums_act(const void* z, const void* dz, const float* bias_t, const float* weight_t,
+             float* edz, float* eydz, float* scratch, long long m, int c, float slope,
+             bool training, cudaStream_t s) {
+  int err;
+  if (!training) {
+    if ((err = static_cast<int>(cudaMemsetAsync(edz, 0, c * sizeof(float), s)))) return err;
+    return static_cast<int>(cudaMemsetAsync(eydz, 0, c * sizeof(float), s));
+  }
+  const long long chunks = chunks_of(m);
+  const int slabs = (c + RED_COLS - 1) / RED_COLS;
+  float* part_edz = scratch;
+  float* part_eydz = scratch + chunks * c;
+  const dim3 block(RED_COLS, RED_ROWS);
+  abn_backward_partial_kernel<T, ACT><<<dim3(static_cast<unsigned>(chunks), slabs), block, 0, s>>>(
+      static_cast<const T*>(z), static_cast<const T*>(dz), bias_t, weight_t, part_edz,
+      part_eydz, m, c, slope);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  abn_backward_sum_kernel<<<slabs, block, 0, s>>>(part_edz, part_eydz, edz, eydz,
+                                                  static_cast<int>(chunks), c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int ACT>
+int dx_act(const void* z, const void* dz, void* dx, const float* bias_t, const float* weight_t,
+           const float* mul, const float* edz, const float* eydz, long long m, int c,
+           float slope, float inv_count, cudaStream_t s) {
   const T* zt = static_cast<const T*>(z);
   const T* dzt = static_cast<const T*>(dz);
   T* dxt = static_cast<T*>(dx);
-  int err;
-  if (training) {
-    const long long chunks = chunks_of(m);
-    const int slabs = (c + RED_COLS - 1) / RED_COLS;
-    float* part_edz = scratch;
-    float* part_eydz = scratch + chunks * c;
-    const dim3 block(RED_COLS, RED_ROWS);
-    abn_backward_partial_kernel<T, ACT><<<dim3(static_cast<unsigned>(chunks), slabs), block, 0, s>>>(
-        zt, dzt, bias_t, weight_t, part_edz, part_eydz, m, c, slope);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-    abn_backward_sum_kernel<<<slabs, block, 0, s>>>(part_edz, part_eydz, edz, eydz,
-                                                    static_cast<int>(chunks), c);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  } else {
-    if ((err = static_cast<int>(cudaMemsetAsync(edz, 0, c * sizeof(float), s)))) return err;
-    if ((err = static_cast<int>(cudaMemsetAsync(eydz, 0, c * sizeof(float), s)))) return err;
-  }
   const bool vec = vectorizable<T>(c, z, dz, dx);
   const int blocks = elementwise_blocks(vec ? m * c / 4 : m * c);
   if (c <= STAGED_MAX_C) {
@@ -468,19 +477,36 @@ int backward_act(const void* z, const void* dz, void* dx, const float* bias_t,
 }
 
 template <typename T>
-int backward(const void* z, const void* dz, void* dx, const float* bias_t, const float* weight_t,
-             const float* mul, float* edz, float* eydz, float* scratch, long long m, int c,
-             int act, float slope, float inv_count, bool training, cudaStream_t s) {
+int sums(const void* z, const void* dz, const float* bias_t, const float* weight_t, float* edz,
+         float* eydz, float* scratch, long long m, int c, int act, float slope, bool training,
+         cudaStream_t s) {
   switch (act) {
     case LEAKY_RELU:
-      return backward_act<T, LEAKY_RELU>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, scratch, m,
-                                         c, slope, inv_count, training, s);
+      return sums_act<T, LEAKY_RELU>(z, dz, bias_t, weight_t, edz, eydz, scratch, m, c, slope,
+                                     training, s);
     case ELU:
-      return backward_act<T, ELU>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, scratch, m, c,
-                                  slope, inv_count, training, s);
+      return sums_act<T, ELU>(z, dz, bias_t, weight_t, edz, eydz, scratch, m, c, slope,
+                              training, s);
     default:
-      return backward_act<T, NONE>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, scratch, m, c,
-                                   slope, inv_count, training, s);
+      return sums_act<T, NONE>(z, dz, bias_t, weight_t, edz, eydz, scratch, m, c, slope,
+                               training, s);
+  }
+}
+
+template <typename T>
+int dx_pass(const void* z, const void* dz, void* dx, const float* bias_t, const float* weight_t,
+            const float* mul, const float* edz, const float* eydz, long long m, int c, int act,
+            float slope, float inv_count, cudaStream_t s) {
+  switch (act) {
+    case LEAKY_RELU:
+      return dx_act<T, LEAKY_RELU>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, m, c, slope,
+                                   inv_count, s);
+    case ELU:
+      return dx_act<T, ELU>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, m, c, slope,
+                            inv_count, s);
+    default:
+      return dx_act<T, NONE>(z, dz, dx, bias_t, weight_t, mul, edz, eydz, m, c, slope,
+                             inv_count, s);
   }
 }
 
@@ -503,21 +529,20 @@ extern "C" int abn_forward(const void* x, void* z, const void* mean, const void*
                    : forward<float>(x, z, mu, sc, sh, m, c, act, slope, s);
 }
 
-// Bytes of scratch that abn_backward needs for this shape in training mode
-// (the caller allocates it; the kernels allocate nothing).
+// Bytes of scratch that abn_backward_sums needs for this shape in training
+// mode (the caller allocates it; the kernels allocate nothing).
 extern "C" long long abn_backward_scratch_bytes(long long m, int c) {
   return 2 * chunks_of(m) * c * static_cast<long long>(sizeof(float));
 }
 
-// dx (M, C) in z's type from z, dz (M, C); bias_t, weight_t, mul (C,) fp32.
-// In training mode also edz, eydz (C,) fp32, summed in a fixed order through
-// `scratch`; in eval mode they are set to zero.  Returns as abn_forward; also
+// edz, eydz (C,) fp32 from z, dz (M, C) of one type (fp32 or bf16) and bias_t,
+// weight_t (C,) fp32: in training mode summed in a fixed order through
+// `scratch`, in eval mode set to zero.  Returns as abn_forward; also
 // cudaErrorInvalidValue for too little scratch.
-extern "C" int abn_backward(const void* z, const void* dz, void* dx, const void* bias_t,
-                            const void* weight_t, const void* mul, void* edz, void* eydz,
-                            void* scratch, long long scratch_bytes, long long m, int c, int act,
-                            float slope, float inv_count, int training, int is_bf16,
-                            void* stream) {
+extern "C" int abn_backward_sums(const void* z, const void* dz, const void* bias_t,
+                                 const void* weight_t, void* edz, void* eydz, void* scratch,
+                                 long long scratch_bytes, long long m, int c, int act,
+                                 float slope, int training, int is_bf16, void* stream) {
   if (bad_shape(m, c, act)) return static_cast<int>(cudaErrorInvalidValue);
   if (training && scratch_bytes < abn_backward_scratch_bytes(m, c)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -525,14 +550,31 @@ extern "C" int abn_backward(const void* z, const void* dz, void* dx, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias_t);
   const float* w = static_cast<const float*>(weight_t);
-  const float* mu = static_cast<const float*>(mul);
   float* e = static_cast<float*>(edz);
   float* ey = static_cast<float*>(eydz);
   float* sc = static_cast<float*>(scratch);
-  return is_bf16 ? backward<__nv_bfloat16>(z, dz, dx, b, w, mu, e, ey, sc, m, c, act, slope,
-                                           inv_count, training != 0, s)
-                 : backward<float>(z, dz, dx, b, w, mu, e, ey, sc, m, c, act, slope, inv_count,
-                                   training != 0, s);
+  return is_bf16 ? sums<__nv_bfloat16>(z, dz, b, w, e, ey, sc, m, c, act, slope, training != 0, s)
+                 : sums<float>(z, dz, b, w, e, ey, sc, m, c, act, slope, training != 0, s);
+}
+
+// dx (M, C) in z's type from z, dz (M, C), bias_t, weight_t, mul (C,) fp32 and
+// the sums edz, eydz (C,) fp32 (this call's, or summed over the ranks), with
+// inv_count 1 / count in training mode and 0 in eval mode.  Returns as
+// abn_forward.
+extern "C" int abn_backward_dx(const void* z, const void* dz, void* dx, const void* bias_t,
+                               const void* weight_t, const void* mul, const void* edz,
+                               const void* eydz, long long m, int c, int act, float slope,
+                               float inv_count, int is_bf16, void* stream) {
+  if (bad_shape(m, c, act)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias_t);
+  const float* w = static_cast<const float*>(weight_t);
+  const float* mu = static_cast<const float*>(mul);
+  const float* e = static_cast<const float*>(edz);
+  const float* ey = static_cast<const float*>(eydz);
+  return is_bf16 ? dx_pass<__nv_bfloat16>(z, dz, dx, b, w, mu, e, ey, m, c, act, slope,
+                                          inv_count, s)
+                 : dx_pass<float>(z, dz, dx, b, w, mu, e, ey, m, c, act, slope, inv_count, s);
 }
 
 extern "C" const char* abn_error_string(int code) {

@@ -16,7 +16,10 @@ The kernel draws its dropout mask from Philox-4x32-10 keyed on the absolute
 ``(seed, bh, i, j)`` element; :func:`dropout_keep_reference` is the same draw
 in plain integer tensor arithmetic, and ``dropout_keep_mask`` exports the
 kernel's own mask, so the plain version — which takes an explicit ``keep`` —
-can be held against the kernel with dropout on.
+can be held against the kernel with dropout on.  Under a process group each
+rank adds :func:`shard_seed_offset` of its rank to the seed it draws, the JAX
+package's rule for a batch shard, so the ranks draw distinct masks and rank 0
+draws what one process draws.
 
 The gradient: :class:`CausalFlashAttention` binds the forward kernel (which
 saves ``lse``) to the two backward kernels of the same source, one for ``dq``
@@ -37,6 +40,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.ops import _build
 
 NEG_INF = -1e30          # the fill of masked scores (not -inf: NaN from inf - inf)
@@ -52,6 +56,16 @@ def reset_counts() -> None:
     for counts in (launch_counts, plain_counts):
         for name in counts:
             counts[name] = 0
+
+
+# The JAX package's ``_shard_seed_offset`` multiplier: odd, so the offsets of
+# distinct ranks differ modulo 2**32, and modulo 2**64, the port's seed width.
+SHARD_SEED_MULTIPLIER = 0x632BE5AB
+
+
+def shard_seed_offset(rank: int) -> int:
+    """What rank ``rank`` adds to its dropout seed (0 for rank 0)."""
+    return (rank * SHARD_SEED_MULTIPLIER) % 2 ** 64
 
 
 def dropout_threshold(rate: float) -> int:
@@ -433,7 +447,8 @@ def causal_flash_attention(
 
     ``q, k, v`` — ``(B, H, N, D)``, fp32 or bf16, any ``N >= 1`` and
     ``D >= 1``.  ``dropout_rate > 0`` needs a ``generator``, from
-    which the seed of the kernel's counter-based draw is taken.  Returns
+    which the seed of the kernel's counter-based draw is taken, plus the
+    rank's :func:`shard_seed_offset` under a process group.  Returns
     ``(B, H, N, D)`` in ``q``'s dtype."""
     if q.ndim != 4:
         raise ValueError(f"q, k, v must be (B, H, N, D), got {tuple(q.shape)}")
@@ -444,6 +459,7 @@ def causal_flash_attention(
             raise ValueError("dropout_rate > 0 requires a generator")
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                  device=generator.device).item())
+        seed = (seed + shard_seed_offset(par.get_rank())) % 2 ** 64
     flat = [t.reshape(b * h, n, d).contiguous() for t in (q, k, v)]
     o, _ = causal_flash_attention_lse(*flat, dropout_rate=dropout_rate, seed=seed)
     return o.reshape(b, h, n, d)

@@ -22,21 +22,28 @@ compared with on the card.  Two kernels are ported:
 * ``abn_forward``  — the fused normalise + activate pass (K7)
 * ``abn_backward`` — the per-channel sums ``edz``, ``eydz`` (partial sums per
   row block, then summed in a fixed order: bit-repeatable) and the ``dx`` pass
-  (K8), one wrapper over both
+  (K8): two entries of the source, ``abn_backward_sums`` and
+  ``abn_backward_dx``, launched by one wrapper, which can reduce the sums
+  between them
 
-:func:`batch_moments` stays a pair of torch reductions in fp32 with the JAX
-formula ``E[x^2] - E[x]^2``, as it lies outside the Pallas kernels in the JAX
-package too.  The moments of several devices (``axis_name`` there) are not
-ported: they come with the sync ABN over ``torch.distributed``.
+:func:`batch_moments` stays torch reductions in fp32 with the JAX formula
+``E[x^2] - E[x]^2``, as it lies outside the Pallas kernels in the JAX package
+too.  Under a process group (``parallel``) the ABN is synchronised, as the JAX
+package's moments and sums are over the global batch under GSPMD and over
+``axis_name`` under ``shard_map``: the moments come from ``(Σx, Σx², n)``
+summed over the ranks, the backward sums ``edz``, ``eydz`` over the ranks
+between the two entries, and ``dx`` takes ``1 / n_global``.  ``dweight`` and
+``dbias`` are the rank's own sums: the gradient all-reduce adds them up.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.ops import _build
 
 ACT_LEAKY_RELU = "leaky_relu"
@@ -101,6 +108,37 @@ def abn_forward_reference(x2d: torch.Tensor, mean: torch.Tensor, scale: torch.Te
     return act_forward(y, activation, slope).to(x2d.dtype)
 
 
+def _yhat_dy(z2d, dz2d, bias_t, weight_t, activation, slope):
+    y, dy = act_invert(z2d.to(torch.float32), dz2d.to(torch.float32), activation, slope)
+    return (y - bias_t[None, :]) / weight_t[None, :], dy
+
+
+def abn_backward_sums_reference(
+    z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
+    training: bool = True, activation: str = ACT_LEAKY_RELU, slope: float = 0.01,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the sums: ``(edz (C,), eydz (C,))``, zero in eval
+    mode; ``bias_t = b``, ``weight_t = |w| + eps``."""
+    c = z2d.shape[1]
+    if not training:
+        return (torch.zeros((c,), dtype=torch.float32, device=z2d.device),
+                torch.zeros((c,), dtype=torch.float32, device=z2d.device))
+    yhat, dy = _yhat_dy(z2d, dz2d, bias_t, weight_t, activation, slope)
+    return torch.sum(dy, dim=0), torch.sum(yhat * dy, dim=0)
+
+
+def abn_backward_dx_reference(
+    z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
+    mul: torch.Tensor, edz: torch.Tensor, eydz: torch.Tensor, inv_count: float,
+    activation: str = ACT_LEAKY_RELU, slope: float = 0.01,
+) -> torch.Tensor:
+    """Plain version of the dx pass: ``dx (M, C)`` in z's dtype from the sums;
+    ``mul = weight_t * rstd``; ``inv_count`` is ``1 / count`` in training mode."""
+    yhat, dy = _yhat_dy(z2d, dz2d, bias_t, weight_t, activation, slope)
+    edzn, eydzn = edz * inv_count, eydz * inv_count
+    return ((dy - edzn[None, :] - yhat * eydzn[None, :]) * mul[None, :]).to(z2d.dtype)
+
+
 def abn_backward_reference(
     z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
     mul: torch.Tensor, inv_count: float, training: bool = True,
@@ -109,17 +147,10 @@ def abn_backward_reference(
     """Plain version of the backward kernels: ``(dx (M, C) in z's dtype,
     edz (C,), eydz (C,))``; ``bias_t = b``, ``weight_t = |w| + eps``,
     ``mul = weight_t * rstd``; ``inv_count`` is ``1 / M`` in training mode."""
-    y, dy = act_invert(z2d.to(torch.float32), dz2d.to(torch.float32), activation, slope)
-    yhat = (y - bias_t[None, :]) / weight_t[None, :]
-    c = z2d.shape[1]
-    if training:
-        edz = torch.sum(dy, dim=0)
-        eydz = torch.sum(yhat * dy, dim=0)
-    else:
-        edz = torch.zeros((c,), dtype=torch.float32, device=z2d.device)
-        eydz = torch.zeros((c,), dtype=torch.float32, device=z2d.device)
-    edzn, eydzn = edz * inv_count, eydz * inv_count
-    dx = ((dy - edzn[None, :] - yhat * eydzn[None, :]) * mul[None, :]).to(z2d.dtype)
+    edz, eydz = abn_backward_sums_reference(z2d, dz2d, bias_t, weight_t, training, activation,
+                                            slope)
+    dx = abn_backward_dx_reference(z2d, dz2d, bias_t, weight_t, mul, edz, eydz, inv_count,
+                                   activation, slope)
     return dx, edz, eydz
 
 
@@ -139,9 +170,12 @@ def _library() -> ctypes.CDLL:
         lib.abn_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f32, i32, ptr]
         lib.abn_backward_scratch_bytes.restype = i64
         lib.abn_backward_scratch_bytes.argtypes = [i64, i32]
-        lib.abn_backward.restype = i32
-        lib.abn_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
-                                     i32, f32, f32, i32, i32, ptr]
+        lib.abn_backward_sums.restype = i32
+        lib.abn_backward_sums.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
+                                          f32, i32, i32, ptr]
+        lib.abn_backward_dx.restype = i32
+        lib.abn_backward_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                                        f32, f32, i32, ptr]
         lib.abn_error_string.restype = ctypes.c_char_p
         lib.abn_error_string.argtypes = [i32]
         _lib = lib
@@ -177,6 +211,8 @@ def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
 def _abn_forward_cuda(x2d: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                       shift: torch.Tensor, activation: str, slope: float) -> torch.Tensor:
     _check_activation(activation)
+    if x2d.ndim == 2 and x2d.shape[0] == 0:
+        return torch.empty_like(x2d)      # a rank's empty share: nothing to launch
     _check_cuda_rows(x2d, (mean, scale, shift), "x")
     lib = _library()
     m, c = x2d.shape
@@ -191,11 +227,27 @@ def _abn_forward_cuda(x2d: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor
     return z2d
 
 
+SumsReducer = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _no_rows_backward(z2d, reduce_sums: Optional[SumsReducer]):
+    """A rank's empty share: no launch, zero sums, and the reduction joined."""
+    c = z2d.shape[1]
+    edz = torch.zeros((c,), dtype=torch.float32, device=z2d.device)
+    eydz = torch.zeros((c,), dtype=torch.float32, device=z2d.device)
+    if reduce_sums is not None:
+        reduce_sums(edz, eydz)
+    return torch.empty_like(z2d), edz, eydz
+
+
 def _abn_backward_cuda(
     z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
     mul: torch.Tensor, inv_count: float, training: bool, activation: str, slope: float,
+    reduce_sums: Optional[SumsReducer] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_activation(activation)
+    if z2d.ndim == 2 and z2d.shape[0] == 0:
+        return _no_rows_backward(z2d, reduce_sums)
     _check_cuda_rows(z2d, (bias_t, weight_t, mul), "z")
     if dz2d.shape != z2d.shape or dz2d.dtype != z2d.dtype or not dz2d.is_cuda:
         raise ValueError(f"dz must be a CUDA {z2d.dtype} {tuple(z2d.shape)}, got "
@@ -204,6 +256,7 @@ def _abn_backward_cuda(
         raise ValueError("dz must be contiguous")
     lib = _library()
     m, c = z2d.shape
+    bf16 = int(z2d.dtype == torch.bfloat16)
     dx = torch.empty_like(z2d)
     edz = torch.empty((c,), dtype=torch.float32, device=z2d.device)
     eydz = torch.empty((c,), dtype=torch.float32, device=z2d.device)
@@ -211,12 +264,18 @@ def _abn_backward_cuda(
     scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=z2d.device)
     with torch.cuda.device(z2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.abn_backward(
+        code = lib.abn_backward_sums(
+            z2d.data_ptr(), dz2d.data_ptr(), bias_t.data_ptr(), weight_t.data_ptr(),
+            edz.data_ptr(), eydz.data_ptr(), scratch.data_ptr(), nbytes, m, c,
+            _ACT_CODES[activation], slope, int(training), bf16, stream)
+        _raise_on_error(lib, code, "abn_backward_sums")
+        g_edz, g_eydz = reduce_sums(edz, eydz) if reduce_sums is not None else (edz, eydz)
+        g_edz, g_eydz = g_edz.contiguous(), g_eydz.contiguous()
+        code = lib.abn_backward_dx(
             z2d.data_ptr(), dz2d.data_ptr(), dx.data_ptr(), bias_t.data_ptr(),
-            weight_t.data_ptr(), mul.data_ptr(), edz.data_ptr(), eydz.data_ptr(),
-            scratch.data_ptr(), nbytes, m, c, _ACT_CODES[activation], slope, inv_count,
-            int(training), int(z2d.dtype == torch.bfloat16), stream)
-    _raise_on_error(lib, code, "abn_backward")
+            weight_t.data_ptr(), mul.data_ptr(), g_edz.data_ptr(), g_eydz.data_ptr(), m, c,
+            _ACT_CODES[activation], slope, inv_count, bf16, stream)
+    _raise_on_error(lib, code, "abn_backward_dx")
     launch_counts["abn_backward"] += 1
     return dx, edz, eydz
 
@@ -232,12 +291,15 @@ def _unsupported_device(t: torch.Tensor):
 def abn_forward(x2d: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                 shift: torch.Tensor, activation: str = ACT_LEAKY_RELU,
                 slope: float = 0.01) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor, its plain version on a CPU one."""
+    """The forward kernel on a CUDA tensor, its plain version on a CPU one;
+    no rows launch nothing."""
     if x2d.device.type == "cuda":
         return _abn_forward_cuda(x2d, mean, scale, shift, activation, slope)
     if x2d.device.type != "cpu":
         raise _unsupported_device(x2d)
     _check_activation(activation)
+    if x2d.shape[0] == 0:
+        return torch.empty_like(x2d)
     plain_counts["abn_forward"] += 1
     return abn_forward_reference(x2d, mean, scale, shift, activation, slope)
 
@@ -246,18 +308,27 @@ def abn_backward(
     z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
     mul: torch.Tensor, inv_count: float, training: bool = True,
     activation: str = ACT_LEAKY_RELU, slope: float = 0.01,
+    reduce_sums: Optional[SumsReducer] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels on a CUDA tensor, the plain version on a CPU one:
-    ``(dx, edz, eydz)`` as :func:`abn_backward_reference`."""
+    ``(dx, edz, eydz)`` as :func:`abn_backward_reference`.  ``reduce_sums``
+    (the sync ABN's all-reduce) maps the sums to the ones the dx pass takes;
+    the sums returned are this call's own.  No rows launch nothing."""
     if z2d.device.type == "cuda":
         return _abn_backward_cuda(z2d, dz2d, bias_t, weight_t, mul, inv_count, training,
-                                  activation, slope)
+                                  activation, slope, reduce_sums)
     if z2d.device.type != "cpu":
         raise _unsupported_device(z2d)
     _check_activation(activation)
+    if z2d.shape[0] == 0:
+        return _no_rows_backward(z2d, reduce_sums)
     plain_counts["abn_backward"] += 1
-    return abn_backward_reference(z2d, dz2d, bias_t, weight_t, mul, inv_count, training,
-                                  activation, slope)
+    edz, eydz = abn_backward_sums_reference(z2d, dz2d, bias_t, weight_t, training, activation,
+                                            slope)
+    g_edz, g_eydz = reduce_sums(edz, eydz) if reduce_sums is not None else (edz, eydz)
+    dx = abn_backward_dx_reference(z2d, dz2d, bias_t, weight_t, mul, g_edz, g_eydz, inv_count,
+                                   activation, slope)
+    return dx, edz, eydz
 
 
 def _transformed(weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], c: int,
@@ -269,16 +340,24 @@ def _transformed(weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], c
     return torch.abs(weight).to(torch.float32) + eps, bias.to(torch.float32)
 
 
+def _sum_over_ranks(edz: torch.Tensor, eydz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    both = par.all_reduce(torch.stack([edz, eydz]))
+    return both[0], both[1]
+
+
 class InPlaceABNFunction(torch.autograd.Function):
     """The forward kernel bound to the backward kernels: ``apply(x, weight,
-    bias, mean, var, eps, activation, slope, training) -> z``.  Saves only
-    ``z`` of the activation's size (and the per-channel vectors), as the JAX
-    package's ``custom_vjp`` does.  ``mean`` and ``var`` get no gradient: their
-    dependence on ``x`` in training mode is in the ``edz`` / ``eydz`` terms."""
+    bias, mean, var, eps, activation, slope, training, count) -> z``.  Saves
+    only ``z`` of the activation's size (and the per-channel vectors), as the
+    JAX package's ``custom_vjp`` does.  ``mean`` and ``var`` get no gradient:
+    their dependence on ``x`` in training mode is in the ``edz`` / ``eydz``
+    terms.  ``count`` is the rows the moments were taken over: under a
+    process group the global batch's, and the backward sums are then summed
+    over the ranks before the dx pass."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean, var, eps: float, activation: str, slope: float,
-                training: bool):
+                training: bool, count: int):
         c = x.shape[-1]
         w_t, b_t = _transformed(weight, bias, c, eps, x.device)
         rstd = torch.rsqrt(var.to(torch.float32) + eps)
@@ -286,43 +365,70 @@ class InPlaceABNFunction(torch.autograd.Function):
         z2d = abn_forward(x2d, mean.to(torch.float32).contiguous(), (rstd * w_t).contiguous(),
                           b_t.contiguous(), activation, slope)
         ctx.save_for_backward(z2d, rstd, weight, w_t, b_t)
-        ctx.activation, ctx.slope, ctx.training = activation, slope, training
+        ctx.activation, ctx.slope, ctx.training, ctx.count = activation, slope, training, count
         ctx.has_affine = weight is not None
         return z2d.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, dz):
         z2d, rstd, weight, w_t, b_t = ctx.saved_tensors
-        count = z2d.shape[0]
-        inv_count = (1.0 / count) if ctx.training else 0.0
+        inv_count = (1.0 / ctx.count) if ctx.training else 0.0
+        sync = ctx.training and par.is_initialized()
         dz2d = dz.reshape(z2d.shape).to(z2d.dtype).contiguous()
         dx2d, edz, eydz = abn_backward(z2d, dz2d, b_t, w_t, (w_t * rstd).contiguous(),
-                                       inv_count, ctx.training, ctx.activation, ctx.slope)
+                                       inv_count, ctx.training, ctx.activation, ctx.slope,
+                                       _sum_over_ranks if sync else None)
         dweight = dbias = None
         if ctx.has_affine:
+            # this rank's own sums: the gradient all-reduce adds the ranks' up
             dweight = (torch.sign(weight) * eydz).to(weight.dtype)   # the reference's sign flip
             dbias = edz.to(weight.dtype)
-        return dx2d.reshape(dz.shape), dweight, dbias, None, None, None, None, None, None
+        return dx2d.reshape(dz.shape), dweight, dbias, None, None, None, None, None, None, None
 
 
 def inplace_abn(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                 mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5,
                 activation: str = ACT_LEAKY_RELU, slope: float = 0.01,
-                training: bool = True) -> torch.Tensor:
+                training: bool = True, count: Optional[int] = None) -> torch.Tensor:
     """Normalise and activate ``x (..., C)`` with the given per-channel
     moments.  ``weight``/``bias`` may be None (affine off).  The caller
-    computes the moments (:func:`batch_moments`) and owns the running-stat
-    update; ``mean``/``var`` are taken as constants."""
+    computes the moments (:func:`batch_statistics`) and owns the running-stat
+    update; ``mean``/``var`` are taken as constants.  ``count``: the rows the
+    moments are over (the global batch's under a process group), which
+    :func:`batch_statistics` returns; left out, it is counted here (eval mode
+    takes none)."""
     _check_activation(activation)
+    if count is None:
+        count = _global_rows(x) if training else x.numel() // x.shape[-1]
     return InPlaceABNFunction.apply(x, weight, bias, mean.detach(), var.detach(), eps,
-                                    activation, slope, training)
+                                    activation, slope, training, count)
+
+
+def _global_rows(x: torch.Tensor) -> int:
+    """The rows of ``x (..., C)`` over every rank of the process group."""
+    rows = x.numel() // x.shape[-1]
+    if not par.is_initialized():
+        return rows
+    return int(par.all_reduce(torch.tensor([rows], dtype=torch.int64, device=x.device))[0])
 
 
 @torch.no_grad()
-def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def batch_statistics(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Per-channel (biased) mean and variance over all non-channel dims, in
-    fp32: ``E[x]`` and ``E[x^2] - E[x]^2``."""
-    x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    mean = torch.mean(x2d, dim=0)
-    var = torch.mean(torch.square(x2d), dim=0) - torch.square(mean)
-    return mean, var
+    fp32, and the rows they are over: ``E[x]`` and ``E[x^2] - E[x]^2`` from
+    ``(Σx, Σx², n)``, which under a process group are summed over the ranks
+    (in float64, one all-reduce) first."""
+    c = x.shape[-1]
+    x2d = x.reshape(-1, c).to(torch.float32)
+    s1, s2, n = torch.sum(x2d, dim=0), torch.sum(torch.square(x2d), dim=0), x2d.shape[0]
+    if par.is_initialized():
+        sums = par.all_reduce(torch.cat([s1.to(torch.float64), s2.to(torch.float64),
+                                         torch.tensor([n], dtype=torch.float64, device=x.device)]))
+        s1, s2, n = sums[:c].to(torch.float32), sums[c:2 * c].to(torch.float32), int(sums[-1])
+    mean = s1 / n
+    return mean, s2 / n - torch.square(mean), n
+
+
+def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, var)`` of :func:`batch_statistics`."""
+    return batch_statistics(x)[:2]

@@ -242,11 +242,21 @@ def _unsupported_device(flat: torch.Tensor):
     return ValueError(f"nearest-code search takes CPU or CUDA tensors, got {flat.device}")
 
 
+def _no_rows(flat: torch.Tensor, embed: torch.Tensor):
+    k, d = embed.shape
+    return (torch.zeros((0,), dtype=torch.int32, device=flat.device),
+            torch.zeros((0, d), dtype=flat.dtype, device=flat.device),
+            torch.zeros((k,), dtype=torch.float32, device=flat.device),
+            torch.zeros((k, d), dtype=torch.float32, device=flat.device))
+
+
 @torch.no_grad()
 def nearest_code_ids(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """Indices-only nearest-code search (same argmax as :func:`nearest_code`;
     no quantized rows, for code extraction)."""
     _check_shapes(flat, embed)
+    if flat.shape[0] == 0:
+        return _no_rows(flat, embed)[0]
     if flat.device.type == "cuda":
         return _nearest_code_ids_cuda(flat, embed)
     if flat.device.type != "cpu":
@@ -264,9 +274,12 @@ def nearest_code(
     Not differentiable: callers write the straight-through estimator
     themselves.  ``with_stats=False`` (inference, extraction) returns zeros in
     place of the statistics; ``with_stats=True`` (the EMA update of training)
-    returns them."""
+    returns them.  No rows (a rank's empty share of a short batch) launch
+    nothing: empty ids and rows, zero statistics."""
     _check_shapes(flat, embed)
     k, d = embed.shape
+    if flat.shape[0] == 0:
+        return _no_rows(flat, embed)
     if flat.device.type == "cuda":
         if with_stats:
             return _nearest_code_stats_cuda(flat, embed)

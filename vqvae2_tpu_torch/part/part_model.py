@@ -90,15 +90,17 @@ class NonLocalSelf(nn.Module):
 
 
 class ConvABN(nn.Module):
-    """Convolution without bias + InPlaceABN (leaky ReLU 0.01)."""
+    """Convolution without bias + InPlaceABN (leaky ReLU 0.01); ``axis_name``
+    as the JAX module threads it (``models/abn.py``: the ABN synchronises
+    under a process group either way)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 1, dilation: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name: Optional[str] = None):
         super().__init__()
         pad = (kernel // 2) * dilation if kernel > 1 else 0
         self.conv = Conv2d(in_features, features, kernel, padding=pad, dilation=dilation,
                            bias=False, dtype=dtype)
-        self.abn = InPlaceABN(features)
+        self.abn = InPlaceABN(features, axis_name=axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.abn(self.conv(x))
@@ -108,13 +110,15 @@ class PSPModule(nn.Module):
     """Pyramid scene parsing context."""
 
     def __init__(self, in_features: int, out_features: int = 512,
-                 sizes: Sequence[int] = (1, 2, 3, 6), dtype: torch.dtype = torch.float32):
+                 sizes: Sequence[int] = (1, 2, 3, 6), dtype: torch.dtype = torch.float32,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.sizes = tuple(sizes)
-        self.stages = nn.ModuleList(ConvABN(in_features, out_features, dtype=dtype)
+        self.stages = nn.ModuleList(ConvABN(in_features, out_features, dtype=dtype,
+                                            axis_name=axis_name)
                                     for _ in self.sizes)
         self.bottleneck = ConvABN(in_features + len(self.sizes) * out_features, out_features, 3,
-                                  dtype=dtype)
+                                  dtype=dtype, axis_name=axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1:3]
@@ -127,16 +131,17 @@ class ASPPModule(nn.Module):
     """Atrous spatial pyramid (kept for parity; ``PartModel`` uses PSP)."""
 
     def __init__(self, in_features: int, inner_features: int = 256, out_features: int = 512,
-                 dilations: Sequence[int] = (12, 24, 36), dtype: torch.dtype = torch.float32):
+                 dilations: Sequence[int] = (12, 24, 36), dtype: torch.dtype = torch.float32,
+                 axis_name: Optional[str] = None):
         super().__init__()
-        self.conv1 = ConvABN(in_features, inner_features, dtype=dtype)
-        self.conv2 = ConvABN(in_features, inner_features, dtype=dtype)
+        ax = dict(dtype=dtype, axis_name=axis_name)
+        self.conv1 = ConvABN(in_features, inner_features, **ax)
+        self.conv2 = ConvABN(in_features, inner_features, **ax)
         self.n_dilated = len(dilations)
         for i, d in enumerate(dilations):     # conv3, conv4, ... as the JAX module names them
             setattr(self, f"conv{i + 3}",
-                    ConvABN(in_features, inner_features, 3, dilation=d, dtype=dtype))
-        self.bottleneck = ConvABN(inner_features * (2 + len(dilations)), out_features,
-                                  dtype=dtype)
+                    ConvABN(in_features, inner_features, 3, dilation=d, **ax))
+        self.bottleneck = ConvABN(inner_features * (2 + len(dilations)), out_features, **ax)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -152,12 +157,12 @@ class EdgeModule(nn.Module):
     convolution ``conv4`` is shared across the three scales."""
 
     def __init__(self, in_features: Sequence[int], mid_fea: int = 256, out_fea: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name: Optional[str] = None):
         super().__init__()
         c1, c2, c3 = in_features
-        self.conv1 = ConvABN(c1, mid_fea, dtype=dtype)
-        self.conv2 = ConvABN(c2, mid_fea, dtype=dtype)
-        self.conv3 = ConvABN(c3, mid_fea, dtype=dtype)
+        self.conv1 = ConvABN(c1, mid_fea, dtype=dtype, axis_name=axis_name)
+        self.conv2 = ConvABN(c2, mid_fea, dtype=dtype, axis_name=axis_name)
+        self.conv3 = ConvABN(c3, mid_fea, dtype=dtype, axis_name=axis_name)
         self.conv4 = Conv2d(mid_fea, out_fea, 3, padding=1, dtype=dtype)
         self.conv5 = Conv2d(out_fea * 3, out_fea, 1, dtype=dtype)
 
@@ -176,13 +181,14 @@ class DecoderModule(nn.Module):
     48 channels of layer1."""
 
     def __init__(self, num_classes: int, in_features: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name: Optional[str] = None):
         super().__init__()
         ct, cl = in_features
-        self.conv1 = ConvABN(ct, 256, dtype=dtype)
-        self.conv2 = ConvABN(cl, 48, dtype=dtype)
-        self.conv3a = ConvABN(256 + 48, 256, dtype=dtype)
-        self.conv3b = ConvABN(256, 256, dtype=dtype)
+        ax = dict(dtype=dtype, axis_name=axis_name)
+        self.conv1 = ConvABN(ct, 256, **ax)
+        self.conv2 = ConvABN(cl, 48, **ax)
+        self.conv3a = ConvABN(256 + 48, 256, **ax)
+        self.conv3b = ConvABN(256, 256, **ax)
         self.conv4 = Conv2d(256, num_classes, 1, dtype=dtype)
 
     def forward(self, xt: torch.Tensor, xl: torch.Tensor):
@@ -199,13 +205,14 @@ class PartModel(nn.Module):
     [edge]], fused_fea)``."""
 
     def __init__(self, num_part: int, in_features: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis_name: Optional[str] = None):
         super().__init__()
         c4, c1, c2, c3 = in_features
-        self.context_encoding = PSPModule(c4, 512, dtype=dtype)
-        self.decoder = DecoderModule(num_part, (512, c1), dtype=dtype)
-        self.edge = EdgeModule((c1, c2, c3), dtype=dtype)
-        self.fusion_abn = ConvABN(256 + 3 * 256, 256, dtype=dtype)
+        ax = dict(dtype=dtype, axis_name=axis_name)
+        self.context_encoding = PSPModule(c4, 512, **ax)
+        self.decoder = DecoderModule(num_part, (512, c1), **ax)
+        self.edge = EdgeModule((c1, c2, c3), **ax)
+        self.fusion_abn = ConvABN(256 + 3 * 256, 256, **ax)
         self.fusion_out = Conv2d(256, num_part, 1, dtype=dtype)
 
     def forward(self, x4, x1, x2, x3, generator: Optional[torch.Generator] = None):
@@ -267,7 +274,8 @@ class EmbedNet2(nn.Module):
     parsing maps and part masks in ``dtype``, the features and scores fp32)."""
 
     def __init__(self, class_num: int, arch: str = "resnet50", gm_pool: str = "on",
-                 part_num: int = 7, dtype: torch.dtype = torch.float32):
+                 part_num: int = 7, dtype: torch.dtype = torch.float32,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.class_num, self.arch, self.gm_pool, self.part_num = class_num, arch, gm_pool, part_num
         e, width = expansion(arch), pool_dim(arch)
@@ -276,7 +284,7 @@ class EmbedNet2(nn.Module):
         self.gray_module = ResNetStem(arch, dtype)
         self.trunk = NLTrunk(arch, dtype)
         self.bottleneck = BatchNorm(width, use_bias=False)
-        self.part = PartModel(part_num, (width, 64 * e, 128 * e, 256 * e), dtype)
+        self.part = PartModel(part_num, (width, 64 * e, 128 * e, 256 * e), dtype, axis_name)
         n = part_num - 1
         self.pd = nn.ModuleList(nn.Sequential(Dense(width, 512), Dense(512, 256))
                                 for _ in range(n))

@@ -1,10 +1,14 @@
 """Stage-1→2 bridge: run the VQ-VAE encoder over a dataset and write integer
 code ids into the code store (port of ``vqvae2_tpu/train/extract_codes.py``).
 
-The encode runs batch by batch on one device, ids only (the bottom grid goes
-through the indices-only kernel); the host streams (top, bottom, label, name)
-rows into ``CodeStoreWriter``.  A ragged last batch needs no padding on one
-device: the rows written are the images' own.
+The encode runs batch by batch, ids only (the bottom grid goes through the
+indices-only kernel); the host streams (top, bottom, label, name) rows into
+``CodeStoreWriter``.  Under a process group (``parallel``; ``main`` runs
+through ``parallel.launch``) each rank encodes its rows of every batch, the
+ids are gathered in row order, and the primary rank writes the store, the
+same store one process writes.  No batch is padded: a ragged last batch, even
+one shorter than the world, leaves some ranks fewer rows or none, and the
+rows written are the images' own.
 
 Run: ``python -m vqvae2_tpu_torch.train.extract_codes <img_dir> --ckpt_dir ...
 --name codes.vq2`` (or ``--synthetic --random_init`` for a smoke run).  The
@@ -18,6 +22,7 @@ import argparse
 import numpy as np
 import torch
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.codestore import CodeStoreWriter
 from vqvae2_tpu_torch.data.datasets import (ImageFileDataset, SyntheticImages,
@@ -30,24 +35,30 @@ from vqvae2_tpu_torch.utils.checkpoint import CheckpointManager
 def extract(model: VQVAE, dataset, out_path: str, batch_size: int = 64,
             size: int = 256, workers: int = 4, device="cuda") -> int:
     """Encode ``dataset`` with ``model`` on ``device`` and write its code ids
-    to ``out_path``; returns the number of rows written."""
+    to ``out_path`` (the primary rank writes); returns the number of rows
+    written."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     top_shape = (size // 8, size // 8)
     bot_shape = (size // 4, size // 4)
-    writer = CodeStoreWriter(out_path, top_shape, bot_shape)
+    writer = CodeStoreWriter(out_path, top_shape, bot_shape) if par.is_primary() else None
     n = 0
     for imgs, labels, paths in iterate_batches(
         dataset, batch_size, shuffle=False, drop_last=False, epochs=1,
         workers=workers,
     ):
         # raw uint8 batches normalize on the device
-        id_t, id_b = model.encode_ids(to_unit_device(imgs, dev))
-        n = writer.append(id_t.cpu().numpy().astype(np.int16),
+        id_t, id_b = model.encode_ids(to_unit_device(par.shard_batch(imgs), dev))
+        id_t, id_b = par.gather_rows(id_t, len(imgs)), par.gather_rows(id_b, len(imgs))
+        n += len(imgs)
+        if writer is not None:
+            writer.append(id_t.cpu().numpy().astype(np.int16),
                           id_b.cpu().numpy().astype(np.int16), labels, paths)
-        if n % (batch_size * 20) < batch_size:
-            print(f"extracted {n}", flush=True)
-    writer.close()
+            if n % (batch_size * 20) < batch_size:
+                print(f"extracted {n}", flush=True)
+    if writer is not None:
+        writer.close()
+    par.synchronize()
     return n
 
 
@@ -80,8 +91,14 @@ def main(argv=None):
     p.add_argument("--n_embed", type=int, default=512)
     args = p.parse_args(argv)
 
+    return par.launch(_extract_main, args, device=args.device)
+
+
+def _extract_main(args) -> int:
     device = resolve_device(args.device)
-    print(f"device {device}, reference precision {set_reference_precision()}")
+    precision = set_reference_precision()
+    if par.is_primary():
+        print(f"device {device}, world {par.get_world_size()}, reference precision {precision}")
 
     if args.synthetic:
         dataset = SyntheticImages(n=args.batch_size * 4, size=args.size)
@@ -113,10 +130,12 @@ def main(argv=None):
     elif args.ckpt_dir and not args.random_init:
         state = mgr.restore(args.ckpt_name)
         model.load_state_dict(state.get("model", state))
+    par.replicate(model)
 
     n = extract(model, dataset, args.name, batch_size=args.batch_size,
                 size=args.size, workers=args.workers, device=device)
-    print(f"wrote {n} code rows to {args.name}")
+    if par.is_primary():
+        print(f"wrote {n} code rows to {args.name}")
     return n
 
 

@@ -19,6 +19,14 @@ other: no map of the optimizer state is needed.
 fp32 parameters, attention in fp32 (as the JAX package's promotion has it),
 logits widened to fp32 before the loss.
 
+Data parallel (``parallel``), as in ``train/vqvae.py``: a step takes the global
+batch, each rank its rows and its share of the loss, and the gradients are
+summed over the ranks.  Every rank makes the same step generator; the
+residual blocks' dropout draws the global batch's masks and keeps the rank's
+rows (``models.pixelsnail.batch_rows``), and the attention kernels offset
+their seed by the rank, as the JAX package's do a shard's.  With attention
+dropout at 0 a world of N ranks takes the single-process step.
+
 Run: ``python -m vqvae2_tpu_torch.train.pixelsnail codes.vq2 --hier top
 [flags]``.  The device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -33,9 +41,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.codestore import CodeStore
-from vqvae2_tpu_torch.models.pixelsnail import PixelSNAIL
+from vqvae2_tpu_torch.models.pixelsnail import PixelSNAIL, batch_rows
 from vqvae2_tpu_torch.train.vqvae import TrainState, create_state
 from vqvae2_tpu_torch.utils import schedules
 from vqvae2_tpu_torch.utils.checkpoint import CheckpointManager
@@ -80,28 +89,51 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_train_step(model: PixelSNAIL, tx: schedules.AdamSchedule, conditional: bool,
                     seed: int = 0):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
-    holds ``"target"`` codes ``(B, H, W)`` and, for a conditional prior,
-    ``"condition"`` ``(B, H/2, W/2)``, on the model's device.  The step's
-    dropout comes from ``step_generator(seed, state.step)``.  The metrics are
-    0-dim tensors on the device."""
+    holds the global batch's ``"target"`` codes ``(B, H, W)`` and, for a
+    conditional prior, ``"condition"`` ``(B, H/2, W/2)`` (tensors on the host
+    or the device; this rank takes its rows and moves them to the model's
+    device).  The step's dropout comes from ``step_generator(seed,
+    state.step)``.  The metrics are this rank's, 0-dim tensors on the
+    device."""
     device = next(model.parameters()).device
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        codes = batch["target"]
+        rows = batch["target"].shape[0]
+        start, _ = par.shard_rows(rows)
+        local = {k: v.to(device) for k, v in par.shard_batch(batch).items()}
+        codes = local["target"]
         gen = step_generator(seed, state.step, device)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(codes, condition=batch["condition"] if conditional else None,
-                       generator=gen)
-        ce = F.cross_entropy(logits.to(torch.float32).reshape(-1, logits.shape[-1]),
-                             codes.reshape(-1).long())
-        ce.backward()
-        tx.apply(state.optimizer, state.step)
-        state.optimizer.step()
-        state.step += 1
-        acc = torch.mean((logits.detach().argmax(-1) == codes.long()).to(torch.float32))
-        return state, {"loss": ce.detach(), "acc": acc}
+        with batch_rows(start, rows):
+            logits = model(codes, condition=local["condition"] if conditional else None,
+                           generator=gen)
+        ce = share_loss(logits, codes, rows)
+        return state, finish_step(model, tx, state, logits, codes, ce)
 
     return train_step
+
+
+def share_loss(logits: torch.Tensor, codes: torch.Tensor, rows: int) -> torch.Tensor:
+    """This rank's cross-entropy (fp32 logits), backpropagated as its share
+    of the mean over the global batch's ``rows`` rows; returned unscaled."""
+    if codes.shape[0] == 0:      # no rows here: a zero loss that still reaches every weight
+        ce = logits.sum().to(torch.float32)
+    else:
+        ce = F.cross_entropy(logits.to(torch.float32).reshape(-1, logits.shape[-1]),
+                             codes.reshape(-1).long())
+    (ce * (codes.shape[0] / rows)).backward()
+    return ce.detach()
+
+
+def finish_step(model, tx: schedules.AdamSchedule, state: TrainState, logits: torch.Tensor,
+                codes: torch.Tensor, ce: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Sum the gradients over the ranks, take the optimizer step; the metrics."""
+    par.all_reduce_grads(model.parameters())
+    tx.apply(state.optimizer, state.step)
+    state.optimizer.step()
+    state.step += 1
+    acc = par.local_mean((logits.detach().argmax(-1) == codes.long()).to(torch.float32))
+    return {"loss": ce, "acc": acc}
 
 
 def train(args) -> Dict[str, float]:
@@ -130,8 +162,10 @@ def train(args) -> Dict[str, float]:
         restored, name = ckpt.restore_latest(map_location=device)
         if name is not None:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name} at step {state.step}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name} at step {state.step}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
 
     order_rng = np.random.default_rng(args.seed)
     t0, n_done = time.perf_counter(), 0
@@ -142,18 +176,19 @@ def train(args) -> Dict[str, float]:
         for s in range(0, len(order) - args.batch + 1, args.batch):
             tops, bots, _ = store.gather(order[s: s + args.batch])
             if conditional:
-                batch = {"target": torch.from_numpy(bots.astype(np.int64)).to(device),
-                         "condition": torch.from_numpy(tops.astype(np.int64)).to(device)}
+                batch = {"target": torch.from_numpy(bots.astype(np.int64)),
+                         "condition": torch.from_numpy(tops.astype(np.int64))}
             else:
-                batch = {"target": torch.from_numpy(tops.astype(np.int64)).to(device)}
+                batch = {"target": torch.from_numpy(tops.astype(np.int64))}
             state, metrics = train_step(state, batch)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * args.batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} loss {m['loss']:.5f} "
-                      f"acc {m['acc']:.5f} ({rate:.1f} codes-rows/s)", flush=True)
-                csv.log(n_done, dict(m, rows_per_s=rate))
+                m = par.reduce_dict(metrics)
+                if par.is_primary():
+                    rate = n_done * args.batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} loss {m['loss']:.5f} "
+                          f"acc {m['acc']:.5f} ({rate:.1f} codes-rows/s)", flush=True)
+                    csv.log(n_done, dict(m, rows_per_s=rate))
             if ckpt and n_done % (steps_per_epoch * 10) == 0:
                 ckpt.save_periodic(state.step, state.state_dict())
             if n_done >= total_steps:
@@ -164,7 +199,7 @@ def train(args) -> Dict[str, float]:
     store.close()
     if ckpt:
         ckpt.save_last(state.state_dict())
-    return m or {k: float(v) for k, v in (metrics or {}).items()}
+    return m or par.reduce_dict(metrics or {})
 
 
 def build_argparser():
@@ -197,7 +232,8 @@ def build_argparser():
 
 
 def main(argv=None):
-    return train(build_argparser().parse_args(argv))
+    args = build_argparser().parse_args(argv)
+    return par.launch(train, args, device=args.device)
 
 
 if __name__ == "__main__":

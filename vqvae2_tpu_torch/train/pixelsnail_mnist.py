@@ -10,7 +10,8 @@ digit-like strokes, the same images as the JAX package's for the same seed.
 The attention runs at ``channel // 2 = 64`` over 8 heads, so its heads are 8
 wide over 784 positions; on the card the hand-written attention kernels run
 it forward and backward.  Dropout comes from a ``torch.Generator`` made anew
-each step from ``--seed`` and the step count, as in ``train/pixelsnail.py``.
+each step from ``--seed`` and the step count, and a world of N ranks trains
+as in ``train/pixelsnail.py`` (``parallel``).
 
 Run: ``python -m vqvae2_tpu_torch.train.pixelsnail_mnist [flags]``.  The device
 defaults to ``cuda``; ``--device cpu`` asks for the CPU.
@@ -27,11 +28,11 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
-from vqvae2_tpu_torch.models.pixelsnail import PixelSNAIL
-from vqvae2_tpu_torch.train.pixelsnail import step_generator
+from vqvae2_tpu_torch.models.pixelsnail import PixelSNAIL, batch_rows
+from vqvae2_tpu_torch.train.pixelsnail import finish_step, share_loss, step_generator
 from vqvae2_tpu_torch.train.vqvae import TrainState, create_state
 from vqvae2_tpu_torch.utils import schedules
 from vqvae2_tpu_torch.utils.metrics import CsvLogger
@@ -82,21 +83,21 @@ def build_model(args) -> PixelSNAIL:
 
 def make_train_step(model: PixelSNAIL, tx: schedules.AdamSchedule, seed: int = 0):
     """Returns ``train_step(state, codes) -> (state, metrics)``: ``codes``
-    ``(B, 28, 28)`` int on the model's device; the metrics are 0-dim tensors
-    on the device."""
+    ``(B, 28, 28)`` int, the global batch on the host or the device (this
+    rank takes its rows); the metrics are this rank's, 0-dim tensors on the
+    device."""
     device = next(model.parameters()).device
 
     def train_step(state: TrainState, codes: torch.Tensor):
+        rows = codes.shape[0]
+        start, _ = par.shard_rows(rows)
+        local = par.shard_batch(codes).to(device)
         gen = step_generator(seed, state.step, device)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(codes, generator=gen)
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), codes.reshape(-1).long())
-        ce.backward()
-        tx.apply(state.optimizer, state.step)
-        state.optimizer.step()
-        state.step += 1
-        acc = torch.mean((logits.detach().argmax(-1) == codes.long()).to(torch.float32))
-        return state, {"loss": ce.detach(), "acc": acc}
+        with batch_rows(start, rows):
+            logits = model(local, generator=gen)
+        ce = share_loss(logits, local, rows)
+        return state, finish_step(model, tx, state, logits, local, ce)
 
     return train_step
 
@@ -114,6 +115,7 @@ def train(args) -> Dict[str, float]:
         model = build_model(args).to(device)
     tx = schedules.adam(args.lr)
     state = create_state(model, tx)
+    par.replicate(state.model)
     train_step = make_train_step(model, tx, seed=args.seed + 1)
 
     csv = CsvLogger(args.metrics_csv)
@@ -122,15 +124,16 @@ def train(args) -> Dict[str, float]:
     while n_done < total_steps:
         order = order_rng.permutation(len(images))
         for s in range(0, len(order) - args.batch + 1, args.batch):
-            codes = torch.from_numpy(images[order[s: s + args.batch]].astype(np.int64)).to(device)
+            codes = torch.from_numpy(images[order[s: s + args.batch]].astype(np.int64))
             state, metrics = train_step(state, codes)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * args.batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} loss {m['loss']:.4f} "
-                      f"acc {m['acc']:.4f} ({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
+                m = par.reduce_dict(metrics)
+                if par.is_primary():
+                    rate = n_done * args.batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} loss {m['loss']:.4f} "
+                          f"acc {m['acc']:.4f} ({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
             if n_done >= total_steps:
                 break
         if len(images) < args.batch:
@@ -158,7 +161,8 @@ def build_argparser():
 
 
 def main(argv=None):
-    return train(build_argparser().parse_args(argv))
+    args = build_argparser().parse_args(argv)
+    return par.launch(train, args, device=args.device)
 
 
 if __name__ == "__main__":

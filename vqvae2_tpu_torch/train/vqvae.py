@@ -11,6 +11,15 @@ other: each takes its own EMA step, the gradients are summed and divided by
 ``--bf16`` runs the convolutions in bf16 (``VQVAE(dtype=torch.bfloat16)``):
 parameters, codebooks, the quantizer's search and the loss stay fp32.
 
+Data parallel (``parallel``): a step takes the global batch and each rank its
+rows (``shard_batch``, or ``shard_microbatches`` under ``--grad_accum``); the
+rank backpropagates its share of the global-batch loss, the gradients are
+summed over the ranks, and the quantizers take their EMA step on the global
+batch's statistics, so a world of N ranks takes the single-process step.
+``main`` runs ``train`` through ``parallel.launch``: under ``torchrun`` on
+every rank (``nccl`` on cards, ``gloo`` with ``--device cpu``), else in one
+process.  Logs, samples and checkpoints come from the primary rank.
+
 Weights carried across from the JAX package (``utils/jax_import.py``:
 parameters and all three codebook buffers) and a fresh Adam state on both sides
 are how the two trainers are held against each other: no map of the optimizer
@@ -31,6 +40,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import (ImageFileDataset, SyntheticImages,
                                             iterate_batches, normalize_to_unit,
@@ -70,33 +80,38 @@ def make_train_step(model: VQVAE, tx: schedules.AdamSchedule,
                     latent_weight: float = LATENT_LOSS_WEIGHT, grad_accum: int = 1):
     """Returns ``train_step(state, x) -> (state, metrics)``.
 
-    ``x`` is a host or device batch ``(B, H, W, C)`` (uint8 is normalised on
-    the device), or ``(grad_accum, rows, H, W, C)`` when ``grad_accum > 1``.
-    The metrics are 0-dim tensors on the device (reading them synchronises)."""
+    ``x`` is the global host or device batch ``(B, H, W, C)`` (uint8 is
+    normalised on the device), or ``(grad_accum, rows, H, W, C)`` when
+    ``grad_accum > 1``; under a process group this rank takes its rows of it.
+    The metrics are this rank's, 0-dim tensors on the device (reading them
+    synchronises; ``parallel.reduce_dict`` averages them over the ranks)."""
     device = next(model.parameters()).device
 
     def loss_fn(x):
         x = to_unit_device(x, device)
         dec, diff = model(x, train=True)
-        recon = torch.mean(torch.square(dec - x))
+        recon = par.local_mean(torch.square(dec - x))
         return recon + latent_weight * diff, recon, diff
+
+    def backward(x, rows: int):
+        """This rank's share of the global batch's loss, backpropagated."""
+        loss, recon, diff = loss_fn(x)
+        (loss * (x.shape[0] / rows)).backward()
+        return torch.stack([loss, recon, diff]).detach()
 
     def train_step(state: TrainState, x):
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss, recon, diff = loss_fn(x)
-            loss.backward()
-            parts = torch.stack([loss, recon, diff]).detach()
+            parts = backward(par.shard_batch(x), x.shape[0])
         else:
-            stacked = []
-            for xm in x:                 # the EMA advances once a microbatch
-                loss, recon, diff = loss_fn(xm)
-                loss.backward()          # sums the microbatches' gradients
-                stacked.append(torch.stack([loss, recon, diff]).detach())
+            # the EMA advances once a microbatch; backward sums their gradients
+            parts = torch.stack([backward(xm, x.shape[1])
+                                 for xm in par.shard_microbatches(x)]).mean(0)
+        par.all_reduce_grads(model.parameters())
+        if grad_accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
-            parts = torch.stack(stacked).mean(0)
         tx.apply(state.optimizer, state.step)
         state.optimizer.step()
         state.step += 1
@@ -115,10 +130,6 @@ def make_eval_step(model: VQVAE):
         return dec
 
     return eval_step
-
-
-def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    return {k: float(v) for k, v in metrics.items()}
 
 
 def train(args) -> Dict[str, float]:
@@ -151,15 +162,17 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name is not None:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name} at step {state.step}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name} at step {state.step}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     train_step = make_train_step(model, tx, grad_accum=args.grad_accum)
     eval_step = make_eval_step(model)
 
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     from vqvae2_tpu_torch.utils.metrics import CsvLogger, TensorBoardWriter
 
-    tb = TensorBoardWriter(args.logdir)
+    tb = TensorBoardWriter(args.logdir if par.is_primary() else "")
     csv = CsvLogger(args.metrics_csv)
 
     it = iterate_batches(dataset, args.batch_size, seed=args.seed,
@@ -175,15 +188,16 @@ def train(args) -> Dict[str, float]:
         state, metrics = train_step(state, x)
         n_done += 1
         if n_done % args.log_every == 0:
-            m = _floats(metrics)
-            rate = n_done * args.batch_size / (time.perf_counter() - t0)
-            print(f"step {n_done}/{total_steps} "
-                  f"loss {m['loss']:.4f} mse {m['recon_mse']:.4f} "
-                  f"latent {m['latent']:.4f} ({rate:.1f} img/s)", flush=True)
-            tb.add_scalars(m, n_done, prefix="train/")
-            csv.log(n_done, dict(m, img_per_s=rate))
+            m = par.reduce_dict(metrics)
+            if par.is_primary():
+                rate = n_done * args.batch_size / (time.perf_counter() - t0)
+                print(f"step {n_done}/{total_steps} "
+                      f"loss {m['loss']:.4f} mse {m['recon_mse']:.4f} "
+                      f"latent {m['latent']:.4f} ({rate:.1f} img/s)", flush=True)
+                tb.add_scalars(m, n_done, prefix="train/")
+                csv.log(n_done, dict(m, img_per_s=rate))
             metrics_hist = m
-        if args.sample_every and n_done % args.sample_every == 0:
+        if args.sample_every and n_done % args.sample_every == 0 and par.is_primary():
             dec = eval_step(state, imgs[:8])
             head = normalize_to_unit(imgs[:8]) if imgs.dtype == np.uint8 else imgs[:8]
             grid = np.concatenate([head, dec[:8].float().cpu().numpy()], axis=0)
@@ -195,7 +209,7 @@ def train(args) -> Dict[str, float]:
 
     if ckpt:
         ckpt.save_last(state.state_dict())
-    return metrics_hist or _floats(metrics)
+    return metrics_hist or par.reduce_dict(metrics)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -246,7 +260,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if not args.synthetic and not args.shapes and not args.path:
         raise SystemExit("provide an image directory, --shapes N, or --synthetic")
-    return train(args)
+    return par.launch(train, args, device=args.device)
 
 
 if __name__ == "__main__":

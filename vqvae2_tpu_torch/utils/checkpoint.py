@@ -6,6 +6,11 @@ digits), ``last.pt``, ``best.pt`` with ``best_metric.json``, each written
 whole by ``torch.save``, and ``config.json`` holding the configuration that
 rebuilds the model.  The trainers save ``{"model": state_dict, "optimizer":
 state_dict, "step": int}``; readers take ``state.get("model", state)``.
+
+Under a process group (``parallel``) every rank holds the same state: the
+primary rank alone writes, and every rank waits for the write to finish
+(``synchronize``) before it goes on, so a rank that reads next finds the file
+whole.  Every rank reads, onto its own device (``map_location``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from vqvae2_tpu_torch import parallel as par
+
 
 class CheckpointManager:
     """Periodic, last and best checkpoints and the model configuration under
@@ -25,19 +32,23 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.best_metric = -float("inf")
-        if config is not None:
+        if config is not None and par.is_primary():
             with open(os.path.join(self.directory, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
+        par.synchronize()
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, f"{name}.pt")
 
     def _save(self, name: str, state: Dict[str, Any]) -> None:
         """Write ``state`` (a ``state_dict``, or any dict of tensors and plain
-        values) as ``name``; the file appears whole or not at all."""
-        tmp = self._path(name) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(name))
+        values) as ``name``; the file appears whole or not at all.  The primary
+        rank writes; every rank returns once it is written."""
+        if par.is_primary():
+            tmp = self._path(name) + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self._path(name))
+        par.synchronize()
 
     def save_periodic(self, step: int, state: Dict[str, Any]) -> None:
         self._save(f"step_{step:07d}", state)
@@ -50,9 +61,10 @@ class CheckpointManager:
         better); returns whether this one was it."""
         if metric > self.best_metric:
             self.best_metric = metric
+            if par.is_primary():
+                with open(os.path.join(self.directory, "best_metric.json"), "w") as f:
+                    json.dump({"metric": float(metric)}, f)
             self._save("best", state)
-            with open(os.path.join(self.directory, "best_metric.json"), "w") as f:
-                json.dump({"metric": float(metric)}, f)
             return True
         return False
 
