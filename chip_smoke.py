@@ -153,6 +153,21 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               rank's counters show K3, K4-K6 and K7/K8 launched and no plain
               version, every rank's state is rank 0's bit for bit; the step
               times and the all-reduce time a step in both worlds
+23. parallel_trainers — (after parallel) the nine other trainers at world
+              size N: each command line (``train.reid``, ``vqvae_deep``,
+              ``adaptive``, ``gray2color``, ``vqvae_deep_bi``,
+              ``vqvae_deep_ir``, ``stargan_bi``, ``detection``,
+              ``maskrcnn``) for two steps under a ``torchrun`` environment
+              of one rank (an NCCL group of one) and without one, the
+              checkpoint (the detection trainers' returned losses) bit for
+              bit; then two ``gloo`` ranks spawned once on the one card take
+              each trainer's two steps at its command line's widths, image
+              sizes and global batch, against the world-1 step rank 0 took
+              first (losses, batch-norm statistics, gradient norms); each
+              rank's step time, gradient all-reduce and in-step collectives
+              (the synced batch norms, the gathers), host time a step, peak
+              memory and K3/K7/K8 launches, no plain version, the ranks'
+              parameters bit-equal after each step
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -4963,7 +4978,8 @@ def _state_digest(state: dict) -> str:
     h = hashlib.sha256()
     for k in sorted(state):
         h.update(k.encode())
-        h.update(state[k].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        h.update(state[k].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
     return h.hexdigest()
 
 
@@ -5315,6 +5331,554 @@ def phase_parallel(tmp: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel_trainers: the nine other trainers at world size N
+# ---------------------------------------------------------------------------
+
+PT_TRAINERS = ("reid", "vqvae_deep", "adaptive", "gray2color", "vqvae_deep_bi",
+               "vqvae_deep_ir", "stargan_bi", "detection", "maskrcnn")
+PT_STEPS = 2                         # each trainer's steps at world 2; the second is timed
+PT_WORLD = 2                         # gloo ranks on the one card
+PT_JOIN_SECONDS = 900.0
+# each trainer at its command line's defaults: the ReID net resnet50 at
+# 288x144, P = 6, K = 4; the deep family resnet18 at 288x144, P = K = 4 (the
+# generators of StarGAN at img_size 128, remat on); SSD300 at batch 8; Mask
+# R-CNN at 256 px, batch 4, 64 proposals, 64 ground-truth slots
+PT_CONFIG = {
+    "reid": dict(p=REID_P, k=REID_K, hw=REID_HW, arch=REID_ARCH),
+    "deep": dict(p=DEEP_P, k=DEEP_K, hw=DEEP_HW, arch=DEEP_ARCH),
+    "detection": dict(batch=8, size=300, arch="resnet18"),
+    "maskrcnn": dict(batch=4, size=256, proposals=64, max_boxes=64, anchors=(32, 64, 128),
+                     arch="resnet18"),
+}
+# world 2 against world 1 on the card, by norms (cuDNN rounds a batch of 8
+# otherwise than one of 16): the losses of the first step within
+# PT_LOSS_RTOL; the batch norms' running statistics within PT_STATS_RTOL of
+# their largest element; each optimizer's gradient norm within
+# PT_GRAD_NORM_RTOL, the ReID trainer's card-vs-CPU norm tolerance
+PT_LOSS_RTOL = 1e-3
+PT_STATS_RTOL = 1e-3
+# What follows the ReID net's update within the same step, held to 2e-2 (as
+# tests/test_torch_train_stargan_bi.py holds StarGAN's generator metrics to
+# the JAX package's): StarGAN's generator metrics (after an SGD step at lr
+# 0.1; its fakes renormalise in train mode), and the gray -> IR trainer's
+# fusions' statistics, whose second pass fuses the features of the updated
+# ReID net (Adam's first step moves a near-zero gradient element by about
+# lr * sign(g)) and whose batch norm divides by a variance near its eps
+PT_AFTER_UPDATE = {"stargan_bi": ("id_ir", "feat_ir", "hinge_pos", "loss_gen"),
+                   "vqvae_deep_ir": ("fusion1.W_bn.", "fusion2.W_bn.")}
+PT_AFTER_UPDATE_RTOL = 2e-2
+PT_GRAD_NORM_RTOL = REID_GRAD_NORM_RTOL
+PT_KERNELS = {"reid": ("abn_forward", "abn_backward"),
+              "vqvae_deep": ("nearest_code_stats",), "vqvae_deep_bi": ("nearest_code_stats",),
+              "vqvae_deep_ir": ("nearest_code_stats",), "adaptive": ("nearest_code_stats",),
+              "gray2color": ("nearest_code_stats",)}
+
+
+def pt_dataset(name: str, cfg: dict, root: str):
+    """A trainer's synthetic data set, written once under ``root``: a SYSU
+    tree (part mode for the ReID trainer) sampled P x K, or a COCO set."""
+    from vqvae2_tpu_torch.data.sysu import SYSUData
+    from vqvae2_tpu_torch.train import reid as tr
+
+    d = os.path.join(root, name)
+    if name in ("detection", "maskrcnn"):
+        from vqvae2_tpu_torch.detection.data import CocoDetectionDataset, make_synthetic_coco
+
+        c = cfg[name]
+        masks = name == "maskrcnn"
+        img_dir, ann = make_synthetic_coco(d, n=2 * c["batch"], size=c["size"], seed=40,
+                                           with_masks=masks)
+        return CocoDetectionDataset(img_dir, ann, size=c["size"], with_masks=masks,
+                                    max_boxes=c.get("max_boxes", 64))
+    c = cfg["reid" if name == "reid" else "deep"]
+    tr.make_synthetic_sysu(d, n_ids=REID_IDS, per_id=8, h=c["hw"][0], w=c["hw"][1], seed=40)
+    ds = SYSUData(d, part=name == "reid", seed=40)
+    ds.samplize(c["p"], c["k"])
+    return ds
+
+
+def pt_batch(name: str, step: int, cfg: dict, ds):
+    """The global batch of step ``step`` on the host, as the trainer's loop
+    builds it from its data set (every rank builds the whole of it): the
+    items' reads and transforms, the collation, the cross-modal trainers'
+    gray mix and augmentations."""
+    from vqvae2_tpu_torch.train import gray2color as tg2c
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import vqvae_deep_bi as tbi
+
+    seed = 40 + step
+    if name in ("detection", "maskrcnn"):
+        masks = name == "maskrcnn"
+        out = next(ds.batches(cfg[name]["batch"], seed=seed, with_masks=masks))
+        return out[:3] if not masks else (*out[:3], out[4])
+    c = cfg["reid" if name == "reid" else "deep"]
+    n = c["p"] * c["k"]
+    rows = [ds[i] for i in range(step * n, (step + 1) * n)]
+    if name == "reid":
+        return tr.collate(rows, c["hw"])
+    if name in ("vqvae_deep_bi", "vqvae_deep_ir", "stargan_bi"):
+        return tbi.cross_modal_batch(rows, np.random.default_rng(seed), "cpu")
+    batch = {"rgb": torch.from_numpy(np.stack([r[0] for r in rows])),
+             "ir": torch.from_numpy(np.stack([r[1] for r in rows])),
+             "label": torch.from_numpy(np.asarray([r[2] for r in rows], np.int32))}
+    if name == "gray2color":
+        batch["ids"] = torch.from_numpy(tg2c.other_instance_ids(
+            c["p"], c["k"], np.random.default_rng(seed)))
+    return batch
+
+
+def pt_build(name: str, dev: str, cfg: dict):
+    """``(model, optimizers, step)``: a trainer's model with weights from a
+    seed (the same on every rank), its state's optimizers, and
+    ``step(batch) -> metrics`` (floats) of its ``make_train_step``."""
+    from vqvae2_tpu_torch.models import adaptive as ta
+    from vqvae2_tpu_torch.train import adaptive as tad
+    from vqvae2_tpu_torch.train import gray2color as tg2c
+    from vqvae2_tpu_torch.train import reid as tr
+    from vqvae2_tpu_torch.train import stargan_bi as tsb
+    from vqvae2_tpu_torch.train import vqvae_deep as ttd
+    from vqvae2_tpu_torch.train import vqvae_deep_bi as tbi
+    from vqvae2_tpu_torch.train import vqvae_deep_ir as tir
+    from vqvae2_tpu_torch.train.vqvae import TrainState
+
+    adam = schedules.adam(3e-4)
+    c = cfg["deep"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        if name == "reid":
+            r = cfg["reid"]
+            model = tr.EmbedNet2(class_num=REID_IDS, arch=r["arch"]).to(dev)
+            tx = tr.make_optimizer(0.1, 10)
+            state = tr.create_state(model, tx)
+            fn = tr.make_train_step(model, tx, r["k"], r["p"], r["hw"], seed=1)
+            return model, [state.optimizer], lambda b: fn(state, b)[1]
+        if name in ("vqvae_deep", "vqvae_deep_ir"):
+            model = ta.ModelAdaptive_Deep(class_num=REID_IDS, arch=c["arch"]).to(dev)
+            state = tad.create_state(model, adam, adam)
+            fn = (ttd.make_train_step(model, adam, adam, c["k"], seed=2) if name == "vqvae_deep"
+                  else tir.make_full_step(model, adam, adam, c["k"]))
+            return model, [state.opt_reid, state.opt_gen], lambda b: fn(state, b)[1]
+        if name == "adaptive":
+            model = ta.ModelAdaptive(class_num=REID_IDS, arch=c["arch"]).to(dev)
+            state = tad.create_state(model, adam, adam)
+            fn = tad.make_train_step(model, adam, adam, c["k"])
+            return model, [state.opt_reid, state.opt_gen], lambda b: fn(state, b)[1][0]
+        if name == "gray2color":
+            model = ta.ModelAdaptive(class_num=REID_IDS, arch=c["arch"], ir_head=False).to(dev)
+            state = TrainState(step=0, model=model.train(),
+                               optimizer=adam.build(model.parameters()))
+            fn = tg2c.make_train_step(model, adam)
+            return model, [state.optimizer], lambda b: fn(
+                state, {"rgb": b["rgb"], "ir": b["ir"]}, b["ids"])[1][0]
+        if name == "vqvae_deep_bi":
+            model = ta.ModelAdaptiveBi_Deep(class_num=REID_IDS, arch=c["arch"]).to(dev)
+            tx_reid = schedules.SGDSchedule(tbi.reid_lr_schedule(0.1, 10), momentum=0.9,
+                                            nesterov=True, weight_decay=5e-4)
+            state = tbi.create_state(model, tx_reid, adam)
+            fn = tbi.make_train_step(model, tx_reid, adam, c["k"])
+            return model, [state.opt_gen, state.opt_reid], lambda b: fn(state, b)[1]
+        if name == "stargan_bi":
+            model = tsb.build_model(argparse.Namespace(seed=11, arch=c["arch"]), REID_IDS,
+                                    c["hw"], dev)
+            tx_reid = schedules.SGDSchedule(0.1, momentum=0.9, nesterov=True)
+            state = tsb.create_state(model, tx_reid, adam, adam)
+            fn = tsb.make_train_step(model, tx_reid, adam, adam, c["k"])
+            return model, [state.opt_reid, state.opt_gen, state.opt_disc], lambda b: fn(
+                state, b, {"r1_weight": 1.0, "adv_weight": 0.5, "d_mask": 1.0})[1]
+        if name == "detection":
+            from vqvae2_tpu_torch.detection import boxes as B
+            from vqvae2_tpu_torch.detection.ssd import SSD300
+            from vqvae2_tpu_torch.train import detection as tdet
+
+            model = SSD300(num_classes=DET_CLASSES, arch=cfg["detection"]["arch"]).to(dev)
+            tx = tdet.make_optimizer(0.002, 40)
+            state = tdet.create_state(model, tx)
+            fn = tdet.make_train_step(model, tx, B.default_boxes_ssd300())
+            return model, [state.optimizer], lambda b: {"loss": fn(state, *b)[1]}
+        from vqvae2_tpu_torch.detection import mask_rcnn as dm
+        from vqvae2_tpu_torch.train import maskrcnn as tmr
+
+        m = cfg["maskrcnn"]
+        model = dm.MaskRCNN(num_classes=DET_CLASSES, img_size=m["size"],
+                            num_proposals=m["proposals"], arch=m["arch"]).to(dev)
+        state = tmr.create_state(model, schedules.adam(1e-4))
+        fn = tmr.make_train_step(model, schedules.adam(1e-4),
+                                 dm.generate_anchors(m["size"], sizes=m["anchors"]))
+        return model, [state.optimizer], lambda b: fn(state, *b)[1]
+
+
+class CollectiveClock:
+    """Counts and times the collectives a block makes (``parallel.all_reduce``,
+    each call synchronised before and after so that it times the exchange
+    alone), apart for the gradient sum (``all_reduce_grads``) and the rest of
+    the step (the batch norms' and ABNs' sums, the gathers, the metrics)."""
+
+    def __init__(self):
+        self.grad = [0, 0.0, 0]            # calls, ms, bytes
+        self.step = [0, 0.0, 0]
+        self._in_grads = False
+
+    def __enter__(self):
+        self.saved = par.all_reduce, par.all_reduce_grads
+        saved_reduce, saved_grads = self.saved
+
+        def timed(x):
+            if not par.is_initialized():
+                return saved_reduce(x)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved_reduce(x)
+            if out.is_cuda:
+                torch.cuda.synchronize()
+            acc = self.grad if self._in_grads else self.step
+            acc[0] += 1
+            acc[1] += (time.perf_counter() - t0) * 1e3
+            acc[2] += x.numel() * x.element_size()
+            return out
+
+        def grads(parameters):
+            self._in_grads = True
+            try:
+                return saved_grads(parameters)
+            finally:
+                self._in_grads = False
+
+        par.all_reduce, par.all_reduce_grads = timed, grads
+        return self
+
+    def __exit__(self, *exc):
+        par.all_reduce, par.all_reduce_grads = self.saved
+
+
+def pt_grad_norms(optimizers) -> list:
+    """Each optimizer's gradient norm, as its ``step`` sees it (recorded by
+    wrapping ``step``; read after the step)."""
+    norms = []
+    for opt in optimizers:
+        saved = opt.step
+
+        def spy(*a, opt=opt, saved=saved, **kw):
+            g = [p.grad.detach().double() for grp in opt.param_groups for p in grp["params"]
+                 if p.grad is not None]
+            norms.append(float(torch.sqrt(sum(torch.sum(t * t) for t in g))) if g else 0.0)
+            return saved(*a, **kw)
+
+        opt.step = spy
+    return norms
+
+
+def pt_statistics(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def pt_run(name: str, dev: str, cfg: dict, steps: int, reference: bool, root: str) -> dict:
+    """A trainer's ``steps`` steps on this process's rows of each global
+    batch: the first step's metrics, gradient norms and batch-norm
+    statistics, the state's digest after each step, the second step's time
+    by CUDA events, its collectives, the host time to build a global batch,
+    the peak memory and the kernels' launches over the steps."""
+    on_card = torch.device(dev).type == "cuda"
+    ds = pt_dataset(name, cfg, os.path.join(root, "reference" if reference else "world"))
+    model, optimizers, step = pt_build(name, dev, cfg)
+    norms = pt_grad_norms(optimizers)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"digests": [], "host_ms": [], "step_ms": []}
+    reset_all_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = pt_batch(name, i, cfg, ds)
+        out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        with torch.enable_grad(), CollectiveClock() as clock:
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            metrics = step(batch)
+            if on_card:
+                end.record()
+                end.synchronize()
+                out["step_ms"].append(start.elapsed_time(end))
+        if i == 0:
+            out.update(metrics={k: float(v) for k, v in metrics.items()},
+                       grad_norms=list(norms), statistics=pt_statistics(model))
+        else:
+            out.update(collectives={"grad_all_reduce": clock.grad, "in_step": clock.step})
+        out["digests"].append(_state_digest(model.state_dict()))
+    counts = all_counts()
+    out["launches"] = {k: counts["launches"][k] for k in PT_KERNELS.get(name, ())}
+    out["plain_calls"] = {k: v for k, v in counts["plain_calls"].items() if v}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    if reference:
+        out.pop("digests")
+    del model, optimizers, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def pt_rank(rank: int, world: int, store: str, out_dir: str, dev: str, cfg: dict,
+            trainers) -> None:
+    """One rank of the ``gloo`` world on the card: rank 0 first takes each
+    trainer's first step on the whole global batch without a group (the
+    world-1 reference); then both ranks form the group and take each
+    trainer's steps on their rows."""
+    try:
+        if torch.device(dev).type == "cuda":
+            torch.cuda.set_device(torch.device(dev))
+        port.set_reference_precision()
+        res = {"rank": rank, "reference": {}, "world": {}}
+        root = os.path.join(out_dir, f"data{rank}")
+        if rank == 0:
+            for name in trainers:
+                res["reference"][name] = pt_run(name, dev, cfg, 1, True, root)
+        par.init_distributed(store, world, rank, device=dev, backend="gloo")
+        try:
+            for name in trainers:
+                res["world"][name] = pt_run(name, dev, cfg, PT_STEPS, False, root)
+        finally:
+            dist.destroy_process_group()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def pt_distances(name: str, got: dict, want: dict) -> dict:
+    """A rank's world-2 step against the world-1 step: the largest relative
+    error of the metrics, of the statistics (of each tensor's largest
+    element; those that follow an update apart) and of the gradient norms."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    stats = {k: float((got["statistics"][k].cpu() - v.cpu()).abs().max())
+             / max(float(v.abs().max()), 1e-6) for k, v in want["statistics"].items()}
+    after = PT_AFTER_UPDATE.get(name, ())
+    return {"metrics": max(rel(got["metrics"][k], v) for k, v in want["metrics"].items()),
+            "statistics": max([e for k, e in stats.items()
+                               if not any(k.startswith(p) for p in after)], default=0.0),
+            "statistics_after_update": max([e for k, e in stats.items()
+                                            if any(k.startswith(p) for p in after)],
+                                           default=None),
+            "grad_norms": max(rel(g, w) for g, w in zip(got["grad_norms"],
+                                                        want["grad_norms"]))}
+
+
+def pt_compare(name: str, got: dict, want: dict) -> list:
+    """What differs between a rank's world-2 step and the world-1 step, by
+    the tolerances above."""
+    bad = []
+    for k, v in want["metrics"].items():
+        rtol = PT_AFTER_UPDATE_RTOL if k in PT_AFTER_UPDATE.get(name, ()) else PT_LOSS_RTOL
+        if abs(got["metrics"][k] - v) > rtol * max(abs(v), 1e-6):
+            bad.append(f"{name}: {k} {got['metrics'][k]} against {v}")
+    for k, v in want["statistics"].items():
+        err = float((got["statistics"][k].cpu() - v.cpu()).abs().max())
+        after = any(k.startswith(p) for p in PT_AFTER_UPDATE.get(name, ()))
+        if err > (PT_AFTER_UPDATE_RTOL if after else PT_STATS_RTOL) * max(float(v.abs().max()),
+                                                                          1e-6):
+            bad.append(f"{name}: statistics {k} off by {err}")
+    for i, (g, w) in enumerate(zip(got["grad_norms"], want["grad_norms"])):
+        if abs(g - w) > PT_GRAD_NORM_RTOL * max(w, 1e-30):
+            bad.append(f"{name}: optimizer {i}'s gradient norm {g} against {w}")
+    return bad
+
+
+def pt_world_of_two(tmp: str, dev: str = GLOO_DEVICE, cfg: dict = None,
+                    trainers=PT_TRAINERS) -> dict:
+    """The nine trainers at world 2: two ``gloo`` ranks spawned once on the
+    one card, against the world-1 step that rank 0 took first.  Failures are
+    listed under ``failures``."""
+    import multiprocessing
+
+    cfg = cfg or PT_CONFIG
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    store = "file://" + os.path.join(out_dir, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=pt_rank, args=(r, PT_WORLD, store, out_dir, dev, cfg, trainers))
+             for r in range(PT_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PT_JOIN_SECONDS
+    # a rank that fails leaves the other waiting at a collective: stop then
+    while time.monotonic() < deadline and any(p.is_alive() for p in procs) and not any(
+            p.exitcode not in (None, 0) for p in procs):
+        time.sleep(0.5)
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = [open(os.path.join(out_dir, f"rank{r}.err")).read() for r in range(PT_WORLD)
+              if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    check(not hung and not errors and all(p.exitcode == 0 for p in procs),
+          f"parallel_trainers: ranks {hung} hung; exit codes {[p.exitcode for p in procs]}; "
+          + "\n".join(errors))
+    ranks_ = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+              for r in range(PT_WORLD)]
+    seconds = time.perf_counter() - t0
+    failures, report = [], {}
+    reference = ranks_[0]["reference"]
+    for name in trainers:
+        want = reference[name]
+        per_rank = []
+        for r in ranks_:
+            got = r["world"][name]
+            failures += [f"rank {r['rank']} {m}" for m in pt_compare(name, got, want)]
+            if got["plain_calls"]:
+                failures.append(f"rank {r['rank']} {name}: plain versions ran {got['plain_calls']}")
+            if not all(got["launches"].values()):
+                failures.append(f"rank {r['rank']} {name}: kernels launched {got['launches']}")
+            if got["digests"] != ranks_[0]["world"][name]["digests"]:
+                failures.append(f"rank {r['rank']} {name}: parameters differ from rank 0's")
+            grad, in_step = got["collectives"]["grad_all_reduce"], got["collectives"]["in_step"]
+            per_rank.append({
+                "step_ms": got["step_ms"][-1] if got["step_ms"] else None,
+                "grad_all_reduce_ms": grad[1], "grad_all_reduce_mb": grad[2] / 2 ** 20,
+                "grad_all_reduce_calls": grad[0], "in_step_collectives": in_step[0],
+                "in_step_collective_ms": in_step[1], "in_step_collective_mb": in_step[2] / 2 ** 20,
+                "host_ms": float(np.mean(got["host_ms"])), "peak_gb": got["peak_gb"],
+                "launches": got["launches"], "loss": got["metrics"].get("loss", None),
+                "against_world_1": pt_distances(name, got, want)})
+        report[name] = {"ranks": per_rank, "world_1": {
+            "step_metrics": want["metrics"], "grad_norms": want["grad_norms"],
+            "host_ms": want["host_ms"][0], "peak_gb": want["peak_gb"],
+            "launches": want["launches"]},
+            "states_bit_equal_across_ranks": all(
+                r["world"][name]["digests"] == ranks_[0]["world"][name]["digests"]
+                for r in ranks_)}
+    return {"world": PT_WORLD, "device": dev, "steps": PT_STEPS, "seconds": seconds,
+            "trainers": report, "failures": failures}
+
+
+PT_CLI = {
+    "reid": ["--synthetic", "--steps", "2"],
+    "vqvae_deep": ["--synthetic", "--steps", "2"],
+    "adaptive": ["--synthetic", "--steps", "2"],
+    "gray2color": ["--synthetic", "--steps", "2"],
+    "vqvae_deep_bi": ["--synthetic", "--steps", "2"],
+    "vqvae_deep_ir": ["--synthetic", "--steps", "2", "--stage_reconstruction", "1"],
+    "stargan_bi": ["--synthetic", "--steps", "2"],
+    "detection": ["--synthetic", "--steps", "2"],
+    "maskrcnn": ["--synthetic", "--steps", "2"],
+}
+PT_NO_CHECKPOINT = ("detection", "maskrcnn")      # their command lines write none
+PT_REPEAT_FACTOR = 10.0
+
+
+def pt_cli_run(name: str, root: str, nccl: bool) -> dict:
+    """A trainer's command line for two steps, in a ``torchrun`` environment
+    of one rank (an NCCL group of one) or without one: what it returns, its
+    checkpoint, whether it ran in the group, and its counters."""
+    import importlib
+
+    mod = importlib.import_module(f"vqvae2_tpu_torch.train.{name}")
+    argv = PT_CLI[name] + ["--log_every", "1"]
+    if name not in PT_NO_CHECKPOINT:
+        argv += ["--ckpt_dir", root]
+    seen: list = []
+    reset_all_counts()
+    group = torchrun_world_of_one if nccl else contextlib.nullcontext
+    t0 = time.perf_counter()
+    with torch.enable_grad(), group(), group_seen(mod, "train", seen):
+        metrics = mod.main(argv)
+    counts = all_counts()
+    out = {"metrics": {k: float(v) for k, v in dict(metrics).items()
+                       if isinstance(v, (int, float))},
+           "seconds": time.perf_counter() - t0, "grouped": seen[0]["group"],
+           "backend": seen[0]["backend"],
+           "launches": {k: counts["launches"][k] for k in PT_KERNELS.get(name, ())},
+           "plain_calls": {k: v for k, v in counts["plain_calls"].items() if v}}
+    if name not in PT_NO_CHECKPOINT:
+        out["checkpoint"] = torch.load(os.path.join(root, "last.pt"), map_location="cpu",
+                                       weights_only=True)
+    check(not par.is_initialized(), f"{name}: launch left a process group behind")
+    return out
+
+
+def pt_distance(a: dict, b: dict) -> float:
+    """The largest relative distance ``|a - b| / |b|`` over the floating
+    tensors of two checkpoints' models (or over two dicts of metrics)."""
+    if "model" in b:
+        a, b = a["model"], b["model"]
+    worst = 0.0
+    for k, v in b.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            worst = max(worst, norm_err(a[k], v))
+        elif isinstance(v, float):
+            worst = max(worst, abs(a[k] - v) / max(abs(v), 1e-30))
+    return worst
+
+
+def pt_world_of_one(tmp: str) -> dict:
+    """Each of the nine command lines for two steps under a ``torchrun``
+    environment of one rank (``launch`` forms an NCCL group of one) and
+    without one: the checkpoint (what the detection trainers return, as they
+    write none) bit for bit; the kernels launched, no plain version.  Where
+    the two differ, the run without a group is repeated: a trainer whose
+    backward sums with atomics on the card (the anti-aliased resizes'
+    backward) does not repeat itself bit for bit, and then the group's run
+    must lie within PT_REPEAT_FACTOR of the distance between the two runs
+    without one."""
+    result = {}
+    for name in PT_TRAINERS:
+        runs = {mode: pt_cli_run(name, os.path.join(tmp, "pt_cli", name, mode), mode == "nccl")
+                for mode in ("alone", "nccl")}
+        check(runs["nccl"]["grouped"] and runs["nccl"]["backend"] == "nccl"
+              and not runs["alone"]["grouped"],
+              f"{name}: the command line ran grouped {runs['nccl']['grouped']} "
+              f"({runs['nccl']['backend']}) under torchrun, {runs['alone']['grouped']} alone")
+        for mode, run in runs.items():
+            check(not run["plain_calls"], f"{name} {mode}: plain versions ran {run['plain_calls']}")
+            check(all(run["launches"].values()), f"{name} {mode}: kernels {run['launches']}")
+        what = "metrics" if name in PT_NO_CHECKPOINT else "checkpoint"
+        a, b = runs["alone"][what], runs["nccl"][what]
+        diff = (["metrics"] if a != b else []) if what == "metrics" else differing(a, b)
+        out = {"bit_equal": not diff, "compared": what,
+               **{f"{mode}_seconds": run["seconds"] for mode, run in runs.items()},
+               "launches": runs["nccl"]["launches"]}
+        if diff:
+            again = pt_cli_run(name, os.path.join(tmp, "pt_cli", name, "again"), False)[what]
+            repeat, group = pt_distance(again, a), pt_distance(b, a)
+            out.update(repeatable_alone=not (differing(again, a) if what == "checkpoint"
+                                             else again != a),
+                       distance_alone_twice=repeat, distance_group=group, differs_at=diff[:5])
+            check(not out["repeatable_alone"] and group <= PT_REPEAT_FACTOR * max(repeat, 1e-7),
+                  f"world-1 NCCL {name}: differs from the run without a group at {diff[:5]} "
+                  f"(distance {group}; two runs without a group {repeat}, bit-equal "
+                  f"{out['repeatable_alone']})")
+        result[name] = out
+    return result
+
+
+def with_world_n_launches(kernels: list, result: dict) -> None:
+    """Add to each record of K3, K7 and K8 its launches a rank in the
+    world-2 steps of each trainer that runs it (phase parallel_trainers)."""
+    trainers = result["world_2_gloo"]["trainers"]
+    for rec in kernels:
+        base = rec["name"].split(" ")[0]
+        seen = {name: [r["launches"][base] for r in t["ranks"]]
+                for name, t in trainers.items() if base in t["ranks"][0]["launches"]}
+        if seen:
+            rec["launches_world_2_a_rank"] = seen
+
+
+def phase_parallel_trainers(tmp: str) -> dict:
+    result = {"card": card_name(), "world_1_nccl": pt_world_of_one(tmp),
+              "world_2_gloo": pt_world_of_two(tmp)}
+    emit("parallel_trainers", **result)
+    failures = result["world_2_gloo"]["failures"]
+    check(not failures, "; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--breakdown", action="store_true",
@@ -5388,7 +5952,9 @@ def main(argv=None) -> int:
             phase_main_ssd(tmp)
             phase_main_maskrcnn(tmp)
             phase_parallel(tmp)
+            trainers_at_n = phase_parallel_trainers(tmp)
         record["kernels"] += deep_records(by_path)
+        with_world_n_launches(record["kernels"], trainers_at_n)
         phase_cudnn_grads()
         phase_probe()
         if args.breakdown:

@@ -131,8 +131,10 @@ def test_make_mesh_describes_the_world():
     mesh = par.make_mesh("cpu")
     assert (mesh.world_size, mesh.rank, mesh.device) == (1, 0, torch.device("cpu"))
     assert mesh.shape == {par.DATA_AXIS: 1}
+    assert par.make_mesh("cpu", axis_names=(par.DATA_AXIS, par.MODEL_AXIS)).shape == {
+        par.DATA_AXIS: 1, par.MODEL_AXIS: 1}
     with pytest.raises(ValueError, match="axis"):
-        par.make_mesh("cpu", axis_names=(par.DATA_AXIS, par.MODEL_AXIS))
+        par.make_mesh("cpu", axis_names=(par.DATA_AXIS, par.MODEL_AXIS), shape=(1, 2))
     with pytest.raises(ValueError, match="axis"):
         InPlaceABN(4, axis_name=par.MODEL_AXIS)
     assert InPlaceABNSync(4).axis_name == par.DATA_AXIS

@@ -174,10 +174,12 @@ def smooth_l1(x: torch.Tensor) -> torch.Tensor:
 
 def multibox_loss(loc_pred: torch.Tensor, cls_logits: torch.Tensor,
                   loc_target: torch.Tensor, cls_target: torch.Tensor,
-                  neg_pos_ratio: int = 3) -> torch.Tensor:
+                  neg_pos_ratio: int = 3, reduction: str = "mean") -> torch.Tensor:
     """SSD MultiBox loss with hard negative mining: smooth-L1 over positives
     + CE over the positives and the 3:1 hardest negatives, normalized by the
-    positive count; an image without positives adds 0.
+    positive count; an image without positives adds 0.  The mean over the
+    images, or (``reduction="none"``) each image's loss: every term is an
+    image's own, so data parallelism takes its share of the mean.
 
     Shapes: loc (B, D, 4), cls_logits (B, D, C), cls_target (B, D)."""
     pos = cls_target > 0
@@ -199,4 +201,5 @@ def multibox_loss(loc_pred: torch.Tensor, cls_logits: torch.Tensor,
     cls_loss = torch.sum(ce_gt * (pos | neg), dim=1)
     total = loc_loss + cls_loss
     denom = torch.clamp(num_pos.to(total.dtype), min=1e-6)
-    return torch.mean(torch.where(num_pos > 0, total / denom, torch.zeros_like(total)))
+    per_image = torch.where(num_pos > 0, total / denom, torch.zeros_like(total))
+    return per_image if reduction == "none" else torch.mean(per_image)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.detection import boxes as B
 from vqvae2_tpu_torch.models.resnet import (CONFIGS, Conv2d, Dense, ResNetStem, _make_layer,
                                             expansion)
@@ -345,9 +346,11 @@ def crop_gt_masks(gt_masks: torch.Tensor, gt_idx: torch.Tensor, proposals: torch
     return bilinear((at(0, 0), at(0, 1), at(1, 0), at(1, 1)), wy, wx)[..., 0]
 
 
-def _count(mask: torch.Tensor) -> torch.Tensor:
-    """``jnp.maximum(jnp.sum(mask), 1.0)``."""
-    return torch.clamp(torch.sum(mask).to(torch.float32), min=1.0)
+def _counts(*masks: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(jnp.sum(mask), 1.0)`` of each mask, over every rank's
+    rows under a process group (one all-reduce, detached)."""
+    sums = torch.stack([torch.sum(m) for m in masks]).detach()
+    return torch.clamp(par.all_reduce(sums).to(torch.float32), min=1.0)
 
 
 def sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -359,31 +362,33 @@ def mask_rcnn_loss(rpn_obj, rpn_reg, obj_t, delta_t, roi_cls, roi_reg, roi_label
                    roi_deltas, mask_logits, mask_targets) -> Tuple[torch.Tensor,
                                                                     Dict[str, torch.Tensor]]:
     """Combined RPN + RoI + mask losses (masked reductions over the whole
-    batch), and each term."""
+    batch), and each term.  Under a process group the batch is every rank's
+    images: the counts that normalise the terms are summed over the ranks,
+    and each value is this rank's share of the global one (the ranks' values
+    sum to it)."""
     pos = obj_t == 1
     valid = obj_t >= 0
+    roi_pos = roi_labels > 0
+    n_valid, n_anchor_pos, n_pos, n_neg = _counts(valid, pos, roi_pos, ~roi_pos)
     obj_bce = sigmoid_bce(rpn_obj, pos.to(rpn_obj.dtype))
-    rpn_cls_loss = torch.sum(obj_bce * valid) / _count(valid)
+    rpn_cls_loss = torch.sum(obj_bce * valid) / n_valid
     rpn_reg_loss = (torch.sum(B.smooth_l1(rpn_reg - delta_t).sum(-1) * pos)
-                    / _count(pos))
+                    / n_anchor_pos)
 
     # Balanced RoI classification: with ~1-3 positives among 64+ RoIs a plain
     # mean collapses the classifier to background; the CE is reweighted to
     # the 1:3 positive:negative ratio torchvision's sampler keeps.
     ce = -torch.gather(F.log_softmax(roi_cls, dim=-1), -1, roi_labels.long()[..., None])[..., 0]
-    roi_pos = roi_labels > 0
-    n_pos = _count(roi_pos)
-    n_neg = _count(~roi_pos)
     roi_ce = 0.25 * torch.sum(ce * roi_pos) / n_pos + 0.75 * torch.sum(ce * ~roi_pos) / n_neg
     roi_reg_loss = (torch.sum(B.smooth_l1(roi_reg - roi_deltas).sum(-1) * roi_pos)
-                    / _count(roi_pos))
+                    / n_pos)
 
     # mask BCE on the labelled class's channel of the positive RoIs
     cls_idx = roi_labels.long()[..., None, None, None].expand(*mask_logits.shape[:-1], 1)
     pred = torch.gather(mask_logits, -1, cls_idx)[..., 0]
     mask_bce = sigmoid_bce(pred, mask_targets)
     mask_loss = (torch.sum(mask_bce.mean(dim=(-1, -2)) * roi_pos)
-                 / _count(roi_pos))
+                 / n_pos)
 
     total = rpn_cls_loss + rpn_reg_loss + roi_ce + roi_reg_loss + mask_loss
     return total, {"rpn_cls": rpn_cls_loss, "rpn_reg": rpn_reg_loss, "roi_cls": roi_ce,

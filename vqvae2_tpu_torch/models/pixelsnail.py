@@ -172,21 +172,33 @@ class CausalConv(WNConv):
         self.padding_mode = padding_mode
 
 
-# ``(start, total)``: this rank's first row and the global batch's rows while
-# a data-parallel step runs (set by ``batch_rows``; None outside one).
-_BATCH_ROWS: ContextVar[Optional[Tuple[int, int]]] = ContextVar("batch_rows", default=None)
+# ``(start, total, groups)``: this rank's first row, the global batch's rows
+# and its blocks while a data-parallel step runs (set by ``batch_rows``; None
+# outside one).
+_BATCH_ROWS: ContextVar[Optional[Tuple[int, int, int]]] = ContextVar("batch_rows",
+                                                                     default=None)
 
 
 @contextlib.contextmanager
-def batch_rows(start: int, total: int):
+def batch_rows(start: int, total: int, groups: int = 1):
     """Within the block, this process holds rows ``start:`` of a global batch
     of ``total`` rows: :func:`dropout` draws the ``total`` rows' mask and keeps
-    this process's rows."""
-    token = _BATCH_ROWS.set((start, total))
+    this process's rows.  With ``groups`` the tensors hold that many blocks
+    of this process's rows, one after the other, of a global batch of that
+    many blocks of ``total`` rows (``parallel.gather_batch``'s layout)."""
+    token = _BATCH_ROWS.set((start, total, groups))
     try:
         yield
     finally:
         _BATCH_ROWS.reset(token)
+
+
+def draw_rows(local: int) -> Tuple[int, int]:
+    """``(rows, start)``: how many rows a random draw over the batch takes and
+    where this process's ``local`` rows start among them: the global batch's
+    inside :func:`batch_rows`, else ``(local, 0)``."""
+    rows = _BATCH_ROWS.get()
+    return (local, 0) if rows is None else (rows[1], rows[0])
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -201,11 +213,14 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError("dropout in train mode needs a generator (pass generator=...)")
     rows = _BATCH_ROWS.get()
-    shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+    shape = x.shape if rows is None else (rows[2] * rows[1], *x.shape[1:])
     keep = torch.empty(shape, dtype=torch.float32, device=x.device).bernoulli_(
         1.0 - rate, generator=generator)
     if rows is not None:
-        keep = keep[rows[0]:rows[0] + x.shape[0]]
+        start, total, groups = rows
+        local = x.shape[0] // groups
+        keep = torch.cat([keep[g * total + start:g * total + start + local]
+                          for g in range(groups)])
     return torch.where(keep != 0, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.models import layers
 
 CONFIGS = {
@@ -82,7 +83,20 @@ class BatchNorm(nn.Module):
     ``max(E[x^2] - E[x]^2, 0)`` (the gradient flows through both) and moves
     the buffers ``running = momentum * running + (1 - momentum) * batch``; eval
     mode uses the buffers.  ``scale_init`` is the scale's initial value.  The
-    moments are fp32 whatever ``x``'s type, so a bf16 ``x`` gives fp32."""
+    moments are fp32 whatever ``x``'s type, so a bf16 ``x`` gives fp32.
+
+    Under a process group (``parallel``) training mode is synchronised, as
+    flax's is under GSPMD: the moments come from ``(n·E[x], n·E[x²], n)``
+    summed over the ranks in one all-reduce, whose backward all-reduces the
+    sums' gradients, so each rank's rows are normalised with the global batch's
+    moments and the gradient is the global batch's.  Each rank takes the
+    fp32 means of its rows' ``x`` and ``x²``, as flax reduces; the ranks'
+    means weighted by their rows are added in fp64, as the in-place ABN's
+    sums are: ``mean · n`` and the division by the total ``n`` are exact
+    there, so one rank keeps its fp32 means bit for bit, with a group of
+    one or without a group alike.  The running statistics move by the
+    global moments, the same on every rank.  Eval mode makes no collective.
+    (``torch.nn.SyncBatchNorm`` would write the unbiased variance.)"""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
                  use_scale: bool = True, use_bias: bool = True, scale_init: float = 1.0):
@@ -98,11 +112,7 @@ class BatchNorm(nn.Module):
         """``train`` overrides the module's own mode (flax's
         ``use_running_average=not train``)."""
         if self.training if train is None else train:
-            dims = tuple(range(x.ndim - 1))
-            x32 = x.to(torch.float32)
-            mean = torch.mean(x32, dim=dims)
-            mean2 = torch.mean(torch.square(x32), dim=dims)
-            var = torch.maximum(mean2 - torch.square(mean), torch.zeros_like(mean))
+            mean, var = self._moments(x)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)
@@ -118,6 +128,22 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+    @staticmethod
+    def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch's mean and biased variance over every rank's rows."""
+        c, dims = x.shape[-1], tuple(range(x.ndim - 1))
+        x32 = x.to(torch.float32)
+        rows = x.numel() // c
+        local = torch.cat([torch.mean(x32, dim=dims), torch.mean(torch.square(x32), dim=dims)]
+                          if rows else [torch.sum(x32, dim=dims)] * 2)
+        n = torch.full((1,), float(rows), dtype=torch.float64, device=x.device)
+        total = par.all_reduce_sum(torch.cat([local.to(torch.float64) * n, n]))
+        moments = (total[:-1] / total[-1].detach()).to(torch.float32)
+        mean, mean2 = moments[:c], moments[c:]
+        var = torch.maximum(mean2 - torch.square(mean), torch.zeros_like(mean))
+        return mean, var
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:

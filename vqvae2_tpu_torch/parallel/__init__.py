@@ -26,11 +26,22 @@ takes no CPU tensor, so host values travel on the backend's device.  A
 gather is an all-reduce into a zeroed buffer of the gathered shape, which is
 exact.
 
+Losses that pair rows of the batch (batch-hard triplets, InfoNCE, the
+per-identity terms) run on the global rows: :func:`gather_batch` hands every
+rank the global batch's rows of a tensor, in the JAX package's row order
+(``groups`` puts a rank's ``[rgb_r; ir_r; gray_r]`` where the global batch
+has ``[rgb_all; ir_all; gray_all]``), and its backward keeps only this
+rank's slice of the incoming gradient: every rank computes the same global
+term, so the gradient sum counts it once.  Terms per row are this rank's share
+of the global mean (:func:`share_mean`); :func:`global_metrics` sums the
+ranks' parts of each metric, so every rank reports the global batch's.
+
 The reference's API (``launch``, ``get_rank``, ``is_primary``,
 ``get_world_size``, ``all_reduce``, ``all_gather``, ``reduce_dict``,
-``data_sampler``, ...) keeps its names, so the trainers read the same.
-``fsdp_shard`` and a ``model`` mesh axis are not ported: no trainer of the
-pipeline calls them.
+``data_sampler``, ``make_mesh``, ``fsdp_shard``, ...) keeps its names, so the
+trainers read the same.  :func:`fsdp_shard` keeps each rank's shard of the
+large parameters and of their optimizer moments (:class:`ShardedParams`); a
+``model`` mesh axis is taken at size 1, as every trainer's mesh has it.
 """
 
 from __future__ import annotations
@@ -145,19 +156,131 @@ def reduce_dict(d: Dict[str, Any], average: bool = True) -> Dict[str, float]:
     return {k: float(v) for k, v in zip(keys, total)}
 
 
+def from_primary(value: float, device="cpu") -> float:
+    """The primary rank's ``value`` on every rank (what it alone computed,
+    such as a validation's mAP); every rank must call it."""
+    if not is_initialized():
+        return value
+    x = torch.tensor([value if is_primary() else 0.0], dtype=torch.float64, device=device)
+    return float(all_reduce(x)[0])
+
+
 def local_mean(t: torch.Tensor) -> torch.Tensor:
     """``torch.mean(t)``, and 0 where ``t`` has no element (a rank's empty
     share of a short batch, which the share rule weighs by 0)."""
     return torch.mean(t) if t.numel() else torch.sum(t)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks, differentiable: each rank's share of the loss
+    reaches the sum, so the sum's gradient is the ranks' gradients summed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous())
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """:func:`all_reduce` with a gradient: the backward all-reduces the
+    incoming gradient (every rank's loss depends on the sum).  ``x`` itself
+    without a group."""
+    if not is_initialized():
+        return x
+    return _AllReduceSum.apply(x)
+
+
+def share_mean(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """This rank's share of the global batch's mean of ``t``, whose leading
+    dim holds this rank's rows of a global batch of ``rows`` rows (each row
+    of as many elements): ``local_mean(t) * local_rows / rows``.  The ranks'
+    shares sum to the global mean; without a group it is ``mean(t)``."""
+    return local_mean(t) * (t.shape[0] / rows)
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows: int, groups: int):
+        start, stop = shard_rows(rows)
+        local = stop - start
+        if x.shape[0] != groups * local:
+            raise ValueError(f"gather_batch: {x.shape[0]} rows, expected {groups} groups of "
+                             f"{local} (this rank's share of {rows})")
+        buf = torch.zeros((groups * rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        for g in range(groups):
+            buf[g * rows + start:g * rows + stop] = x[g * local:(g + 1) * local]
+        ctx.rows, ctx.groups = rows, groups
+        return all_reduce(buf)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return local_rows(grad, ctx.rows, ctx.groups), None, None
+
+
+def gather_batch(x: torch.Tensor, rows: int, groups: int = 1) -> torch.Tensor:
+    """The global batch's rows of ``x`` on every rank, in the global batch's
+    order, with a gradient.
+
+    ``x``'s leading dim holds ``groups`` blocks of this rank's rows
+    (:func:`shard_rows` of ``rows``), one after the other: a model that
+    concatenates its modalities gives ``[rgb_r; ir_r; gray_r]``.  The result
+    is ``[rgb_all; ir_all; gray_all]``, ``groups * rows`` rows, as the one
+    process computing the global batch lays them out.  The backward hands
+    this rank only its own rows of the incoming gradient, summing nothing:
+    every rank computes the same global term, and the gradient sum over the
+    ranks then counts it once.  Exact (an all-reduce into zeros).  Without a
+    group it is a copy of ``x`` through the same autograd node, so that a
+    group of one rank accumulates the gradients in the same order, bit for
+    bit.  A rank with no rows joins with none."""
+    return _GatherBatch.apply(x, rows, groups)
+
+
+def local_rows(x: torch.Tensor, rows: int, groups: int = 1) -> torch.Tensor:
+    """The inverse of :func:`gather_batch`: this rank's rows of a tensor laid
+    out as the global batch (``groups`` blocks of ``rows``), as the blocks of
+    its own rows one after the other (all of ``x`` without a group)."""
+    start, stop = shard_rows(rows)
+    if groups == 1:
+        return x[start:stop]
+    return torch.cat([x[g * rows + start:g * rows + stop] for g in range(groups)])
+
+
+def global_metrics(shares: Dict[str, torch.Tensor],
+                   replicated: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The global batch's metrics on every rank, in one all-reduce.
+    ``shares`` are this rank's shares (their sum over the ranks is the
+    metric), ``replicated`` the values every rank computed alike on the
+    global rows; a key in both is their sum.  Detached 0-dim tensors."""
+    replicated = replicated or {}
+    keys = sorted(set(shares) | set(replicated))
+    world = get_world_size()
+    parts = []
+    for k in keys:
+        v = torch.zeros(())
+        if k in shares:
+            v = shares[k].detach().to(torch.float32)
+        if k in replicated:
+            r = replicated[k].detach().to(torch.float32)
+            v = v + r / world
+        parts.append(v.reshape(()))
+    device = next((p.device for p in parts if p.device.type != "cpu"), parts[0].device)
+    total = all_reduce(torch.stack([p.to(device) for p in parts]))
+    return {k: total[i] for i, k in enumerate(keys)}
+
+
 def all_reduce_grads(parameters) -> None:
     """Sum every parameter's gradient over the ranks, in place.  Under the
     share rule the sum is the gradient of the global-batch mean.  Parameters
     without a gradient are left alone: every rank runs the same graph (a rank
-    with no rows too), so the set is the same on every rank."""
+    with no rows too), so the set is the same on every rank.  ``parameters``
+    may be an optimizer: its groups' parameters."""
     if not is_initialized():
         return
+    if isinstance(parameters, torch.optim.Optimizer):
+        parameters = [p for group in parameters.param_groups for p in group["params"]]
     grads = [p.grad for p in parameters if p.grad is not None]
     for group in _by_dtype_and_device(grads):
         flat = torch._utils._flatten_dense_tensors(group)
@@ -179,27 +302,43 @@ def _by_dtype_and_device(tensors):
 
 @dataclass(frozen=True)
 class Mesh:
-    """The port's description of the world: one ``data`` axis over the ranks
-    of the process group, this rank's place on it, and its device."""
+    """The port's description of the world: a ``data`` axis over the ranks
+    of the process group (and, in a ``(data, model)`` mesh, a ``model`` axis
+    of size 1), this rank's place on it, and its device."""
 
     world_size: int
     rank: int
     device: torch.device
+    axis_names: Tuple[str, ...] = (DATA_AXIS,)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.world_size}
+        return {name: self.world_size if name == DATA_AXIS else 1 for name in self.axis_names}
 
 
-def make_mesh(device="cuda", axis_names: Sequence[str] = (DATA_AXIS,)) -> Mesh:
+def make_mesh(device="cuda", axis_names: Sequence[str] = (DATA_AXIS,),
+              shape: Optional[Sequence[int]] = None) -> Mesh:
     """The world as it stands: the process group's ranks (one without a
     group) and this rank's device (``resolve_device``: a bare ``cuda`` is the
-    rank's own card).  Only the ``data`` axis is ported."""
+    rank's own card).
+
+    ``axis_names`` is ``(data,)`` or ``(data, model)``, and ``shape`` their
+    sizes, by default ``(world,)`` or ``(world, 1)`` as in the JAX package.
+    The ranks all lie on the data axis: the port splits no layer over ranks,
+    so a model axis larger than 1 raises."""
     from vqvae2_tpu_torch import resolve_device
 
-    if tuple(axis_names) != (DATA_AXIS,):
-        raise ValueError(f"only the {DATA_AXIS!r} axis is ported, got {tuple(axis_names)}")
-    return Mesh(get_world_size(), get_rank(), resolve_device(device))
+    names = tuple(axis_names)
+    if names not in ((DATA_AXIS,), (DATA_AXIS, MODEL_AXIS)):
+        raise ValueError(f"mesh axes must be ({DATA_AXIS!r},) or ({DATA_AXIS!r}, "
+                         f"{MODEL_AXIS!r}), got {names}")
+    world = get_world_size()
+    want = (world,) + (1,) * (len(names) - 1)
+    if shape is not None and tuple(int(n) for n in shape) != want:
+        raise ValueError(f"mesh shape {tuple(shape)} over axes {names}: a world of {world} "
+                         f"ranks lies on the {DATA_AXIS!r} axis, the {MODEL_AXIS!r} axis "
+                         f"is 1 (expected {want})")
+    return Mesh(world, get_rank(), resolve_device(device), names)
 
 
 def default_mesh() -> Mesh:
@@ -259,6 +398,16 @@ def shard_batch(batch, mesh: Optional[Mesh] = None, strict: bool = False):
     return _tree_map(take, batch)
 
 
+def local_batch(batch, device):
+    """This rank's rows (:func:`shard_batch`) of a global batch of numpy
+    arrays or tensors, as tensors on ``device``; a dict, list or tuple."""
+    def put(x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        return t.to(device)
+
+    return _tree_map(put, shard_batch(batch))
+
+
 def shard_microbatches(batch, mesh: Optional[Mesh] = None):
     """This rank's rows of an ``(accum, rows, ...)`` superbatch: dim 1 split
     as :func:`shard_batch` splits dim 0, the accumulation dim whole.  Rows that
@@ -297,6 +446,89 @@ def replicate(tree):
         for t, r in zip(group, torch._utils._unflatten_dense_tensors(flat, group)):
             t.copy_(r)
     return tree
+
+
+class ShardedParams:
+    """Parameters laid out as :func:`fsdp_shard` lays them: each large leaf
+    is owned in shards, one a rank, along one dim; the small ones whole on
+    every rank.
+
+    :meth:`parameters` are what an optimizer is built over: this rank's
+    shards of the large leaves (new leaf tensors) and the small leaves
+    themselves, so Adam's moments of a large leaf are sharded with it.
+    :meth:`step` takes a step: the gradients of the module's parameters are
+    summed over the ranks (:func:`all_reduce_grads`), each rank moves its
+    shards' gradients onto them and frees the whole gradients, the optimizer
+    updates what this rank owns, and every large leaf is put together again
+    on every rank (an all-reduce into zeros) for the next forward.  The
+    update is the replicated step's, element for element.  Without a group
+    every leaf is whole and :meth:`step` is ``optimizer.step()``."""
+
+    def __init__(self, params, mesh: Optional[Mesh] = None, min_size: int = 2 ** 16):
+        world, rank = (mesh.world_size, mesh.rank) if mesh else (get_world_size(), get_rank())
+        self.world, self.rank = world, rank
+        self.leaves = list(params)
+        self.spans: Dict[int, Tuple[int, int, int]] = {}     # leaf -> (dim, start, stop)
+        self._owned = []
+        for i, p in enumerate(self.leaves):
+            dims = [d for d in range(p.ndim) if p.shape[d] % world == 0]
+            if world == 1 or p.numel() < min_size or not dims:
+                self._owned.append(p)
+                continue
+            d = max(dims, key=lambda k: p.shape[k])
+            size = p.shape[d] // world
+            self.spans[i] = (d, rank * size, (rank + 1) * size)
+            shard = p.detach().narrow(d, rank * size, size).clone()
+            self._owned.append(shard.requires_grad_(p.requires_grad))
+
+    def parameters(self):
+        return list(self._owned)
+
+    def shard_of(self, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``leaf`` (the leaf itself when it is whole)."""
+        for i, p in enumerate(self.leaves):
+            if p is leaf:
+                return self._owned[i]
+        raise KeyError("not a leaf of these parameters")
+
+    def step(self, optimizer: torch.optim.Optimizer) -> None:
+        all_reduce_grads(self.leaves)
+        for i, (d, start, stop) in self.spans.items():
+            p, shard = self.leaves[i], self._owned[i]
+            shard.grad = None if p.grad is None else p.grad.narrow(d, start, stop - start).clone()
+            p.grad = None
+        optimizer.step()
+        self.gather()
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """Put every sharded leaf together on every rank from the ranks'
+        shards."""
+        for i, (d, start, stop) in self.spans.items():
+            p = self.leaves[i]
+            buf = torch.zeros_like(p)
+            buf.narrow(d, start, stop - start).copy_(self._owned[i])
+            p.copy_(all_reduce(buf))
+
+
+def fsdp_shard(module_or_tree, mesh: Optional[Mesh] = None, axis: str = DATA_AXIS,
+               min_size: int = 2 ** 16) -> ShardedParams:
+    """FSDP-style parameter sharding (``vqvae2_tpu.parallel.fsdp_shard``):
+    every leaf of at least ``min_size`` elements is sharded over ``axis``
+    along its largest dim that divides evenly; smaller leaves, and leaves with
+    no such dim, stay whole on every rank.  Takes a module (its parameters) or
+    a tree of tensors and returns the :class:`ShardedParams` that own them:
+    build the optimizer over its ``parameters()`` and step it with its
+    ``step(optimizer)``.  The step is the replicated step's."""
+    if axis != DATA_AXIS:
+        raise ValueError(f"the port shards over the {DATA_AXIS!r} axis, got {axis!r}")
+    if isinstance(module_or_tree, torch.nn.Module):
+        leaves = list(module_or_tree.parameters())
+    else:
+        leaves = []
+        _tree_map(lambda t: leaves.append(t) if isinstance(t, torch.Tensor) else None,
+                  module_or_tree)
+    return ShardedParams(leaves, mesh, min_size)
 
 
 def data_sampler(dataset_len: int, shuffle: bool, seed: int = 0) -> np.ndarray:

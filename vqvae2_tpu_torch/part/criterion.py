@@ -8,6 +8,15 @@ consistency).  Logits are ``(B, H, W, C)``, labels ``(B, H, W)``.
 
 Masked minima are ``torch.amin`` and bounds ``torch.maximum``: their
 gradients share ties evenly, as JAX's do.
+
+Under a process group (``parallel``) the pixel losses are over the global
+batch, the ranks' rows together: every count a loss is normalised by (the
+valid pixels, the class weights, the edge pixels) is summed over the ranks,
+detached, before the division, and the Lovasz term runs on the global pixels
+(``lovasz.py``).  Each of these losses then returns this rank's share of the
+global value: the ranks' values sum to it, and the sum of their gradients is
+its gradient.  :func:`contrastive_loss` pairs rows: it is given the global
+rows (``parallel.gather_batch``).
 """
 
 from __future__ import annotations
@@ -17,9 +26,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch.part.lovasz import lovasz_softmax
 
 IGNORE = 255
+
+
+def _global_count(t: torch.Tensor) -> torch.Tensor:
+    """A count (or sum of weights) over every rank's pixels, detached."""
+    return par.all_reduce(t.detach())
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore: int = IGNORE,
@@ -36,7 +51,7 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore: int
         w = class_weights[lab_safe] * valid
     else:
         w = valid.to(ce.dtype)
-    return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1e-12)
+    return torch.sum(ce * w) / torch.clamp(_global_count(torch.sum(w)), min=1e-12)
 
 
 def generate_edge(label: torch.Tensor, edge_width: int = 3) -> torch.Tensor:
@@ -74,7 +89,7 @@ def consistency_loss(parsing_logits: torch.Tensor, edge_logits: torch.Tensor,
     pos_union = (gen_edge == 1) & (edge_pred == 1) & valid
     diff = gen_edge - edge_pred
     sl1 = torch.where(torch.abs(diff) < 1.0, 0.5 * diff * diff, torch.abs(diff) - 0.5)
-    denom = torch.sum(pos_union)
+    denom = _global_count(torch.sum(pos_union))
     loss = torch.sum(sl1 * pos_union) / torch.clamp(denom, min=1).to(sl1.dtype)
     return torch.where(denom > 0, loss, torch.zeros_like(loss))
 
@@ -87,7 +102,7 @@ def kl_divergence_loss(student_logits: torch.Tensor, teacher_logits: torch.Tenso
     q = torch.softmax(teacher_logits.reshape(-1, c) / T, dim=-1)
     valid = (label.reshape(-1) != ignore).to(logp.dtype)
     kl = torch.sum(q * (torch.log(torch.clamp(q, min=1e-12)) - logp), dim=-1)
-    return T * T * torch.sum(kl * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return T * T * torch.sum(kl * valid) / torch.clamp(_global_count(torch.sum(valid)), min=1.0)
 
 
 def _resize_logits(logits: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -99,13 +114,15 @@ def _resize_logits(logits: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 def criterion_all(preds_parsing: Sequence[torch.Tensor], preds_edge: Sequence[torch.Tensor],
                   target_parsing: torch.Tensor, target_edge: torch.Tensor,
                   lambda_1: float = 1.0, lambda_2: float = 1.0, lambda_3: float = 0.1,
-                  ignore: int = IGNORE) -> torch.Tensor:
+                  ignore: int = IGNORE, groups: int = 1,
+                  rows: Optional[int] = None) -> torch.Tensor:
     """Sum over the parsing heads of ``lambda_1 / 2 * (Lovasz + CE)`` at full
     resolution, ``lambda_2`` times the class-balanced edge CE, and
-    ``lambda_3`` times the consistency term."""
+    ``lambda_3`` times the consistency term.  ``groups`` and ``rows`` say
+    how a rank's rows lie in the global batch (``lovasz_softmax``)."""
     h, w = target_parsing.shape[1:3]
-    pos = torch.sum(target_edge == 1).to(torch.float32)
-    neg = torch.sum(target_edge == 0).to(torch.float32)
+    counts = torch.stack([torch.sum(target_edge == 1), torch.sum(target_edge == 0)])
+    pos, neg = _global_count(counts).to(torch.float32)
     tot = torch.clamp(pos + neg, min=1.0)
     edge_weights = torch.stack([pos / tot, neg / tot])
 
@@ -114,7 +131,8 @@ def criterion_all(preds_parsing: Sequence[torch.Tensor], preds_edge: Sequence[to
     scaled_edge = [_resize_logits(pe, (h, w)) for pe in preds_edge]
     for sp in scaled_parsing:
         loss = loss + 0.5 * lambda_1 * (
-            lovasz_softmax(torch.softmax(sp, dim=-1), target_parsing, ignore=ignore)
+            lovasz_softmax(torch.softmax(sp, dim=-1), target_parsing, ignore=ignore,
+                           groups=groups, rows=rows)
             + masked_cross_entropy(sp, target_parsing, ignore=ignore))
     for se in scaled_edge:
         loss = loss + lambda_2 * masked_cross_entropy(se, target_edge, ignore=ignore,

@@ -18,6 +18,15 @@ Per batch, as the JAX package's step:
 
 ``--sched cycle`` gives the generator the 1-cycle Adam.
 
+Data parallel (``parallel``): a step takes the global P×K batch and each rank
+its rows.  The batch norms and the quantizers' EMA take the global batch's
+statistics; the triplet, the within-identity variance and the per-identity
+mean features run on the global features (``gather_batch``); every other
+term is this rank's share of a mean over the rows.  So a world of N ranks
+takes the single-process step.  ``run_synthetic`` runs a trainer through
+``parallel.launch``; logs, samples and checkpoint files come from the
+primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.adaptive --synthetic [flags]``.  The
 device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
@@ -86,20 +96,29 @@ def create_state(model: torch.nn.Module, tx_reid: schedules.AdamSchedule,
 def make_train_step(model: ModelAdaptive, tx_reid: schedules.AdamSchedule,
                     tx_gen: schedules.AdamSchedule, num_pos: int):
     """Returns ``train_step(state, batch) -> (state, (metrics, rgb_fake,
-    ir_fake))``; ``batch`` holds ``rgb``, ``ir`` ``(B, H, W, 3)`` and ``label``
-    ``(B,)`` on the model's device."""
+    ir_fake))``; ``batch`` holds the global batch's ``rgb``, ``ir`` ``(B, H,
+    W, 3)`` and ``label`` ``(B,)`` (numpy arrays or tensors, host or device),
+    of which this rank takes its rows.  The metrics are the global batch's;
+    the images this rank's rows'."""
+    device = next(model.parameters()).device
 
     def train_step(state: AdaptiveState, batch: Dict[str, torch.Tensor]):
-        img1, img2, label = batch["rgb"], batch["ir"], batch["label"].long()
-        n = label.shape[0] // num_pos
+        rows = batch["label"].shape[0]
+        local = par.local_batch(batch, device)
+        img1, img2, label = local["rgb"], local["ir"], local["label"].long()
+        label_all = torch.as_tensor(batch["label"]).to(device).long()
+        n = rows // num_pos
+        ce = lambda s, y: par.share_mean(F.cross_entropy(s, y, reduction="none"), rows)  # noqa
 
         state.opt_reid.zero_grad(set_to_none=True)
         with mode(model.person_id, True):
             feat, score = model.person_id(xIR=img2, modal=2)
-        grp = feat.reshape(n, num_pos, -1)
-        loss_re = (F.cross_entropy(score, label) + L.triplet_loss(feat, label)[0]
-                   + grp.var(dim=1, correction=0).mean())
-        loss_re.backward()
+        grp = par.gather_batch(feat, rows).reshape(n, num_pos, -1)
+        pair_re = L.triplet_loss(grp.reshape(rows, -1), label_all)[0] \
+            + grp.var(dim=1, correction=0).mean()
+        ce_re = ce(score, label)
+        (ce_re + pair_re).backward()
+        par.all_reduce_grads(state.opt_reid)
         tx_reid.apply(state.opt_reid, state.step)
         state.opt_reid.step()
         mean_feat, score_real = grp.mean(dim=1).detach(), score.detach()
@@ -109,22 +128,26 @@ def make_train_step(model: ModelAdaptive, tx_reid: schedules.AdamSchedule,
         with frozen(model.person_id), mode(model.person_id, False):
             feat_fake, score_fake, *_ = model.person_id(
                 xIR=ir_fake.repeat(1, 1, 1, 3), modal=2, with_feature=True)
-        mean_fake = feat_fake.reshape(n, num_pos, -1).mean(dim=1)
-        loss_id_fake = F.cross_entropy(score_fake, label)
+        mean_fake = par.gather_batch(feat_fake, rows).reshape(n, num_pos, -1).mean(dim=1)
+        loss_id_fake = ce(score_fake, label)
         logp = torch.log_softmax(score_fake, dim=-1)
         q = torch.softmax(score_real, dim=-1)
-        loss_kl = 100.0 * torch.mean(q * (torch.log(torch.clamp(q, min=1e-12)) - logp))
+        loss_kl = 100.0 * par.share_mean(q * (torch.log(torch.clamp(q, min=1e-12)) - logp),
+                                         rows)
         feat_loss = torch.mean(torch.square(mean_feat - mean_fake))
-        recon = torch.mean(torch.square(rgb_fake - img1))
-        loss = recon + LATENT_LOSS_WEIGHT * latent + loss_id_fake + feat_loss + loss_kl
-        loss.backward()
+        recon = par.share_mean(torch.square(rgb_fake - img1), rows)
+        latent = latent * (img1.shape[0] / rows)
+        shares = recon + LATENT_LOSS_WEIGHT * latent + loss_id_fake + loss_kl
+        (shares + feat_loss).backward()
+        par.all_reduce_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
         state.step += 1
-        metrics = {"mse": recon, "latent": latent, "id_fake": loss_id_fake, "kl_fake": loss_kl,
-                   "feat": feat_loss, "loss_gen": loss, "loss_reid": loss_re}
-        return state, ({k: v.detach() for k, v in metrics.items()}, rgb_fake.detach(),
-                       ir_fake.detach())
+        metrics = par.global_metrics(
+            {"mse": recon, "latent": latent, "id_fake": loss_id_fake, "kl_fake": loss_kl,
+             "loss_gen": shares, "loss_reid": ce_re},
+            {"feat": feat_loss, "loss_gen": feat_loss, "loss_reid": pair_re})
+        return state, (metrics, rgb_fake.detach(), ir_fake.detach())
 
     return train_step
 
@@ -156,27 +179,30 @@ def train(args) -> Dict[str, float]:
     tx_gen = (schedules.cycle_adam(args.lr, total_steps) if args.sched == "cycle"
               else schedules.adam(args.lr))
     state = create_state(model, tx_reid, tx_gen)
+    par.replicate(state.model)
     step_fn = make_train_step(model, tx_reid, tx_gen, args.num_pos)
 
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
-    csv = CsvLogger(args.metrics_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
     n_done, m, t0 = 0, {}, time.perf_counter()
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = sysu_batch(rows, device)
+            batch = sysu_batch(rows, "cpu")          # the global batch, on the host
             state, (metrics, rgb_fake, ir_fake) = step_fn(state, batch)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} mse {m['mse']:.5f} lat {m['latent']:.3f} "
-                      f"id_fake {m['id_fake']:.3f} reid {m['loss_reid']:.3f} "
-                      f"({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if args.sample_every and n_done % args.sample_every == 0:
-                # sample grid: rgb | fake rgb | real ir | fake ir
-                k = min(8, len(rows))
+                m = par.reduce_dict(metrics)
+                if primary:
+                    rate = n_done * loader_batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} mse {m['mse']:.5f} "
+                          f"lat {m['latent']:.3f} id_fake {m['id_fake']:.3f} "
+                          f"reid {m['loss_reid']:.3f} ({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if args.sample_every and n_done % args.sample_every == 0 and primary:
+                # sample grid: rgb | fake rgb | real ir | fake ir (the primary's rows)
+                k = min(8, rgb_fake.shape[0])
                 host = lambda t: t[:k].cpu().numpy()    # noqa: E731
                 grid = np.concatenate([host(batch["rgb"]), host(rgb_fake), host(batch["ir"]),
                                        np.repeat(host(ir_fake), 3, -1)], axis=0)
@@ -217,8 +243,13 @@ def build_argparser():
 
 def run_synthetic(train_fn, args, hw=(96, 48)):
     """``train_fn(args)`` on ``--path``, or on a synthetic SYSU tree of
-    ``hw`` (96x48) images with ``--synthetic``."""
+    ``hw`` (96x48) images with ``--synthetic``, through ``parallel.launch``
+    (each rank writes the same tree from the same seed)."""
     resolve_device(args.device)
+    return par.launch(_on_path, train_fn, args, hw, device=args.device)
+
+
+def _on_path(train_fn, args, hw):
     if not args.synthetic:
         return train_fn(args)
     with tempfile.TemporaryDirectory(prefix="sysu_syn_") as tmp:

@@ -11,6 +11,14 @@ schedule's rate into the optimizer, ``optimizer.step()``.  Evaluation runs
 the eval-mode forward, box decoding and softmax on the device, then the
 per-class NMS and the top ``max_det`` on the host.
 
+Data parallel (``parallel``): a step takes the global batch and each rank its
+images (``shard_batch``); the batch norms take the global batch's moments,
+the rank backpropagates its share of the mean over the images, and the
+gradients are summed over the ranks, so a world of N ranks takes the
+single-process step.  Target matching stays per image.  ``main`` runs
+``train`` through ``parallel.launch``; logs and evaluation (NMS and AP on the
+host, the model in eval mode, no collective) come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.detection --synthetic --steps 10``.
 The device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.detection import boxes as B
 from vqvae2_tpu_torch.detection.coco_eval import evaluate_detections
@@ -49,28 +58,30 @@ def create_state(model: SSD300, tx: schedules.SGDSchedule) -> DetState:
     return DetState(step=0, model=model.train(), optimizer=tx.build(model.parameters()))
 
 
-def to_device(arrays, device):
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
-
-
 def make_train_step(model: SSD300, tx: schedules.SGDSchedule, dboxes: np.ndarray):
     """Returns ``train_step(state, imgs, gt_boxes, gt_labels) -> (state,
-    loss)`` on device tensors; the loss is a 0-dim tensor."""
+    loss)``: the global batch (numpy arrays or tensors, host or device), of
+    which this rank takes its images; the loss is the global batch's, a
+    0-dim tensor."""
     device = next(model.parameters()).device
     db = torch.from_numpy(np.asarray(dboxes, np.float32)).to(device)
     db_ltrb = B.ltrb_from_cxcywh(db)
 
     def train_step(state: DetState, imgs, gt_boxes, gt_labels):
+        rows = imgs.shape[0]
+        imgs, gt_boxes, gt_labels = par.local_batch((imgs, gt_boxes, gt_labels), device)
         state.optimizer.zero_grad(set_to_none=True)
         loc, conf = model(imgs)
         loc_t, cls_t = B.encode_targets(gt_boxes, gt_labels, db_ltrb, db)
-        loss = B.multibox_loss(loc, conf, loc_t, cls_t)
+        loss = par.share_mean(B.multibox_loss(loc, conf, loc_t, cls_t, reduction="none"), rows)
         loss.backward()
+        par.all_reduce_grads(model.parameters())
+        loss = par.all_reduce(loss.detach())
         schedules.fill_missing_grads(state.optimizer)
         tx.apply(state.optimizer, state.step)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return train_step
 
@@ -143,30 +154,33 @@ def train(args) -> Dict[str, float]:
         from vqvae2_tpu_torch.models.resnet import import_torchvision_resnet
 
         n = import_torchvision_resnet(model, args.pretrained)
-        print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
+        if par.is_primary():
+            print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
     tx = make_optimizer(args.lr, total_steps)
     dboxes = B.default_boxes_ssd300(fig_size=args.size)
     state = create_state(model, tx)
+    par.replicate(state.model)
     step_fn = make_train_step(model, tx, dboxes)
 
-    csv = CsvLogger(args.metrics_csv)
-    map_csv = CsvLogger(args.map_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
+    map_csv = CsvLogger(args.map_csv if primary else "")
     n_done, t0 = 0, time.perf_counter()
     loss = float("nan")
     while n_done < total_steps:
         for imgs, gt_boxes, gt_labels, _ in dataset.batches(args.batch_size,
                                                              seed=args.seed + n_done):
-            state, loss_dev = step_fn(state, *to_device((imgs, gt_boxes, gt_labels), device))
+            state, loss_dev = step_fn(state, imgs, gt_boxes, gt_labels)
             n_done += 1
-            loss = float(loss_dev)
+            loss = float(loss_dev)          # the global batch's: every rank stops alike
             if not math.isfinite(loss):
                 raise SystemExit(f"Loss is {loss}, stopping training")
-            if n_done % args.log_every == 0:
+            if n_done % args.log_every == 0 and primary:
                 rate = n_done * args.batch_size / (time.perf_counter() - t0)
                 print(f"step {n_done}/{total_steps} loss {loss:.4f} ({rate:.1f} img/s)",
                       flush=True)
                 csv.log(n_done, {"loss": loss, "img_per_s": rate})
-            if args.eval_every and n_done % args.eval_every == 0:
+            if args.eval_every and n_done % args.eval_every == 0 and primary:
                 ev = evaluate(model, state, dataset, dboxes, batch_size=args.batch_size)
                 map_csv.log(n_done, {k: v for k, v in ev.items()
                                      if not k.startswith("AP50_class")})
@@ -176,7 +190,7 @@ def train(args) -> Dict[str, float]:
                 break
 
     metrics = {"loss": loss}
-    if args.eval:
+    if args.eval and primary:
         metrics.update(evaluate(model, state, dataset, dboxes, batch_size=args.batch_size,
                                 viz_dir=args.viz_dir))
         print({k: round(v, 4) for k, v in metrics.items()
@@ -216,11 +230,17 @@ def build_argparser():
 def run_synthetic(train_fn, args, **synthetic):
     """``train_fn(args)`` on ``--img_dir``/``--ann_file``, or on a synthetic
     COCO set at ``--size`` written to a temporary directory with
-    ``--synthetic``.  The device is resolved first: without it nothing is
-    written."""
+    ``--synthetic``, through ``parallel.launch``.  The device is resolved
+    first: without it nothing is written."""
     resolve_device(args.device)
     if not args.synthetic:
-        return train_fn(args)
+        return par.launch(train_fn, args, device=args.device)
+    return par.launch(_on_synthetic_coco, train_fn, args, synthetic, device=args.device)
+
+
+def _on_synthetic_coco(train_fn, args, synthetic):
+    """``train_fn(args)`` on a synthetic COCO set in a temporary directory
+    (each rank writes the same set from the same seed)."""
     with tempfile.TemporaryDirectory(prefix="coco_syn_") as tmp:
         args.img_dir, args.ann_file = make_synthetic_coco(tmp, size=args.size, **synthetic)
         return train_fn(args)

@@ -10,6 +10,14 @@ instances by a random non-zero offset (:func:`other_instance_ids`, a numpy
 draw from ``--seed``, bit-equal to the JAX package's).  The model has no IR
 decoder: flax never creates one for this trainer.
 
+Data parallel (``parallel``): a step takes the global batch and each rank its
+rows; the other instance's image of each row comes from the global batch on
+the host, the quantizers' EMA and the batch norms take the global batch's
+statistics, and every term is this rank's share of a mean over the rows, so
+a world of N ranks takes the single-process step.  ``main`` runs ``train``
+through ``parallel.launch``; logs, samples and checkpoint files come from the
+primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.gray2color --synthetic [flags]``.  The
 device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -23,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
@@ -37,11 +46,12 @@ from vqvae2_tpu_torch.utils.metrics import CsvLogger
 LATENT_LOSS_WEIGHT = 0.25
 
 
-def forward(model: ModelAdaptive, img1: torch.Tensor, img2: torch.Tensor, ids: torch.Tensor):
+def forward(model: ModelAdaptive, img1: torch.Tensor, img2: torch.Tensor,
+            img1_other: torch.Tensor):
     """The generator pass (four statistics-kernel launches: two encodes, two
-    codebooks each)."""
+    codebooks each); ``img1_other`` holds each row's other instance."""
     feat2d = model.encode_style(img1)
-    feat2d_other = model.encode_style(img1[ids])
+    feat2d_other = model.encode_style(img1_other)
     gray = img2
     rgb_content, latent = model.encode_content(img1, train=True)
     rgb_reconst = model.decode(rgb_content)
@@ -56,24 +66,34 @@ def forward(model: ModelAdaptive, img1: torch.Tensor, img2: torch.Tensor, ids: t
 
 def make_train_step(model: ModelAdaptive, tx: schedules.AdamSchedule):
     """Returns ``train_step(state, batch, ids) -> (state, (metrics, (recon,
-    fake, fake_other)))``."""
+    fake, fake_other)))``: ``batch`` is the global batch (numpy arrays or
+    tensors, host or device), of which this rank takes its rows, and ``ids``
+    each row's other instance among the global rows.  The metrics are the
+    global batch's; the images this rank's rows'."""
+    device = next(model.parameters()).device
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], ids: torch.Tensor):
+        rows = batch["rgb"].shape[0]
         state.optimizer.zero_grad(set_to_none=True)
-        img1 = batch["rgb"]
+        local = par.local_batch({"rgb": batch["rgb"], "ir": batch["ir"],
+                                 "other": torch.as_tensor(batch["rgb"])[
+                                     torch.as_tensor(ids).cpu()]}, device)
+        img1 = local["rgb"]
         (rgb_content, rgb_reconst, gray_itself, gray_other, rgb_fake, rgb_fake_other,
-         latent) = forward(model, img1, batch["ir"], ids)
-        mse = lambda a, b: torch.mean(torch.square(a - b))      # noqa: E731
+         latent) = forward(model, img1, local["ir"], local["other"])
+        mse = lambda a, b: par.share_mean(torch.square(a - b), rows)      # noqa: E731
         recon = mse(rgb_reconst, img1) + mse(rgb_fake, img1) + mse(rgb_fake_other, img1)
         recon_feat = mse(gray_itself, rgb_content) + mse(gray_other, rgb_content)
+        latent = latent * (img1.shape[0] / rows)
         loss = recon_feat + recon + LATENT_LOSS_WEIGHT * latent
         loss.backward()
+        par.all_reduce_grads(state.optimizer)
         tx.apply(state.optimizer, state.step)
         state.optimizer.step()
         state.step += 1
         metrics = {"loss": loss, "recon": recon, "recon_feat": recon_feat, "latent": latent}
         images = tuple(t.detach() for t in (rgb_reconst, rgb_fake, rgb_fake_other))
-        return state, ({k: v.detach() for k, v in metrics.items()}, images)
+        return state, (par.global_metrics(metrics), images)
 
     return train_step
 
@@ -102,33 +122,37 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     step_fn = make_train_step(model, tx)
     host_rng = np.random.default_rng(args.seed)
 
-    csv = CsvLogger(args.metrics_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
     n_done, m, t0 = 0, {}, time.perf_counter()
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = sysu_batch(rows, device)
+            batch = sysu_batch(rows, "cpu")          # the global batch, on the host
             ids = torch.from_numpy(other_instance_ids(args.batch_size, args.num_pos,
-                                                      host_rng)).to(device)
+                                                      host_rng))
             state, (metrics, images) = step_fn(state, batch, ids)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} loss {m['loss']:.4f} "
-                      f"recon {m['recon']:.4f} latent {m['latent']:.4f} ({rate:.1f} img/s)",
-                      flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if args.sample_every and n_done % args.sample_every == 0:
+                m = par.reduce_dict(metrics)
+                if primary:
+                    rate = n_done * loader_batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} loss {m['loss']:.4f} "
+                          f"recon {m['recon']:.4f} latent {m['latent']:.4f} "
+                          f"({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if args.sample_every and n_done % args.sample_every == 0 and primary:
                 # grid: rgb | ir | rgb recon | colorized | colorized with the
-                # other instance's style
-                k = min(8, len(rows))
+                # other instance's style (the primary's rows)
+                k = min(8, images[0].shape[0])
                 host = [t[:k].cpu().numpy() for t in (batch["rgb"], batch["ir"], *images)]
                 save_image(np.concatenate(host, axis=0),
                            f"{args.sample_dir}/{n_done:05d}.png", nrow=k,

@@ -14,6 +14,14 @@ detections that overlap a ground truth.  A 28x28 mask is pasted into its box
 by bilinear resizing with half-pixel centres (``F.interpolate(...,
 align_corners=False)``, what ``cv2.resize`` computes).
 
+Data parallel (``parallel``): a step takes the global batch and each rank its
+images (``shard_batch``); the batch norms take the global batch's moments,
+the loss's counts (valid and positive anchors, positive and negative RoIs)
+are summed over the ranks, and the gradients too, so a world of N ranks takes
+the single-process step.  Proposals, RoI targets and mask crops stay per
+image.  ``main`` runs ``train`` through ``parallel.launch``; logs and
+evaluation come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.maskrcnn --synthetic --steps 10``
 (``--size 64 --anchor_sizes 8,16,32`` for a small run).  The device defaults
 to ``cuda``; ``--device cpu`` asks for the CPU.
@@ -30,12 +38,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.detection import boxes as B
 from vqvae2_tpu_torch.detection import mask_rcnn as M
 from vqvae2_tpu_torch.detection.coco_eval import evaluate_detections, evaluate_segmentations
 from vqvae2_tpu_torch.detection.data import CocoDetectionDataset
-from vqvae2_tpu_torch.train.detection import run_synthetic, to_device
+from vqvae2_tpu_torch.train.detection import run_synthetic
 from vqvae2_tpu_torch.train.vqvae import TrainState
 from vqvae2_tpu_torch.utils import schedules
 from vqvae2_tpu_torch.utils.metrics import CsvLogger
@@ -49,11 +58,15 @@ def create_state(model: M.MaskRCNN, tx: schedules.AdamSchedule) -> MRState:
 
 def make_train_step(model: M.MaskRCNN, tx: schedules.AdamSchedule, anchors: np.ndarray):
     """Returns ``train_step(state, imgs, gt_boxes, gt_labels, gt_masks) ->
-    (state, metrics)`` on device tensors; the metrics are 0-dim tensors."""
+    (state, metrics)``: the global batch (numpy arrays or tensors, host or
+    device), of which this rank takes its images; the metrics are the global
+    batch's, 0-dim tensors."""
     device = next(model.parameters()).device
     anchors_t = torch.from_numpy(np.asarray(anchors, np.float32)).to(device)
 
     def train_step(state: MRState, imgs, gt_boxes, gt_labels, gt_masks):
+        imgs, gt_boxes, gt_labels, gt_masks = par.local_batch(
+            (imgs, gt_boxes, gt_labels, gt_masks), device)
         state.optimizer.zero_grad(set_to_none=True)
         rpn_obj, rpn_reg, p2 = model(imgs)
         obj_t, delta_t = M.rpn_targets(anchors_t, gt_boxes, gt_labels)
@@ -68,11 +81,12 @@ def make_train_step(model: M.MaskRCNN, tx: schedules.AdamSchedule, anchors: np.n
         total, metrics = M.mask_rcnn_loss(rpn_obj, rpn_reg, obj_t, delta_t, roi_cls, roi_reg,
                                           roi_labels, roi_deltas, mask_logits, mask_t)
         total.backward()
+        par.all_reduce_grads(model.parameters())
         schedules.fill_missing_grads(state.optimizer)
         tx.apply(state.optimizer, state.step)
         state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, par.global_metrics(metrics)
 
     return train_step
 
@@ -216,30 +230,33 @@ def train(args) -> Dict[str, float]:
         from vqvae2_tpu_torch.models.resnet import import_torchvision_resnet
 
         n = import_torchvision_resnet(model, args.pretrained)
-        print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
+        if par.is_primary():
+            print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
     state = create_state(model, tx)
+    par.replicate(state.model)
     step_fn = make_train_step(model, tx, anchors)
 
-    csv = CsvLogger(args.metrics_csv)
-    map_csv = CsvLogger(args.map_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
+    map_csv = CsvLogger(args.map_csv if primary else "")
     n_done, t0, m = 0, time.perf_counter(), {}
     while n_done < total_steps:
         for imgs, gt_boxes, gt_labels, _, gt_masks in dataset.batches(
                 args.batch_size, seed=args.seed + n_done, with_masks=True):
-            state, metrics = step_fn(state, *to_device((imgs, gt_boxes, gt_labels, gt_masks),
-                                                        device))
+            state, metrics = step_fn(state, imgs, gt_boxes, gt_labels, gt_masks)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = par.reduce_dict(metrics)
                 if not math.isfinite(m["loss"]):
                     raise SystemExit(f"Loss is {m['loss']}, stopping")
-                rate = n_done * args.batch_size / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} loss {m['loss']:.3f} "
-                      f"rpn {m['rpn_cls']:.3f}/{m['rpn_reg']:.3f} "
-                      f"roi {m['roi_cls']:.3f}/{m['roi_reg']:.3f} "
-                      f"mask {m['mask']:.3f} ({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if args.eval_every and n_done % args.eval_every == 0:
+                if primary:
+                    rate = n_done * args.batch_size / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} loss {m['loss']:.3f} "
+                          f"rpn {m['rpn_cls']:.3f}/{m['rpn_reg']:.3f} "
+                          f"roi {m['roi_cls']:.3f}/{m['roi_reg']:.3f} "
+                          f"mask {m['mask']:.3f} ({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if args.eval_every and n_done % args.eval_every == 0 and primary:
                 ev = evaluate_instances(model, state, dataset, anchors,
                                         batch_size=args.batch_size)
                 row = {k: float(v) for k, v in ev.items() if not k.startswith("AP50_class")}
@@ -249,7 +266,7 @@ def train(args) -> Dict[str, float]:
             if n_done >= total_steps:
                 break
 
-    if args.eval:
+    if args.eval and primary:
         m.update(evaluate_instances(model, state, dataset, anchors, batch_size=args.batch_size,
                                     viz_dir=args.viz_dir))
         print({k: round(float(v), 4) for k, v in m.items()

@@ -20,6 +20,18 @@ step_generator``).  On the card the thirteen in-place ABNs of each forward run
 the hand-written forward kernel, and their backward the hand-written backward
 kernels.
 
+Data parallel (``parallel``): a step takes the global P×K batch and each rank
+its rows of each modality (``shard_batch``, each microbatch's under
+``--grad_accum``), so the model's forward holds ``[rgb_r; ir_r; gray_r]``.
+The batch norms and ABNs take the global batch's moments, the dropout draws
+the global batch's mask and keeps this rank's rows, the parsing criterion
+normalises by global counts and sorts the global pixels for the Lovasz term,
+and the terms that pair rows (the triplets, the part InfoNCE over the
+regrouped identities) run on the global rows (``gather_batch``), so a world
+of N ranks takes the single-process step.  ``main`` runs ``train`` through
+``parallel.launch``; logs, samples, validation and checkpoint files come from
+the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.reid --synthetic [flags]``.  The device
 defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -37,10 +49,12 @@ import torch
 import torch.nn.functional as F
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
 from vqvae2_tpu_torch.part import criterion as C
+from vqvae2_tpu_torch.models.pixelsnail import batch_rows
 from vqvae2_tpu_torch.part.part_model import EmbedNet2, _resize
 from vqvae2_tpu_torch.train.pixelsnail import step_generator
 from vqvae2_tpu_torch.train.vqvae import TrainState
@@ -94,21 +108,29 @@ def create_state(model: EmbedNet2, tx: MultiStepSGD) -> TrainState:
 
 
 def make_loss_fn(model: EmbedNet2, num_pos: int, batch_ids: int, img_hw=(IMG_H, IMG_W)):
-    """The full ReID + part-parsing objective as ``loss_fn(batch, generator)
-    -> (total, metrics)``: ``batch`` holds ``rgb``, ``ir``, ``gray``
-    ``(B, H, W, 3)``, ``label`` ``(B,)`` and ``part1``, ``part2`` ``(B, H, W)``
-    on the model's device; the metrics are 0-dim tensors."""
+    """The full ReID + part-parsing objective as ``loss_fn(batch, generator,
+    rows=None) -> (objective, metrics)``: ``batch`` holds ``rgb``, ``ir``,
+    ``gray`` ``(B, H, W, 3)``, ``label`` ``(B,)`` and ``part1``, ``part2``
+    ``(B, H, W)`` on the model's device: this rank's rows of a global batch
+    of ``rows`` (all of it without a group).  ``objective`` is what this rank
+    backpropagates: its share of the terms per row and of the pixel losses,
+    and the terms that pair rows whole, on the global rows.  The metrics are
+    the global batch's, 0-dim tensors."""
     n_part = model.part_num - 1
 
-    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
-        out = model(xRGB=batch["rgb"], xIR=batch["ir"], xZ=batch["gray"], modal=0,
-                    generator=generator)
+    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+                rows: Optional[int] = None):
+        labels1 = batch["label"].to(torch.int64)
+        rows = labels1.shape[0] if rows is None else rows
+        start = par.shard_rows(rows)[0]
+        with batch_rows(start, rows, groups=3):
+            out = model(xRGB=batch["rgb"], xIR=batch["ir"], xZ=batch["gray"], modal=0,
+                        generator=generator)
         # bf16 compute stops at the model's boundary: every loss runs in fp32
         out = _widened(out)
         (feat, score, part_preds, _, parts_feat_x3, parts_feat, part_masks, parts_score,
          feats_p, score_p) = out
 
-        labels1 = batch["label"].to(torch.int64)
         labels = torch.cat([labels1, labels1, labels1])
         part_labels = torch.cat([batch["part1"], batch["part2"], batch["part1"]]).to(torch.int64)
 
@@ -119,9 +141,12 @@ def make_loss_fn(model: EmbedNet2, num_pos: int, batch_ids: int, img_hw=(IMG_H, 
         gated = torch.where(good, part_labels, ignore)
         edges = torch.where(good, C.generate_edge(gated).to(torch.int64), ignore)
         (parsing, fusion), (edge_pred,) = part_preds[0], part_preds[1]
-        part_loss = C.criterion_all([parsing, fusion], [edge_pred], gated, edges)
+        part_loss = C.criterion_all([parsing, fusion], [edge_pred], gated, edges, groups=3,
+                                    rows=rows)
 
-        # part-wise InfoNCE over three rearrangements
+        # the terms that pair rows, on the global rows in the global order
+        gather = lambda t: par.gather_batch(t, rows, groups=3)        # noqa: E731
+        feat_all, labels_all = gather(feat), par.gather_batch(labels1, rows)
         m = 3
 
         def regroup(x):  # '(m n p) ... -> n (p m) ...'
@@ -130,29 +155,37 @@ def make_loss_fn(model: EmbedNet2, num_pos: int, batch_ids: int, img_hw=(IMG_H, 
                     .permute(1, 2, 0, *range(3, 3 + len(rest)))
                     .reshape(batch_ids, num_pos * m, *rest))
 
-        f_p = regroup(feats_p)
-        f2 = regroup(parts_feat)
+        # part-wise InfoNCE over three rearrangements
+        f_p = regroup(gather(feats_p))
+        f2 = regroup(gather(parts_feat))
+        x3 = gather(parts_feat_x3)
         cont2 = sum(C.contrastive_loss(f2[i]) for i in range(batch_ids)) / batch_ids
         cont3 = C.contrastive_loss(f_p.permute(1, 0, 2))
-        unsup_part = C.contrastive_loss(
-            parts_feat_x3.reshape(parts_feat_x3.shape[0], n_part, -1)) + cont2 + cont3
+        unsup_part = C.contrastive_loss(x3.reshape(x3.shape[0], n_part, -1)) + cont2 + cont3
 
-        loss_id_parts = sum(F.cross_entropy(ps, labels) / n_part for ps in parts_score) \
-            + F.cross_entropy(score_p, labels)
-        loss_id_real = F.cross_entropy(score, labels)
-        acc = torch.mean((torch.argmax(score, dim=-1) == labels).to(torch.float32))
-
-        cf, tf, gf = torch.chunk(feat, 3, dim=0)
-        cl = labels1
+        cf, tf, gf = torch.chunk(feat_all, 3, dim=0)
+        cl = labels_all
         loss_tri = (L.cross_triplet_loss(cf, tf, gf, cl, cl, cl)
                     + L.cross_triplet_loss(tf, gf, cf, cl, cl, cl)
                     + L.cross_triplet_loss(gf, cf, tf, cl, cl, cl)) / 3
-        loss_c2g = 10.0 * torch.mean(torch.square(cf - gf))
 
-        total = loss_id_real + loss_tri + part_loss + unsup_part + loss_id_parts + loss_c2g
-        metrics = {"loss": total, "id": loss_id_real, "tri": loss_tri, "part": part_loss,
-                   "unsup": unsup_part, "id_parts": loss_id_parts, "c2g": loss_c2g, "acc": acc}
-        return total, {k: v.detach() for k, v in metrics.items()}
+        # the terms per row: this rank's share of the global means
+        def ce(logits, target):
+            return par.share_mean(F.cross_entropy(logits, target, reduction="none"), 3 * rows)
+
+        loss_id_parts = sum(ce(ps, labels) / n_part for ps in parts_score) + ce(score_p, labels)
+        loss_id_real = ce(score, labels)
+        acc = par.share_mean((torch.argmax(score, dim=-1) == labels).to(torch.float32),
+                             3 * rows)
+        cf_own, _, gf_own = torch.chunk(feat, 3, dim=0)
+        loss_c2g = 10.0 * par.share_mean(torch.square(cf_own - gf_own), rows)
+
+        shares = loss_id_real + part_loss + loss_id_parts + loss_c2g
+        metrics = par.global_metrics(
+            {"loss": shares, "id": loss_id_real, "part": part_loss, "id_parts": loss_id_parts,
+             "c2g": loss_c2g, "acc": acc},
+            {"loss": loss_tri + unsup_part, "tri": loss_tri, "unsup": unsup_part})
+        return shares + loss_tri + unsup_part, metrics
 
     return loss_fn
 
@@ -168,10 +201,13 @@ def make_train_step(model: EmbedNet2, tx: MultiStepSGD, num_pos: int, batch_ids:
                     img_hw=(IMG_H, IMG_W), grad_accum: int = 1, seed: int = 0):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``grad_accum > 1`` takes ``batch`` as a list of that many P×K-structured
-    microbatches: their gradients are summed and averaged, one SGD update
-    follows, the batch-norm statistics advance through them in order and the
-    metrics are their means.  A step's dropout comes from
+    ``batch`` is the global batch (numpy arrays or tensors, on the host or
+    the device); under a process group this rank takes its rows of it and
+    moves them to the model's device.  ``grad_accum > 1`` takes a list of
+    that many P×K-structured microbatches: their gradients are summed and
+    averaged, one SGD update follows, the batch-norm statistics advance
+    through them in order and the metrics are their means.  The gradients
+    are summed over the ranks before the update.  A step's dropout comes from
     ``step_generator(seed, state.step)``."""
     loss_fn = make_loss_fn(model, num_pos, batch_ids, img_hw)
     device = next(model.parameters()).device
@@ -184,9 +220,11 @@ def make_train_step(model: EmbedNet2, tx: MultiStepSGD, num_pos: int, batch_ids:
             raise ValueError(f"expected {grad_accum} microbatches, got {len(micro)}")
         stacked = []
         for b in micro:
-            total, metrics = loss_fn(b, gen)
-            total.backward()           # sums the microbatches' gradients
+            rows = b["label"].shape[0]
+            objective, metrics = loss_fn(par.local_batch(b, device), gen, rows)
+            objective.backward()           # sums the microbatches' gradients
             stacked.append(metrics)
+        par.all_reduce_grads(model.parameters())
         if grad_accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -305,23 +343,25 @@ def train(args) -> Dict[str, float]:
         from vqvae2_tpu_torch.models.resnet import import_torchvision_resnet
 
         n = import_torchvision_resnet(model, args.pretrained)
-        print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
+        if par.is_primary():
+            print(f"imported {n} backbone tensors from {args.pretrained}", flush=True)
     tx = make_optimizer(args.lr_F, steps_per_epoch)
     state = create_state(model, tx)
+    par.replicate(state.model)
     step_fn = make_train_step(model, tx, args.num_pos, args.batch_size, img_hw,
                               grad_accum=args.grad_accum, seed=args.seed + 1)
     viz_fn = make_part_viz_fn(model) if args.sample_dir else None
 
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
-    csv = CsvLogger(args.metrics_csv)
-    map_csv = CsvLogger(args.map_csv)
+    csv = CsvLogger(args.metrics_csv if par.is_primary() else "")
+    map_csv = CsvLogger(args.map_csv if par.is_primary() else "")
     n_done, t0, m = 0, time.perf_counter(), {}
     epoch, buf = 0, []
     while n_done < total_steps:
         epoch += 1
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            buf.append(to_device(collate(rows, img_hw), device))
+            buf.append(collate(rows, img_hw))       # the global batch, on the host
             if len(buf) < args.grad_accum:
                 continue
             viz_batch, micro = buf[-1], buf
@@ -329,26 +369,29 @@ def train(args) -> Dict[str, float]:
             state, metrics = step_fn(state, micro[0] if args.grad_accum == 1 else micro)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch * args.grad_accum / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} loss {m['loss']:.3f} id {m['id']:.3f} "
-                      f"tri {m['tri']:.3f} part {m['part']:.3f} acc {m['acc']:.3f} "
-                      f"({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if viz_fn is not None and n_done % args.sample_every == 0:
-                dump_part_samples(viz_fn, viz_batch, f"{args.sample_dir}/part_{n_done:05d}.png",
+                m = par.reduce_dict(metrics)
+                if par.is_primary():
+                    rate = n_done * loader_batch * args.grad_accum / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} loss {m['loss']:.3f} id {m['id']:.3f} "
+                          f"tri {m['tri']:.3f} part {m['part']:.3f} acc {m['acc']:.3f} "
+                          f"({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if viz_fn is not None and n_done % args.sample_every == 0 and par.is_primary():
+                dump_part_samples(viz_fn, to_device(viz_batch, device),
+                                  f"{args.sample_dir}/part_{n_done:05d}.png",
                                   n_part=model.part_num)
             if n_done >= total_steps:
                 break
         if args.eval_every and args.eval_path and epoch % args.eval_every == 0:
-            # periodic CMC/mAP validation
+            # periodic CMC/mAP validation, on the primary rank in eval mode
             from vqvae2_tpu_torch.eval.reid import validate
 
-            mAP = validate(model, args.eval_path, img_size=(img_hw[1], img_hw[0]),
-                           trials=args.eval_trials)
+            mAP = par.from_primary(validate(model, args.eval_path, img_size=(img_hw[1], img_hw[0]),
+                                            trials=args.eval_trials)
+                                   if par.is_primary() else 0.0, device)
             m["mAP"] = mAP
             map_csv.log(n_done, {"epoch": epoch, "mAP": mAP})
-            if ckpt and ckpt.save_best(mAP, state.state_dict()):
+            if ckpt and ckpt.save_best(mAP, state.state_dict()) and par.is_primary():
                 print(f"epoch {epoch}: new best mAP {mAP:.4f}", flush=True)
     if ckpt:
         ckpt.save_last(state.state_dict())
@@ -398,7 +441,13 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     resolve_device(args.device)
     if not args.synthetic:
-        return train(args)
+        return par.launch(train, args, device=args.device)
+    # every rank writes the same corpus from the same seed into its own directory
+    return par.launch(train_synthetic, args, device=args.device)
+
+
+def train_synthetic(args) -> Dict[str, float]:
+    """``train`` on a synthetic SYSU corpus in a temporary directory."""
     with tempfile.TemporaryDirectory(prefix="sysu_syn_") as tmp:
         args.path = make_synthetic_sysu(tmp, h=args.img_h, w=args.img_w)
         return train(args)

@@ -32,6 +32,18 @@ translated to IR with another IR image's style, ranked by the frozen ReID
 net against real IR galleries, averaged over ``--idpres_trials`` draws) and
 keeps the best checkpoint by it.
 
+Data parallel (``parallel``): every rank draws the global batch's
+augmentations and takes its rows.  The ReID net's batch norms take the
+global batch's moments (in the generator step too, whose running statistics
+are put back on every rank alike); the triplets and the center-margin hinge
+run on the global features (``gather_batch``); the BCEs, the identity CE,
+the cycle and R1 (a sum per row) are this rank's share of a mean over the
+rows.  Each of the three optimizers steps on the gradients summed over the
+ranks, and ``--d_every`` masks the same steps on every rank.  So a world of N
+ranks takes the single-process step.  ``main`` runs ``train`` through
+``parallel.launch``; logs, samples, the identity-preservation evaluation and
+checkpoint files come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.stargan_bi --synthetic [flags]``
 (``--synthetic``: a 64x64 tree).  The device defaults to ``cuda``; ``--device
 cpu`` asks for the CPU.
@@ -50,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData, imagenet_normalize
@@ -63,9 +76,10 @@ from vqvae2_tpu_torch.utils.image import save_image
 from vqvae2_tpu_torch.utils.metrics import CsvLogger
 
 
-def adv_loss(logits: torch.Tensor, target: int) -> torch.Tensor:
+def adv_loss(logits: torch.Tensor, target: int, reduction: str = "mean") -> torch.Tensor:
     """BCE with logits against a constant target."""
-    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, float(target)))
+    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, float(target)),
+                                              reduction=reduction)
 
 
 def _generator_img_size(h: int, w: int) -> int:
@@ -142,25 +156,36 @@ def _domains(bs: int, device) -> torch.Tensor:
 
 
 def make_loss_fns(model: ModelStarGAN, num_pos: int):
-    """The three objectives: ``reid_loss(batch)``, ``gen_loss(batch, featV,
-    featI, adv_weight)`` and ``disc_loss(gray, ir, g2i, i2g, r1_weight,
-    create_graph)``; each runs its forward and returns its loss with what
-    the step needs.  No parameter is frozen and no optimizer runs here."""
-    mse = lambda a, b: torch.mean(torch.square(a - b))     # noqa: E731
+    """The three objectives: ``reid_loss(batch, label_all, metrics)``,
+    ``gen_loss(batch, featV, featI, adv_weight, label_all)`` and
+    ``disc_loss(gray, ir, g2i, i2g, r1_weight, create_graph, rows)``; each
+    runs its forward on this rank's rows of a global batch (``label_all``
+    its labels, ``batch``'s own without a group) and returns what this rank
+    backpropagates with what the step needs: its share of the terms per row
+    and the terms over identities whole, on the global features.  The metrics
+    are the global batch's (``reid_loss`` writes its into ``metrics`` when
+    given).  No parameter is frozen and no optimizer runs here."""
 
-    def reid_loss(batch):
+    def reid_loss(batch, label_all=None, metrics=None):
         label = batch["label"].long()
+        label_all = label if label_all is None else label_all
+        rows = label_all.shape[0]
         with mode(model.person_id, True):
             feat, score, *_ = model.person_id(xRGB=batch["aug_rgb"], xIR=batch["aug_ir"],
                                               modal=0, with_feature=True)
-        fv, fi = torch.chunk(feat, 2, dim=0)
-        loss = (F.cross_entropy(score, torch.cat([label, label]))
-                + L.triplet_loss_wrt(fv, label)[0] + L.triplet_loss_wrt(fi, label)[0])
-        return loss, feat
+        fv, fi = (par.gather_batch(f, rows) for f in torch.chunk(feat, 2, dim=0))
+        ce = par.share_mean(F.cross_entropy(score, torch.cat([label, label]), reduction="none"),
+                            2 * rows)
+        pair = L.triplet_loss_wrt(fv, label_all)[0] + L.triplet_loss_wrt(fi, label_all)[0]
+        if metrics is not None:
+            metrics.update(par.global_metrics({"loss_reid": ce}, {"loss_reid": pair}))
+        return ce + pair, feat
 
-    def gen_loss(batch, featV, featI, adv_weight: float):
+    def gen_loss(batch, featV, featI, adv_weight: float, label_all=None):
         gray, ir, label = batch["gray"], batch["ir"], batch["label"].long()
-        bs = gray.shape[0]
+        label_all = label if label_all is None else label_all
+        bs, rows = gray.shape[0], label_all.shape[0]
+        mse = lambda a, b: par.share_mean(torch.square(a - b), rows)     # noqa: E731
         g2i = _e3(model.gen_1(gray, featI))
         i2g = _e3(model.gen_2(ir, featV))
         g2i2g = _e3(model.gen_2(g2i, featV))
@@ -176,32 +201,39 @@ def make_loss_fns(model: ModelStarGAN, num_pos: int):
                                     1 - _domains(bs, gray.device))
         cycle = (mse(i2g2i, torch.mean(ir, dim=-1, keepdim=True).repeat(1, 1, 1, 3))
                  + mse(g2i2g, torch.mean(gray, dim=-1, keepdim=True).repeat(1, 1, 1, 3)))
-        loss_id_ir = F.cross_entropy(fake_score, torch.cat([label, label]))
-        fv, fi = torch.chunk(_l2n(fake_feat), 2, dim=0)
-        n = bs // num_pos
+        loss_id_ir = par.share_mean(F.cross_entropy(fake_score, torch.cat([label, label]),
+                                                    reduction="none"), 2 * rows)
+        fv, fi = (par.gather_batch(f, rows) for f in torch.chunk(_l2n(fake_feat), 2, dim=0))
+        n = rows // num_pos
         center = lambda f: f.reshape(n, num_pos, -1).mean(dim=1)     # noqa: E731
         pos = torch.mean(torch.square(center(fv) - center(fi)), dim=1)
-        neg = torch.mean(torch.square(center(_l2n(featV)) - center(_l2n(featI))), dim=1)
+        real_v, real_i = (par.gather_batch(_l2n(f), rows) for f in (featV, featI))
+        neg = torch.mean(torch.square(center(real_v) - center(real_i)), dim=1)
         feat_ir = torch.mean(torch.clamp(0.01 + pos - neg, min=0.0))
-        g_adv = adv_loss(d_fake, 1)
-        total = cycle + 0.5 * (loss_id_ir + feat_ir) + adv_weight * g_adv
-        metrics = {"cycle": cycle, "id_ir": loss_id_ir, "feat_ir": feat_ir, "g_adv": g_adv,
-                   "hinge_pos": torch.mean(pos), "hinge_neg": torch.mean(neg)}
-        return total, metrics, g2i, i2g
+        g_adv = par.share_mean(adv_loss(d_fake, 1, reduction="none"), 2 * rows)
+        shares = cycle + 0.5 * loss_id_ir + adv_weight * g_adv
+        metrics = par.global_metrics(
+            {"cycle": cycle, "id_ir": loss_id_ir, "g_adv": g_adv, "loss_gen": shares},
+            {"feat_ir": feat_ir, "hinge_pos": torch.mean(pos), "hinge_neg": torch.mean(neg),
+             "loss_gen": 0.5 * feat_ir})
+        return shares + 0.5 * feat_ir, metrics, g2i, i2g
 
-    def disc_loss(gray, ir, g2i, i2g, r1_weight: float, create_graph: bool = True):
+    def disc_loss(gray, ir, g2i, i2g, r1_weight: float, create_graph: bool = True,
+                  rows: Optional[int] = None):
         bs = gray.shape[0]
+        rows = bs if rows is None else rows
         y = _domains(bs, gray.device)
         x_real = torch.cat([_lum(gray), _lum(ir)], dim=0).requires_grad_(True)
         out_real = model.discriminate(x_real, y)
-        loss_real = adv_loss(out_real, 1)
+        loss_real = par.share_mean(adv_loss(out_real, 1, reduction="none"), 2 * rows)
         # R1 = 0.5 E[|grad_x D(x)|^2]; with create_graph its gradient
         # reaches D's parameters
         grad_x, = torch.autograd.grad(out_real.sum(), x_real, create_graph=create_graph,
                                       retain_graph=True)
-        r1 = 0.5 * torch.mean(torch.sum(torch.square(grad_x.reshape(2 * bs, -1)), dim=1))
+        r1 = 0.5 * par.share_mean(torch.sum(torch.square(grad_x.reshape(2 * bs, -1)), dim=1),
+                                  2 * rows)
         out_fake = model.discriminate(torch.cat([g2i, i2g], dim=0), 1 - y)
-        loss_fake = adv_loss(out_fake, 0)
+        loss_fake = par.share_mean(adv_loss(out_fake, 0, reduction="none"), 2 * rows)
         return loss_real + loss_fake + r1_weight * r1, (loss_real, loss_fake, r1)
 
     return reid_loss, gen_loss, disc_loss
@@ -211,9 +243,12 @@ def make_train_step(model: ModelStarGAN, tx_reid: schedules.SGDSchedule,
                     tx_gen: schedules.AdamSchedule, tx_disc: schedules.AdamSchedule,
                     num_pos: int):
     """Returns ``train_step(state, batch, knobs=None) -> (state, metrics)``;
-    ``knobs`` may set ``r1_weight`` (1.0), ``adv_weight`` (0.5) and
-    ``d_mask`` (1.0: the discriminator takes its step)."""
+    ``batch`` is the global batch (numpy arrays or tensors, host or device),
+    of which this rank takes its rows; ``knobs`` may set ``r1_weight`` (1.0),
+    ``adv_weight`` (0.5) and ``d_mask`` (1.0: the discriminator takes its
+    step).  The metrics are the global batch's."""
     reid_loss, gen_loss, disc_loss = make_loss_fns(model, num_pos)
+    device = next(model.parameters()).device
 
     def train_step(state: GanState, batch: Dict[str, torch.Tensor],
                    knobs: Optional[Dict[str, float]] = None):
@@ -221,10 +256,15 @@ def make_train_step(model: ModelStarGAN, tx_reid: schedules.SGDSchedule,
         r1_weight = float(kn.get("r1_weight", 1.0))
         adv_weight = float(kn.get("adv_weight", 0.5))
         update_d = float(kn.get("d_mask", 1.0)) > 0
+        label_all = torch.as_tensor(batch["label"]).to(device).long()
+        rows = label_all.shape[0]
+        batch = par.local_batch(batch, device)
 
         state.opt_reid.zero_grad(set_to_none=True)
-        loss_re, feat = reid_loss(batch)
+        m_re: Dict[str, torch.Tensor] = {}
+        loss_re, feat = reid_loss(batch, label_all, m_re)
         loss_re.backward()
+        par.all_reduce_grads(state.opt_reid)
         schedules.fill_missing_grads(state.opt_reid)
         tx_reid.apply(state.opt_reid, state.step)
         state.opt_reid.step()
@@ -234,8 +274,9 @@ def make_train_step(model: ModelStarGAN, tx_reid: schedules.SGDSchedule,
         # the backward recomputes the frozen discriminator (remat): it runs
         # inside the block, as the forward did
         with frozen(model.person_id), frozen(model.discriminator):
-            loss_g, metrics, g2i, i2g = gen_loss(batch, featV, featI, adv_weight)
+            loss_g, metrics, g2i, i2g = gen_loss(batch, featV, featI, adv_weight, label_all)
             loss_g.backward()
+        par.all_reduce_grads(state.opt_gen)
         schedules.fill_missing_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
@@ -243,16 +284,17 @@ def make_train_step(model: ModelStarGAN, tx_reid: schedules.SGDSchedule,
         state.opt_disc.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss_d, (d_real, d_fake, r1) = disc_loss(batch["gray"], batch["ir"], g2i.detach(),
-                                                     i2g.detach(), r1_weight, update_d)
-        if update_d:
+                                                     i2g.detach(), r1_weight, update_d, rows)
+        if update_d:            # the same on every rank: the knob comes from the step count
             loss_d.backward()
+            par.all_reduce_grads(state.opt_disc)
             schedules.fill_missing_grads(state.opt_disc)
             tx_disc.apply(state.opt_disc, state.step)
             state.opt_disc.step()
         state.step += 1
-        metrics = {**metrics, "loss_reid": loss_re, "loss_gen": loss_g, "loss_disc": loss_d,
-                   "d_real": d_real, "d_fake": d_fake, "r1": r1}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        disc = par.global_metrics({"loss_disc": loss_d, "d_real": d_real, "d_fake": d_fake,
+                                   "r1": r1})
+        return state, {**metrics, **m_re, **disc}
 
     return train_step
 
@@ -364,8 +406,10 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     step_fn = make_train_step(model, tx_reid, tx_gen, tx_disc, args.num_pos)
     sample_fn = make_sample_fn(model) if args.sample_dir else None
@@ -374,31 +418,38 @@ def train(args) -> Dict[str, float]:
               if args.eval_every else None)
     host_rng = np.random.default_rng(args.seed)
 
-    csv, map_csv = CsvLogger(args.metrics_csv), CsvLogger(args.map_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
+    map_csv = CsvLogger(args.map_csv if primary else "")
     n_done, m, t0 = 0, {}, time.perf_counter()
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = cross_modal_batch(rows, host_rng, device)
+            batch = cross_modal_batch(rows, host_rng, "cpu")   # the global batch
             knobs = {"r1_weight": args.r1_weight, "adv_weight": args.adv_weight,
                      "d_mask": 1.0 if n_done % args.d_every == 0 else 0.0}
             state, metrics = step_fn(state, batch, knobs)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} gen {m['loss_gen']:.3f} "
-                      f"disc {m['loss_disc']:.3f} reid {m['loss_reid']:.3f} "
-                      f"cycle {m['cycle']:.4f} r1 {m['r1']:.4f} ({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if sample_fn is not None and n_done % args.sample_every == 0:
-                dump_samples(sample_fn, batch, f"{args.sample_dir}/{n_done:05d}.png")
+                m = par.reduce_dict(metrics)
+                if primary:
+                    rate = n_done * loader_batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} gen {m['loss_gen']:.3f} "
+                          f"disc {m['loss_disc']:.3f} reid {m['loss_reid']:.3f} "
+                          f"cycle {m['cycle']:.4f} r1 {m['r1']:.4f} ({rate:.1f} img/s)",
+                          flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if sample_fn is not None and n_done % args.sample_every == 0 and primary:
+                dump_samples(sample_fn, {k: v.to(device) for k, v in batch.items()},
+                             f"{args.sample_dir}/{n_done:05d}.png")
             if idpres is not None and n_done % args.eval_every == 0:
-                mAP = idpres[0](idpres[1])
+                # on the primary rank, the ReID net and the generators in eval mode
+                mAP = par.from_primary(idpres[0](idpres[1]) if primary else 0.0, device)
                 m["idpres_map"] = mAP
                 map_csv.log(n_done, {"idpres_map": mAP})
-                print(f"step {n_done}: identity-preservation mAP {mAP:.4f}", flush=True)
-                if ckpt and ckpt.save_best(mAP, state.state_dict()):
+                if primary:
+                    print(f"step {n_done}: identity-preservation mAP {mAP:.4f}", flush=True)
+                if ckpt and ckpt.save_best(mAP, state.state_dict()) and primary:
                     print(f"step {n_done}: new best idpres mAP {mAP:.4f}", flush=True)
             if ckpt and args.save_every and n_done % args.save_every == 0:
                 ckpt.save_periodic(n_done, state.state_dict())

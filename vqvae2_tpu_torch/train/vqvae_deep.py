@@ -27,6 +27,17 @@ Per batch, as the JAX package's step:
 an eval-mode pass (the lookup kernel, eight launches).  ``--eval_every N
 --eval_path <raw SYSU-MM01 root>`` validates the ReID net every N epochs.
 
+Data parallel (``parallel``): a step takes the global P×K batch and each rank
+its rows.  The batch norms and the quantizers' EMA take the global batch's
+statistics; the batch-hard triplet and the within-identity variance run on
+the global features (``gather_batch``), as do the "other identity" rows of
+``roll(arange(B), K)``, which for a rank's first rows come from the rank
+before; the gray mix draws the global batch's weights and keeps this rank's
+rows; every other term is this rank's share of a mean over the rows.  So a
+world of N ranks takes the single-process step.  ``main`` runs ``train``
+through ``parallel.launch``; logs, samples, validation and checkpoint files
+come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.vqvae_deep --synthetic [flags]``.  The
 device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -41,10 +52,12 @@ import torch
 import torch.nn.functional as F
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
 from vqvae2_tpu_torch.models.adaptive import ModelAdaptive_Deep, frozen
+from vqvae2_tpu_torch.models.pixelsnail import batch_rows, draw_rows
 from vqvae2_tpu_torch.part.part_model import _resize
 from vqvae2_tpu_torch.train.adaptive import (AdaptiveState, create_state, run_synthetic,
                                              sysu_batch)
@@ -81,15 +94,20 @@ def threshold_up_mask(act_map: torch.Tensor, hw):
 
 def random_gray(generator: torch.Generator, img1: torch.Tensor) -> torch.Tensor:
     """A random convex mix of each image's channels (weights uniform + 0.01,
-    normalised), repeated to three channels."""
-    w = torch.rand((img1.shape[0], 3), generator=generator, device=img1.device) + 0.01
+    normalised), repeated to three channels.  Inside ``batch_rows`` the
+    weights are drawn for the global batch and this rank's rows kept."""
+    rows, start = draw_rows(img1.shape[0])
+    w = torch.rand((rows, 3), generator=generator, device=img1.device) + 0.01
+    w = w[start:start + img1.shape[0]]
     w = w / torch.sum(w, dim=1, keepdim=True)
     return torch.einsum("bhwc,bc->bhw", img1, w)[..., None].repeat(1, 1, 1, 3)
 
 
-def gen_forward(model: ModelAdaptive_Deep, img1, img2, gray, feat, mf3, mf4, ids):
+def gen_forward(model: ModelAdaptive_Deep, img1, img2, gray, feat, mf3, mf4, mf3_other,
+                mf4_other):
     """The generator pass of one step; the codebooks take four EMA steps and
-    the fusions' statistics three."""
+    the fusions' statistics three.  ``mf3_other`` / ``mf4_other`` are the
+    masked features of each row's other identity."""
     rgb_b, rgb_t = model.encode_content(img1)
     rgb_content, latent_rgb = model.quantize_content(rgb_b, rgb_t, train=True)
     rgb_reconst = model.decode(rgb_content, feat)
@@ -99,7 +117,7 @@ def gen_forward(model: ModelAdaptive_Deep, img1, img2, gray, feat, mf3, mf4, ids
     gray_content, latent_gray = model.quantize_content(gb_f, gt_f, train=True)
     rgb_fake = model.decode(gray_content, feat)
 
-    gb_o, gt_o = model.fuse(gray_b, gray_t, mf3[ids], mf4[ids], train=True)
+    gb_o, gt_o = model.fuse(gray_b, gray_t, mf3_other, mf4_other, train=True)
     gray_other, latent_other = model.quantize_content(gb_o, gt_o, train=True)
     rgb_fake_other = model.decode(gray_other, feat)
 
@@ -119,21 +137,29 @@ def gen_forward(model: ModelAdaptive_Deep, img1, img2, gray, feat, mf3, mf4, ids
 def make_train_step(model: ModelAdaptive_Deep, tx_reid: schedules.AdamSchedule,
                     tx_gen: schedules.AdamSchedule, num_pos: int, seed: int = 0):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    holds ``rgb``, ``ir`` ``(B, H, W, 3)`` and ``label`` ``(B,)`` on the
-    model's device.  The gray mix of a step comes from
-    ``step_generator(seed, state.step)``."""
+    holds the global batch's ``rgb``, ``ir`` ``(B, H, W, 3)`` and ``label``
+    ``(B,)`` (numpy arrays or tensors, host or device), of which this rank
+    takes its rows.  The gray mix of a step comes from
+    ``step_generator(seed, state.step)``.  The metrics are the global
+    batch's."""
     device = next(model.parameters()).device
-    mse = lambda a, b: torch.mean(torch.square(a - b))     # noqa: E731
 
     def train_step(state: AdaptiveState, batch: Dict[str, torch.Tensor]):
-        img1, img2, label = batch["rgb"], batch["ir"], batch["label"].long()
-        bs = img1.shape[0]
+        rows = batch["label"].shape[0]
+        mse = lambda a, b: par.share_mean(torch.square(a - b), rows)     # noqa: E731
+        local = par.local_batch(batch, device)
+        img1, img2, label = local["rgb"], local["ir"], local["label"].long()
+        label_all = torch.as_tensor(batch["label"]).to(device).long()
+        bs, start = img1.shape[0], par.shard_rows(rows)[0]
 
         state.opt_reid.zero_grad(set_to_none=True)
         feat, score, feat2d, act_map, feat2d_x3 = model.encode_person(img1, train=True)
-        var = feat.reshape(bs // num_pos, num_pos, -1).var(dim=1, correction=0).mean()
-        loss_re = F.cross_entropy(score, label) + L.triplet_loss(feat, label)[0] + var
-        loss_re.backward()
+        feat_all = par.gather_batch(feat, rows)
+        var = feat_all.reshape(rows // num_pos, num_pos, -1).var(dim=1, correction=0).mean()
+        ce_re = par.share_mean(F.cross_entropy(score, label, reduction="none"), rows)
+        pair_re = L.triplet_loss(feat_all, label_all)[0] + var
+        (ce_re + pair_re).backward()
+        par.all_reduce_grads(state.opt_reid)
         tx_reid.apply(state.opt_reid, state.step)
         state.opt_reid.step()
         feat, feat2d, act_map, feat2d_x3 = (t.detach() for t in (feat, feat2d, act_map,
@@ -141,27 +167,33 @@ def make_train_step(model: ModelAdaptive_Deep, tx_reid: schedules.AdamSchedule,
 
         state.opt_gen.zero_grad(set_to_none=True)
         am, up_mask = threshold_up_mask(act_map, img1.shape[1:3])
-        gray = random_gray(step_generator(seed, state.step, device), img1)
+        with batch_rows(start, rows):
+            gray = random_gray(step_generator(seed, state.step, device), img1)
         mf3, mf4 = feat2d_x3 * am, feat2d * am
-        ids = torch.roll(torch.arange(bs, device=device), num_pos)
+        # each row's other identity, K rows on: across the ranks' boundaries
+        ids = torch.roll(torch.arange(rows, device=device), num_pos)
+        mf3_other, mf4_other = (par.local_rows(par.gather_batch(t, rows)[ids], rows)
+                                for t in (mf3, mf4))
         (rgb_reconst, rgb_fake, rgb_fake_other, rgb_content, gray_content, gray_other, latent,
-         feat_ir, score_ir) = gen_forward(model, img1, img2, gray, feat, mf3, mf4, ids)
-        loss_id_ir = F.cross_entropy(score_ir, label)
+         feat_ir, score_ir) = gen_forward(model, img1, img2, gray, feat, mf3, mf4, mf3_other,
+                                          mf4_other)
+        loss_id_ir = par.share_mean(F.cross_entropy(score_ir, label, reduction="none"), rows)
         loss_feat_ir = mse(feat_ir, feat)
         mask_img = img1 * up_mask
         recon = (mse(rgb_reconst * up_mask, mask_img) + mse(rgb_fake * up_mask, mask_img)
                  + mse(rgb_fake_other * up_mask, mask_img))
         recon_feat = mse(gray_content, rgb_content) + mse(gray_other, rgb_content)
-        loss_g = recon_feat + recon + LATENT_LOSS_WEIGHT * latent
-        total = loss_g + loss_id_ir + loss_feat_ir
+        latent = latent * (bs / rows)
+        total = recon_feat + recon + LATENT_LOSS_WEIGHT * latent + loss_id_ir + loss_feat_ir
         total.backward()
+        par.all_reduce_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
         state.step += 1
-        metrics = {"recon": recon, "recon_feat": recon_feat, "latent": latent,
-                   "id_ir": loss_id_ir, "feat_ir": loss_feat_ir, "loss_reid": loss_re,
-                   "loss_gen": total}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, par.global_metrics(
+            {"recon": recon, "recon_feat": recon_feat, "latent": latent, "id_ir": loss_id_ir,
+             "feat_ir": loss_feat_ir, "loss_reid": ce_re, "loss_gen": total},
+            {"loss_reid": pair_re})
 
     return train_step
 
@@ -231,28 +263,33 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     step_fn = make_train_step(model, tx_reid, tx_gen, args.num_pos, seed=args.seed + 2)
     sample_fn = make_sample_fn(model, args.num_pos) if args.sample_dir else None
 
-    csv = CsvLogger(args.metrics_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
     n_done, m, epoch = 0, {}, 0
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = sysu_batch(rows, device)
+            batch = sysu_batch(rows, "cpu")          # the global batch, on the host
             state, metrics = step_fn(state, batch)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                print(f"step {n_done}/{total_steps} reid {m['loss_reid']:.3f} "
-                      f"gen {m['loss_gen']:.3f} recon {m['recon']:.4f} "
-                      f"latent {m['latent']:.4f}", flush=True)
-                csv.log(n_done, m)
-            if sample_fn is not None and n_done % args.sample_every == 0:
-                dump_samples(sample_fn, batch, step_generator(args.seed + 2, n_done, device),
+                m = par.reduce_dict(metrics)
+                if primary:
+                    print(f"step {n_done}/{total_steps} reid {m['loss_reid']:.3f} "
+                          f"gen {m['loss_gen']:.3f} recon {m['recon']:.4f} "
+                          f"latent {m['latent']:.4f}", flush=True)
+                    csv.log(n_done, m)
+            if sample_fn is not None and n_done % args.sample_every == 0 and primary:
+                dump_samples(sample_fn, {k: v.to(device) for k, v in batch.items()},
+                             step_generator(args.seed + 2, n_done, device),
                              f"{args.sample_dir}/{n_done:05d}.png")
             if ckpt and n_done % (steps_per_epoch * 10) == 0:
                 ckpt.save_periodic(n_done, state.state_dict())
@@ -263,10 +300,11 @@ def train(args) -> Dict[str, float]:
             # person-ReID validation of the person_id subnet
             from vqvae2_tpu_torch.eval.reid import validate
 
-            mAP = validate(model.person_id, args.eval_path, img_size=(w, h),
-                           trials=args.eval_trials)
+            mAP = par.from_primary(validate(model.person_id, args.eval_path, img_size=(w, h),
+                                            trials=args.eval_trials) if primary else 0.0,
+                                   device)
             m["mAP"] = mAP
-            if ckpt and ckpt.save_best(mAP, state.state_dict()):
+            if ckpt and ckpt.save_best(mAP, state.state_dict()) and primary:
                 print(f"epoch {epoch}: new best mAP {mAP:.4f}", flush=True)
     if ckpt:
         ckpt.save_last(state.state_dict())

@@ -23,6 +23,14 @@ Per batch, as the JAX package's step:
    real-modality CE.  Its optimizer (``person_id`` and ``discriminator``) is
    ``add_decayed_weights(5e-4)`` then Nesterov SGD at :func:`reid_lr_schedule`.
 
+Data parallel (``parallel``): every rank draws the global batch's
+augmentations from the same generator and takes its rows.  The batch norms
+and the quantizers' EMA take the global batch's statistics; the centers,
+margins and triplets run on the global features (``gather_batch``); every
+other term is this rank's share of a mean over the rows.  So a world of N
+ranks takes the single-process step.  ``main`` runs ``train`` through
+``parallel.launch``; logs and checkpoint files come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.vqvae_deep_bi --synthetic [flags]``.
 The device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 from scipy import ndimage
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
@@ -195,19 +204,27 @@ def _cycle_forward(model: ModelAdaptiveBi_Deep, gray, ir, featV, featI):
 def make_train_step(model: ModelAdaptiveBi_Deep, tx_reid: schedules.SGDSchedule,
                     tx_gen: schedules.AdamSchedule, num_pos: int):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    holds ``gray``, ``ir``, ``aug_rgb``, ``aug_ir`` ``(B, H, W, 3)`` and
-    ``label`` ``(B,)`` on the model's device."""
-    mse = lambda a, b: torch.mean(torch.square(a - b))     # noqa: E731
+    holds the global batch's ``gray``, ``ir``, ``aug_rgb``, ``aug_ir`` ``(B,
+    H, W, 3)`` and ``label`` ``(B,)`` (numpy arrays or tensors, host or
+    device), of which this rank takes its rows.  The metrics are the global
+    batch's."""
+    device = next(model.parameters()).device
 
     def train_step(state: AdaptiveState, batch: Dict[str, torch.Tensor]):
-        label = batch["label"].long()
-        gray, ir = batch["gray"], batch["ir"]
-        bs = label.shape[0]
+        rows = batch["label"].shape[0]
+        local = par.local_batch(batch, device)
+        label = local["label"].long()
+        label_all = torch.as_tensor(batch["label"]).to(device).long()
+        gray, ir = local["gray"], local["ir"]
+        mse = lambda a, b: par.share_mean(torch.square(a - b), rows)     # noqa: E731
+        ce = lambda s, y, groups=1: par.share_mean(                       # noqa: E731
+            F.cross_entropy(s, y, reduction="none"), groups * rows)
+        gather = lambda f: par.gather_batch(f, rows)                      # noqa: E731
 
         # generator step: the ReID net and the discriminator frozen
         state.opt_gen.zero_grad(set_to_none=True)
         with torch.no_grad(), mode(model.person_id, False):
-            feat = model.person_id(xRGB=batch["aug_rgb"], xIR=batch["aug_ir"], modal=0,
+            feat = model.person_id(xRGB=local["aug_rgb"], xIR=local["aug_ir"], modal=0,
                                    with_feature=True)[0]
         featV, featI = torch.chunk(feat, 2, dim=0)
         gray2ir, ir2gray, gray2ir2gray, ir2gray2ir, latent = _cycle_forward(
@@ -220,21 +237,24 @@ def make_train_step(model: ModelAdaptiveBi_Deep, tx_reid: schedules.SGDSchedule,
         gray_target = torch.mean(gray, dim=-1, keepdim=True).repeat(1, 1, 1, 3)
         ir_target = torch.mean(ir, dim=-1, keepdim=True).repeat(1, 1, 1, 3)
         cycle = mse(ir2gray2ir, ir_target) + mse(gray2ir2gray, gray_target)
+        latent = latent * (label.shape[0] / rows)
         loss_g = cycle + LATENT_LOSS_WEIGHT * latent
-        loss_id_ir = (F.cross_entropy(scoreZ_v, label) + F.cross_entropy(scoreZ_i, label)) / 2
+        loss_id_ir = (ce(scoreZ_v, label) + ce(scoreZ_i, label)) / 2
         # center-margin: translated centers closer than real cross-modal
-        # centers by a margin of 0.01
-        n = bs // num_pos
+        # centers by a margin of 0.01, over the global batch's identities
+        n = rows // num_pos
         center = lambda f: f.reshape(n, num_pos, -1).mean(dim=1)     # noqa: E731
-        pos = torch.mean(torch.square(center(featZ_v) - center(featZ_i)), dim=1)
-        neg = torch.mean(torch.square(center(featV) - center(featI)), dim=1)
+        zv, zi = gather(featZ_v), gather(featZ_i)
+        pos = torch.mean(torch.square(center(zv) - center(zi)), dim=1)
+        neg = torch.mean(torch.square(center(gather(featV)) - center(gather(featI))), dim=1)
         margin_loss = torch.mean(torch.clamp(0.01 + pos - neg, min=0.0))
-        loss_feat_ir = (margin_loss
-                        + L.cross_triplet_loss(featZ_v, featZ_i, featZ_v, label, label, label)
-                        + L.cross_triplet_loss(featZ_i, featZ_v, featZ_i, label, label, label))
-        disc_fake = F.cross_entropy(d_fake, torch.cat([2 * label + 1, 2 * label]))
-        total = loss_g + 0.5 * (loss_id_ir + loss_feat_ir + disc_fake)
-        total.backward()
+        pair_feat = (margin_loss
+                     + L.cross_triplet_loss(zv, zi, zv, label_all, label_all, label_all)
+                     + L.cross_triplet_loss(zi, zv, zi, label_all, label_all, label_all))
+        disc_fake = ce(d_fake, torch.cat([2 * label + 1, 2 * label]), 2)
+        shares = loss_g + 0.5 * (loss_id_ir + disc_fake)
+        (shares + 0.5 * pair_feat).backward()
+        par.all_reduce_grads(state.opt_gen)
         schedules.fill_missing_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
@@ -243,29 +263,31 @@ def make_train_step(model: ModelAdaptiveBi_Deep, tx_reid: schedules.SGDSchedule,
         state.opt_reid.zero_grad(set_to_none=True)
         inter_v, inter_i = gray2ir.detach(), ir2gray.detach()
         with mode(model.person_id, True):
-            feat, score, *_ = model.person_id(xRGB=batch["aug_rgb"], xIR=batch["aug_ir"],
+            feat, score, *_ = model.person_id(xRGB=local["aug_rgb"], xIR=local["aug_ir"],
                                               modal=0, with_feature=True)
             fZv, sZv = model.person_id(xIR=inter_v, modal=2)
             fZi, sZi = model.person_id(xRGB=inter_i, modal=1)
         d_real = model.discriminate(torch.cat([feat.detach(),
                                                torch.cat([fZv, fZi], dim=0).detach()], dim=0))
         featV, featI = torch.chunk(feat, 2, dim=0)
-        loss_id = F.cross_entropy(torch.cat([score, sZv, sZi], dim=0),
-                                  torch.cat([label, label, label, label]))
-        loss_tri = L.triplet_loss_wrt(featV, label)[0] + L.triplet_loss_wrt(featI, label)[0]
+        loss_id = ce(torch.cat([score, sZv, sZi], dim=0),
+                     torch.cat([label, label, label, label]), 4)
+        loss_tri = (L.triplet_loss_wrt(gather(featV), label_all)[0]
+                    + L.triplet_loss_wrt(gather(featI), label_all)[0])
         modal_free = mse(fZv, featV.detach()) + mse(fZi, featI.detach())
         modal_true = torch.cat([2 * label, 2 * label + 1, 2 * label, 2 * label + 1])
-        disc_true = F.cross_entropy(d_real, modal_true)
-        loss_re = loss_id + loss_tri + modal_free + disc_true
-        loss_re.backward()
+        disc_true = ce(d_real, modal_true, 4)
+        shares_re = loss_id + modal_free + disc_true
+        (shares_re + loss_tri).backward()
+        par.all_reduce_grads(state.opt_reid)
         schedules.fill_missing_grads(state.opt_reid)
         tx_reid.apply(state.opt_reid, state.step)
         state.opt_reid.step()
         state.step += 1
-        metrics = {"cycle": cycle, "latent": latent, "id_ir": loss_id_ir,
-                   "feat_ir": loss_feat_ir, "disc_fake": disc_fake, "loss_gen": total,
-                   "loss_reid": loss_re}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, par.global_metrics(
+            {"cycle": cycle, "latent": latent, "id_ir": loss_id_ir, "disc_fake": disc_fake,
+             "loss_gen": shares, "loss_reid": shares_re},
+            {"feat_ir": pair_feat, "loss_gen": 0.5 * pair_feat, "loss_reid": loss_tri})
 
     return train_step
 
@@ -295,27 +317,31 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     step_fn = make_train_step(model, tx_reid, tx_gen, args.num_pos)
     host_rng = np.random.default_rng(args.seed)
 
-    csv = CsvLogger(args.metrics_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
     n_done, m, t0 = 0, {}, time.perf_counter()
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = cross_modal_batch(rows, host_rng, device)
+            batch = cross_modal_batch(rows, host_rng, "cpu")   # the global batch
             state, metrics = step_fn(state, batch)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch / (time.perf_counter() - t0)
-                print(f"step {n_done}/{total_steps} gen {m['loss_gen']:.3f} "
-                      f"reid {m['loss_reid']:.3f} cycle {m['cycle']:.4f} "
-                      f"latent {m['latent']:.4f} ({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
+                m = par.reduce_dict(metrics)
+                if primary:
+                    rate = n_done * loader_batch / (time.perf_counter() - t0)
+                    print(f"step {n_done}/{total_steps} gen {m['loss_gen']:.3f} "
+                          f"reid {m['loss_reid']:.3f} cycle {m['cycle']:.4f} "
+                          f"latent {m['latent']:.4f} ({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
             if ckpt and args.save_every and n_done % args.save_every == 0:
                 ckpt.save_periodic(n_done, state.state_dict())
             if n_done >= total_steps:

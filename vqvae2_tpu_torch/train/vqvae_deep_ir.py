@@ -25,6 +25,14 @@ runs the full step (:func:`make_full_step`), as the JAX package's:
 The statistics kernel runs four times a full step; ``make_sample_fn`` runs
 the lookup kernel four times a grid.
 
+Data parallel (``parallel``): every rank draws the global batch's
+augmentations and takes its rows.  The batch norms and the quantizers' EMA
+take the global batch's statistics; the cross triplets and the feature
+centers run on the global features (``gather_batch``); every other term is
+this rank's share of a mean over the rows.  So a world of N ranks takes the
+single-process step.  ``main`` runs ``train`` through ``parallel.launch``;
+logs, samples and checkpoint files come from the primary rank.
+
 Run: ``python -m vqvae2_tpu_torch.train.vqvae_deep_ir --synthetic [flags]``.
 The device defaults to ``cuda``; ``--device cpu`` asks for the CPU.
 """
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae2_tpu_torch import losses as L
+from vqvae2_tpu_torch import parallel as par
 from vqvae2_tpu_torch import resolve_device, set_reference_precision
 from vqvae2_tpu_torch.data.datasets import epoch_row_batches
 from vqvae2_tpu_torch.data.sysu import SYSUData
@@ -59,26 +68,30 @@ STAGE_RECONSTRUCTION = 40  # epochs
 
 def make_recon_step(model: ModelAdaptive_Deep, tx_gen: schedules.AdamSchedule, feat_dim: int):
     """Pure reconstruction of the IR view with a zero style:
-    ``step(state, batch) -> (state, metrics)``."""
+    ``step(state, batch) -> (state, metrics)``; ``batch`` the global batch,
+    of which this rank takes its rows; the metrics the global batch's."""
+    device = next(model.parameters()).device
 
     def step(state: AdaptiveState, batch: Dict[str, torch.Tensor]):
-        ir = batch["ir"]
+        rows = batch["ir"].shape[0]
+        ir = par.local_batch(batch["ir"], device)
         state.opt_gen.zero_grad(set_to_none=True)
         zero_style = torch.zeros((ir.shape[0], feat_dim), dtype=ir.dtype, device=ir.device)
         b, t = model.encode_content(ir)
         content, latent = model.quantize_content(b, t, train=True)
         rec = _e3(model.decode(content, zero_style))
         target = torch.mean(ir, dim=-1, keepdim=True).repeat(1, 1, 1, 3)
-        recon = torch.mean(torch.square(rec - target))
+        recon = par.share_mean(torch.square(rec - target), rows)
+        latent = latent * (ir.shape[0] / rows)
         loss = recon + LATENT_LOSS_WEIGHT * latent
         loss.backward()
+        par.all_reduce_grads(state.opt_gen)
         schedules.fill_missing_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
         state.step += 1
-        metrics = {"recon": recon, "latent": latent, "loss_gen": loss,
-                   "loss_reid": torch.zeros(())}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, par.global_metrics({"recon": recon, "latent": latent, "loss_gen": loss,
+                                          "loss_reid": torch.zeros(())})
 
     return step
 
@@ -86,13 +99,22 @@ def make_recon_step(model: ModelAdaptive_Deep, tx_gen: schedules.AdamSchedule, f
 def make_full_step(model: ModelAdaptive_Deep, tx_reid: schedules.AdamSchedule,
                    tx_gen: schedules.AdamSchedule, num_pos: int):
     """``gen_inter``, the ReID step, the generator step:
-    ``step(state, batch) -> (state, metrics)``; ``batch`` holds ``gray``,
-    ``ir``, ``aug_rgb``, ``aug_ir`` ``(B, H, W, 3)`` and ``label``."""
-    mse = lambda a, b: torch.mean(torch.square(a - b))     # noqa: E731
+    ``step(state, batch) -> (state, metrics)``; ``batch`` holds the global
+    batch's ``gray``, ``ir``, ``aug_rgb``, ``aug_ir`` ``(B, H, W, 3)`` and
+    ``label`` (numpy arrays or tensors, host or device), of which this rank
+    takes its rows; the metrics are the global batch's."""
+    device = next(model.parameters()).device
 
     def step(state: AdaptiveState, batch: Dict[str, torch.Tensor]):
-        label = batch["label"].long()
-        gray, aug_rgb = batch["gray"], batch["aug_rgb"]
+        rows = batch["label"].shape[0]
+        local = par.local_batch(batch, device)
+        label = local["label"].long()
+        lab = torch.as_tensor(batch["label"]).to(device).long()
+        gray, aug_rgb = local["gray"], local["aug_rgb"]
+        mse = lambda a, b: par.share_mean(torch.square(a - b), rows)     # noqa: E731
+        ce = lambda s, y, groups=1: par.share_mean(                       # noqa: E731
+            F.cross_entropy(s, y, reduction="none"), groups * rows)
+        gather = lambda f: par.gather_batch(f, rows)                      # noqa: E731
 
         with torch.no_grad():       # gen_inter: gray fused with RGB person features
             featV, scoreV, feat2dV, _, f3V = model.encode_person(aug_rgb, train=True)
@@ -103,23 +125,25 @@ def make_full_step(model: ModelAdaptive_Deep, tx_reid: schedules.AdamSchedule,
 
         state.opt_reid.zero_grad(set_to_none=True)
         with mode(model.person_id, True):
-            featT, scoreT = model.person_id(xIR=batch["aug_ir"], modal=2)
+            featT, scoreT = model.person_id(xIR=local["aug_ir"], modal=2)
             featZ, scoreZ = model.person_id(xZ=inter, modal=3)
         with torch.no_grad():
             d_real = model.discriminate(torch.cat([featV, featT, featZ], dim=0))
-        loss_id = F.cross_entropy(torch.cat([scoreV, scoreT, scoreZ], dim=0),
-                                  torch.cat([label, label, label]))
-        loss_tri = (L.cross_triplet_loss(featV, featZ, featV, label, label, label)
-                    + L.cross_triplet_loss(featT, featZ, featT, label, label, label)
-                    + L.cross_triplet_loss(featZ, featT, featZ, label, label, label))
+        loss_id = ce(torch.cat([scoreV, scoreT, scoreZ], dim=0),
+                     torch.cat([label, label, label]), 3)
+        fv, ft, fz = gather(featV), gather(featT), gather(featZ)
+        loss_tri = (L.cross_triplet_loss(fv, fz, fv, lab, lab, lab)
+                    + L.cross_triplet_loss(ft, fz, ft, lab, lab, lab)
+                    + L.cross_triplet_loss(fz, ft, fz, lab, lab, lab))
         modal_free = mse(featZ, featV)
-        disc_true = F.cross_entropy(d_real, torch.cat([2 * label, 2 * label + 1, 2 * label]))
-        loss_re = loss_id + loss_tri + modal_free + disc_true
-        loss_re.backward()
+        disc_true = ce(d_real, torch.cat([2 * label, 2 * label + 1, 2 * label]), 3)
+        shares_re = loss_id + modal_free + disc_true
+        (shares_re + loss_tri).backward()
+        par.all_reduce_grads(state.opt_reid)
         schedules.fill_missing_grads(state.opt_reid)
         tx_reid.apply(state.opt_reid, state.step)
         state.opt_reid.step()
-        featT = featT.detach()
+        ft = ft.detach()
 
         state.opt_gen.zero_grad(set_to_none=True)
         with torch.no_grad():
@@ -131,23 +155,25 @@ def make_full_step(model: ModelAdaptive_Deep, tx_reid: schedules.AdamSchedule,
         with frozen(model.person_id), mode(model.person_id, False):
             featG, score, *_ = model.person_id(xIR=inter, modal=2, with_feature=True)
         d_fake = model.discriminate(featG)
-        loss_id_ir = F.cross_entropy(score, label)
-        n = label.shape[0] // num_pos
+        loss_id_ir = ce(score, label)
+        n = rows // num_pos
         grp = lambda f: f.reshape(n, num_pos, -1)              # noqa: E731
-        centerV, centerT = grp(featV).mean(dim=1), grp(featT).mean(dim=1)
-        centerG = grp(featG).mean(dim=1)
-        loss_feat_ir = mse(centerG, (centerV + centerT) / 2)
-        disc_fake = F.cross_entropy(d_fake, 2 * label + 1)
-        loss = 0.1 * (loss_id_ir + loss_feat_ir + disc_fake) + LATENT_LOSS_WEIGHT * latent
-        loss.backward()
+        centerV, centerT = grp(fv.detach()).mean(dim=1), grp(ft).mean(dim=1)
+        centerG = grp(gather(featG)).mean(dim=1)
+        loss_feat_ir = torch.mean(torch.square(centerG - (centerV + centerT) / 2))
+        disc_fake = ce(d_fake, 2 * label + 1)
+        latent = latent * (label.shape[0] / rows)
+        shares = 0.1 * (loss_id_ir + disc_fake) + LATENT_LOSS_WEIGHT * latent
+        (shares + 0.1 * loss_feat_ir).backward()
+        par.all_reduce_grads(state.opt_gen)
         schedules.fill_missing_grads(state.opt_gen)
         tx_gen.apply(state.opt_gen, state.step)
         state.opt_gen.step()
         state.step += 1
-        metrics = {"latent": latent, "id_ir": loss_id_ir, "feat_ir": loss_feat_ir,
-                   "disc_fake": disc_fake, "loss_gen": loss, "recon": torch.zeros(()),
-                   "loss_reid": loss_re}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, par.global_metrics(
+            {"latent": latent, "id_ir": loss_id_ir, "disc_fake": disc_fake, "loss_gen": shares,
+             "recon": torch.zeros(()), "loss_reid": shares_re},
+            {"feat_ir": loss_feat_ir, "loss_gen": 0.1 * loss_feat_ir, "loss_reid": loss_tri})
 
     return step
 
@@ -201,8 +227,10 @@ def train(args) -> Dict[str, float]:
         restored, name = CheckpointManager(args.ckpt_dir).restore_latest(map_location=device)
         if name:
             state.load_state_dict(restored)
-        print(f"resumed from {args.ckpt_dir}/{name}" if name else
-              f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+        if par.is_primary():
+            print(f"resumed from {args.ckpt_dir}/{name}" if name else
+                  f"no checkpoint in {args.ckpt_dir}; starting fresh", flush=True)
+    par.replicate(state.model)
     ckpt = CheckpointManager(args.ckpt_dir, config=vars(args)) if args.ckpt_dir else None
     recon_step = make_recon_step(model, tx_gen, pool_dim(args.arch))
     full_step = make_full_step(model, tx_reid, tx_gen, args.num_pos)
@@ -211,25 +239,28 @@ def train(args) -> Dict[str, float]:
     stage_steps = (args.stage_reconstruction if args.steps
                    else args.stage_reconstruction * steps_per_epoch)
 
-    csv = CsvLogger(args.metrics_csv)
+    primary = par.is_primary()
+    csv = CsvLogger(args.metrics_csv if primary else "")
     n_done, m, t0 = 0, {}, time.perf_counter()
     while n_done < total_steps:
         dataset.samplize(args.batch_size, args.num_pos)
         for rows in epoch_row_batches(dataset, loader_batch):
-            batch = cross_modal_batch(rows, host_rng, device)
+            batch = cross_modal_batch(rows, host_rng, "cpu")   # the global batch
             fn = recon_step if n_done < stage_steps else full_step
             state, metrics = fn(state, batch)
             n_done += 1
             if n_done % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = n_done * loader_batch / (time.perf_counter() - t0)
-                stage = "recon" if n_done <= stage_steps else "full"
-                print(f"step {n_done}/{total_steps} [{stage}] gen {m['loss_gen']:.3f} "
-                      f"reid {m['loss_reid']:.3f} latent {m['latent']:.4f} "
-                      f"({rate:.1f} img/s)", flush=True)
-                csv.log(n_done, dict(m, img_per_s=rate))
-            if sample_fn is not None and n_done % args.sample_every == 0:
-                dump_samples(sample_fn, batch, f"{args.sample_dir}/{n_done:05d}.png")
+                m = par.reduce_dict(metrics)
+                if primary:
+                    rate = n_done * loader_batch / (time.perf_counter() - t0)
+                    stage = "recon" if n_done <= stage_steps else "full"
+                    print(f"step {n_done}/{total_steps} [{stage}] gen {m['loss_gen']:.3f} "
+                          f"reid {m['loss_reid']:.3f} latent {m['latent']:.4f} "
+                          f"({rate:.1f} img/s)", flush=True)
+                    csv.log(n_done, dict(m, img_per_s=rate))
+            if sample_fn is not None and n_done % args.sample_every == 0 and primary:
+                dump_samples(sample_fn, {k: v.to(device) for k, v in batch.items()},
+                             f"{args.sample_dir}/{n_done:05d}.png")
             if ckpt and args.save_every and n_done % args.save_every == 0:
                 ckpt.save_periodic(n_done, state.state_dict())
             if n_done >= total_steps:
