@@ -28,8 +28,8 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               the launch counters to have gone through its kernel
 4. main     — stage 1: ``VQVAE()`` at full width, 256 px: ``forward`` and
               ``encode_ids`` at batch 128, then ``extract_codes.main`` into a
-              temporary directory, read back and compared with a direct
-              ``encode_ids``.  Stage 2: the two PixelSNAIL priors at full width
+              temporary directory, read back through the code store's native
+              library and compared with a direct ``encode_ids``.  Stage 2: the two PixelSNAIL priors at full width
               from checkpoints the run writes: the top prior's forward on a
               32x32 grid at batch 32, the incremental decoder against the full
               forward for both priors, and ``train/sample.py main`` by the
@@ -53,13 +53,16 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               plain versions at the inputs of the 13 ABNs of
               ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
               and at awkward shapes (one row, three channels, bf16, eval mode,
-              the elu asymptote); the backward twice, its sums bit for bit
+              the elu asymptote, z and dz off a 16-byte boundary); the
+              backward twice, its sums bit for bit; then K8's time over those
+              13 inputs (the fp32 half of the ``k8_step`` line)
 7. main_reid — the ReID path with the counters at zero before and read after:
               the eval forward at batch 50, ``train.reid.main --synthetic`` at
               its defaults for a few steps validating every epoch on a raw SYSU
               tree, the losses falling; one step held against the CPU
-8. times_reid — K7/K8 times against bound, plain and library; a ReID train
-              step and the eval forward, in fp32 and in bf16
+8. times_reid — K7/K8 times against bound, plain and library (K8 also with
+              its two entries timed apart beside their byte floors); a ReID
+              train step and the eval forward, in fp32 and in bf16
 9. main_train_bf16 — the three pipeline trainers with ``--bf16`` (stage 1 at
               batch 128 and 256 px, both priors at batch 32), the bf16 stage-1
               model's eval forward and ``encode_ids``, with the counters at
@@ -80,7 +83,9 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
 14. times_bf16 — K1-K3 on the bf16 stage-1 model's rows and K7/K8 on the bf16
               ReID model's, each first held against its plain version at the
               standing tolerances, and K4-K6 at the MNIST prior's shape: times
-              beside bound, plain and library
+              beside bound, plain and library; the ``k8_step`` line: K8 over
+              the 13 ABN inputs of one ReID step in fp32 and bf16, beside the
+              sums of their bounds
 15. main_deep — ``train/vqvae_deep.py main`` at its defaults (resnet18, P = K =
               4) on a 288x144 synthetic SYSU tree: ``ModelAdaptive_Deep`` at its
               fixed widths, K3 eight times a step and K2 eight times a sample
@@ -310,9 +315,10 @@ KERNELS = {
 }
 SOURCES = ("quantize", "flash_attention", "inplace_abn", "tc_probe")
 # Kernels of which no variant may spill registers (ptxas -v): both designs of
-# the dq kernel, the dk/dv kernel and the nearest-code search.
+# the dq kernel, the dk/dv kernel, the nearest-code search and K8's kernels.
 NO_SPILL_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_kernel",
-                    "nearest_code_kernel")
+                    "nearest_code_kernel", "abn_sums_ring_kernel", "abn_sums_generic_kernel",
+                    "abn_sums_final_kernel", "abn_dx_ring_kernel", "abn_backward_dx_kernel")
 # Shapes the JAX package runs that the kernels once refused: head widths that
 # are no multiple of 4 (D = 6 is --channel 96) or above 64, embed_dim that is
 # no multiple of 4 (and 1, and 66), and ABN channels above 2048.
@@ -517,7 +523,7 @@ def phase_build() -> None:
         built[name] = {"library": os.path.relpath(path), "nvcc_seconds": info["seconds"],
                        "ptxas": ptxas_summary(info["log"])}
     emit("build", seconds=time.perf_counter() - t0, sources=built)
-    spills = {k: v for src in ("flash_attention", "quantize")
+    spills = {k: v for src in ("flash_attention", "quantize", "inplace_abn")
               for k, v in built[src]["ptxas"].items()
               if k.startswith(NO_SPILL_KERNELS) and v.get("spill_store_bytes", 0)}
     check(not spills, f"a kernel that must not spill registers does: {spills}")
@@ -655,6 +661,9 @@ def run_extract(same_weights, tmp: str, weights_args) -> dict:
     seconds = time.perf_counter() - t0
     check(n == 4 * EXTRACT_BATCH, f"extract wrote {n} rows")
     store = CodeStore(store_path)
+    backend = store.backend
+    check(backend == "native", f"the code store read {store_path} by {backend}, not by its "
+                               "native library")
     tops, bots, labels, names = store.gather(np.arange(n), with_names=True)
     store.close()
     batches = n // EXTRACT_BATCH
@@ -673,7 +682,7 @@ def run_extract(same_weights, tmp: str, weights_args) -> dict:
     check(names[0] == "synthetic/0.png" and names[-1] == f"synthetic/{n - 1}.png"
           and not labels.any(), "code store names or labels")
     qz.launch_counts.update(after)     # the comparison's launches do not count
-    return {"rows": n, "seconds": seconds, "img_per_s": n / seconds,
+    return {"rows": n, "seconds": seconds, "img_per_s": n / seconds, "store_backend": backend,
             "codes_used_top": int(np.unique(tops).size),
             "codes_used_bottom": int(np.unique(bots).size)}
 
@@ -2192,10 +2201,20 @@ def float64_sums(z, dz, b, w_t, activation):
     return dy.sum(0), prod.sum(0), dy.abs().sum(0), prod.abs().sum(0)
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def compare_abn_with_plain(x, label, gen, activation=ia.ACT_LEAKY_RELU, training=True,
-                           shift_offset: float = 0.0) -> dict:
+                           shift_offset: float = 0.0, misalign: bool = False) -> dict:
     """K7 on ``x`` and K8 on its output against their plain versions; K8
-    twice, bit for bit; its sums against a float64 sum."""
+    twice, bit for bit; its sums against a float64 sum.  ``misalign``: K8
+    reads z and dz from copies off a 16-byte boundary."""
     m, c = x.shape
     v = abn_vectors(c, gen, x.float(), shift_offset)
     mean, scale, shift, w_t, mul = v["mean"], v["scale"], v["shift"], v["w_t"], v["mul"]
@@ -2206,6 +2225,8 @@ def compare_abn_with_plain(x, label, gen, activation=ia.ACT_LEAKY_RELU, training
     check(bool(torch.allclose(z.float(), z_plain.float(), **tol)),
           f"{label}: K7 differs from its plain version by {z_err}")
     dz = (1e-3 * torch.randn(m, c, generator=gen, device="cuda")).to(x.dtype)
+    if misalign:
+        z, dz = misaligned(z), misaligned(dz)
     inv = 1.0 / m if training else 0.0
     first = ia.abn_backward(z, dz, shift, w_t, mul, inv, training, activation)
     again = ia.abn_backward(z, dz, shift, w_t, mul, inv, training, activation)
@@ -2297,14 +2318,20 @@ def phase_abn_kernels() -> list:
         cases.append(through_kernels(
             ("abn_forward", "abn_backward"),
             lambda: compare_abn_with_plain(x, f"wide M=3000 C={c}", gen)))
+    # K8 on z and dz off a 16-byte boundary (the generic route), fp32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(4097, 48, generator=gen, device="cuda").to(dtype)
+        cases.append(through_kernels(
+            ("abn_forward", "abn_backward"),
+            lambda: compare_abn_with_plain(x, f"misaligned M=4097 C=48 {dtype}", gen,
+                                           misalign=True)))
     for cs in cases:
         if cs["case"].startswith("elu asymptote"):
             check(cs["z_max"] == -1.0, f"{cs['case']}: z did not saturate onto -1 ({cs['z_max']})")
     shapes = [(name, list(x.shape)) for name, x in inputs]
     emit("abn_kernels", tol=ABN_TOL, tol_bf16=ABN_TOL_BF16, sum_rtol=ABN_SUM_RTOL,
          main_path_shapes=shapes, cases=cases)
-    largest = max(inputs, key=lambda t: t[1].numel())
-    return cases, largest[1]
+    return cases, inputs
 
 
 def write_raw_sysu(root: str, n_ids: int = REID_IDS, per_cam: int = 2, hw=(64, 32),
@@ -2772,7 +2799,48 @@ def abn_work(name: str, m: int, c: int, itemsize: int) -> dict:
     if name == "abn_backward":
         passes = 5 if 2 * rows > ON_CHIP_BYTES else 3
         out["bound_two_pass_ms"] = max(passes * rows / PEAK_BYTES_PER_S * 1e3, t_ops)
+        # each entry alone: the sums read z and dz, the dx pass reads both and writes dx
+        out["sums_bound_ms"] = 2 * rows / PEAK_BYTES_PER_S * 1e3
+        out["dx_bound_ms"] = 3 * rows / PEAK_BYTES_PER_S * 1e3
     return out
+
+
+def k8_entries(z, dz, v: dict, inv_count: float) -> dict:
+    """K8's two entries alone and the whole backward, as callables on checked
+    rows ``z``, ``dz`` (the sums' result fed to the dx pass)."""
+    shift, w_t, mul = v["shift"], v["w_t"], v["mul"]
+    act, slope = ia.ACT_LEAKY_RELU, 0.01
+    stream = torch.cuda.current_stream().cuda_stream
+    edz, eydz = ia._backward_sums_cuda(z, dz, shift, w_t, True, act, slope, stream)
+    return {"sums": lambda: ia._backward_sums_cuda(z, dz, shift, w_t, True, act, slope, stream),
+            "dx": lambda: ia._backward_dx_cuda(z, dz, shift, w_t, mul, edz, eydz, inv_count,
+                                               act, slope, stream),
+            "backward": lambda: ia.abn_backward(z, dz, shift, w_t, mul, inv_count)}
+
+
+def k8_step(inputs: list, seed: int) -> dict:
+    """K8's time over the ABN inputs of one ReID step (one launch each, at
+    each input's shape and type), by CUDA events, beside the sums of each
+    shape's ``bound_ms`` and ``bound_two_pass_ms``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = []
+    for name, x in inputs:
+        m, c = x.shape
+        v = abn_vectors(c, gen, x.float())
+        z = ia.abn_forward(x, v["mean"], v["scale"], v["shift"])
+        dz = (1e-3 * torch.randn(m, c, generator=gen, device="cuda")).to(x.dtype)
+        work = abn_work("abn_backward", m, c, x.element_size())
+        shapes.append({"name": name, "m": m, "c": c,
+                       "ms": cuda_ms(lambda: ia.abn_backward(z, dz, v["shift"], v["w_t"],
+                                                             v["mul"], 1.0 / m), reps=20),
+                       "bound_ms": work["bound_ms"],
+                       "bound_two_pass_ms": work["bound_two_pass_ms"]})
+        del z, dz
+    total = {k: sum(s[k] for s in shapes) for k in ("ms", "bound_ms", "bound_two_pass_ms")}
+    return {"dtype": str(inputs[0][1].dtype), "launches": len(shapes), **total,
+            "share_of_bound": total["bound_ms"] / total["ms"],
+            "share_of_bound_two_pass": total["bound_two_pass_ms"] / total["ms"],
+            "shapes": shapes}
 
 
 def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
@@ -2802,6 +2870,8 @@ def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
                "abn_backward": (lib_bwd_ms, "autograd backward of F.batch_norm(training=True) + "
                                             "F.leaky_relu (dx, dw, db; forward outside the timer)")}
     main_cases = [cs for cs in cases if cs["case"].startswith("main path")]
+    entries = k8_entries(z, dz, v, 1.0 / m)
+    split = {f"{part}_ms": cuda_ms(entries[part], reps=20) for part in ("sums", "dx")}
     out = []
     for name, (kernel, plain) in run.items():
         work = abn_work(name, m, c, x.element_size())
@@ -2816,14 +2886,17 @@ def abn_records(x: torch.Tensor, launches: dict, cases: list) -> list:
                     "share_of_bound": work["bound_ms"] / ms, "bytes": work["bytes"],
                     "flops": work["flops"],
                     **({"bound_two_pass_ms": work["bound_two_pass_ms"],
-                        "share_of_bound_two_pass": work["bound_two_pass_ms"] / ms}
-                       if "bound_two_pass_ms" in work else {})})
+                        "share_of_bound_two_pass": work["bound_two_pass_ms"] / ms,
+                        **split, "sums_bound_ms": work["sums_bound_ms"],
+                        "dx_bound_ms": work["dx_bound_ms"]}
+                       if name == "abn_backward" else {})})
     return out
 
 
 def abn_wide_times(m_rows: int) -> dict:
-    """K7 and K8 at C = 4096 (channel vectors read from global memory), with
-    as many elements as the main path's largest shape, beside their bounds."""
+    """K7 and K8 at C = 4096 (K7 reads its channel vectors from global
+    memory; a K8 lane takes two 16-byte vectors of each row), with as many
+    elements as the main path's largest shape, beside their bounds."""
     c = 4096
     m = m_rows * 256 // c
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -3457,8 +3530,10 @@ def abn_bf16_records(launches: dict) -> list:
     emit("abn_kernels_bf16", tol_bf16=ABN_TOL_BF16, sum_rtol=ABN_SUM_RTOL, cases=cases)
     largest = max(inputs, key=lambda t: t[1].numel())[1]
     records = [renamed(r, "bf16") for r in abn_records(largest, launches, cases)]
+    step = k8_step(inputs, seed=17)
+    del inputs, largest
     torch.cuda.empty_cache()
-    return records
+    return records, step
 
 
 def attention_mnist_records(prior, codes: torch.Tensor, launches: dict) -> list:
@@ -3484,12 +3559,15 @@ def attention_mnist_records(prior, codes: torch.Tensor, launches: dict) -> list:
 
 
 def phase_times_bf16(bf, x, launches_bf16, launches_reid_bf16, mnist_prior, mnist_codes,
-                     launches_mnist) -> list:
+                     launches_mnist, step_fp32: dict) -> list:
     """The kernel records of the bf16 variants and of the MNIST prior's
-    attention shape."""
+    attention shape; the ``k8_step`` record of both types (``step_fp32``
+    from the fp32 ABN inputs)."""
     records = quantizer_bf16_records(bf, x, launches_bf16)
-    records += abn_bf16_records(launches_reid_bf16)
+    abn, step_bf16 = abn_bf16_records(launches_reid_bf16)
+    records += abn
     records += attention_mnist_records(mnist_prior, mnist_codes, launches_mnist)
+    emit("k8_step", float32=step_fp32, bfloat16=step_bf16)
     emit("times_bf16",
          kernels={r["name"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
                                                  "launches")} for r in records})
@@ -5921,7 +5999,10 @@ def main(argv=None) -> int:
                              attention_cases, stats_cases, attention_do, backward_cases,
                              train_dirs)
         torch.cuda.empty_cache()
-        abn_cases, abn_rows = phase_abn_kernels()
+        abn_cases, abn_inputs = phase_abn_kernels()
+        abn_rows = max(abn_inputs, key=lambda t: t[1].numel())[1]
+        step_fp32 = k8_step(abn_inputs, seed=16)
+        del abn_inputs
         with torch.enable_grad():
             reid_launches, _ = phase_main_reid(tmp)
         abn = abn_records(abn_rows, reid_launches, abn_cases)
@@ -5940,7 +6021,8 @@ def main(argv=None) -> int:
             launches_mnist, mnist_prior, mnist_codes = phase_main_mnist(tmp)
         bf = phase_bf16_vs_fp32(model, x, top)
         record["kernels"] += phase_times_bf16(bf, x, launches_bf16, launches_reid_bf16,
-                                              mnist_prior, mnist_codes, launches_mnist)
+                                              mnist_prior, mnist_codes, launches_mnist,
+                                              step_fp32)
         del bf, mnist_prior
         torch.cuda.empty_cache()
         with torch.enable_grad():

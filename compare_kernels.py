@@ -16,7 +16,16 @@ inputs and is timed by CUDA events in the order other, this, this, other:
   prior's B*H = 256, N = 1024, for head widths 16, 32 and 64, fp32 and bf16,
   without and with dropout 0.1;
 - the three nearest-code kernels at the stage-1 train step's shapes
-  (N = 524,288 and 131,072 rows, D = 64, K = 512).
+  (N = 524,288 and 131,072 rows, D = 64, K = 512);
+- the in-place ABN kernels at the inputs of the 13 ABNs of one ReID train
+  step (``EmbedNet2(resnet50)``, 72 images at 288x144), in fp32 and bf16:
+  K8 at each shape and its total over the 13 (``k8_step``), and at the
+  largest (M = 186,624, C = 256) K8's two entries apart and K7; then K8 at
+  C = 4096 (M = 11,664, fp32), where a lane of its ring takes two vectors of
+  each row.
+
+``--kernels`` picks some of ``attention``, ``search`` and ``abn`` (all by
+default).
 
 Prints the registers and spilled bytes of both checkouts' kernel variants,
 one JSON line a shape (each kernel's two times a checkout, and the largest
@@ -46,8 +55,9 @@ SEARCH_ROWS, SEARCH_D, SEARCH_K = (524288, 131072), 64, 512
 
 
 def load_ops(root: str) -> dict:
-    """``root``'s ``flash_attention`` and ``quantize`` modules, imported
-    beside whatever copy of the package is already loaded (which stays)."""
+    """``root``'s ``flash_attention``, ``quantize`` and ``inplace_abn``
+    modules, imported beside whatever copy of the package is already loaded
+    (which stays)."""
     def ours(name):
         return name == PACKAGE or name.startswith(PACKAGE + ".")
 
@@ -55,7 +65,7 @@ def load_ops(root: str) -> dict:
     sys.path.insert(0, root)
     try:
         mods = {name: importlib.import_module(f"{PACKAGE}.ops.{name}")
-                for name in ("flash_attention", "quantize")}
+                for name in ("flash_attention", "quantize", "inplace_abn")}
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if ours(k)]:
@@ -113,6 +123,104 @@ def compare_search(other, this, gen: torch.Generator):
                              for name, fn in calls.items()}}), flush=True)
 
 
+def abn_launchers(ia, x, z, dz, v: dict) -> dict:
+    """One checkout's K7 and K8 launchers on the same rows: K8 whole, and its
+    sums and dx entries apart.  A checkout whose wrapper has no split
+    helpers is driven through its two C entries as its wrapper drives them."""
+    m, c = z.shape
+    inv, act, slope = 1.0 / m, ia.ACT_LEAKY_RELU, 0.01
+    shift, w_t, mul = v["shift"], v["w_t"], v["mul"]
+    out = {"k7": lambda: ia._abn_forward_cuda(x, v["mean"], v["scale"], shift, act, slope),
+           "k8": lambda: ia._abn_backward_cuda(z, dz, shift, w_t, mul, inv, True, act, slope)}
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(ia, "_backward_sums_cuda"):
+        edz, eydz = ia._backward_sums_cuda(z, dz, shift, w_t, True, act, slope, stream)
+        out["k8_sums"] = lambda: ia._backward_sums_cuda(z, dz, shift, w_t, True, act, slope,
+                                                        stream)
+        out["k8_dx"] = lambda: ia._backward_dx_cuda(z, dz, shift, w_t, mul, edz, eydz, inv,
+                                                    act, slope, stream)
+        return out
+    lib = ia._library()
+    bf16 = int(z.dtype == torch.bfloat16)
+    edz, eydz = (torch.empty(c, device="cuda") for _ in range(2))
+    nbytes = lib.abn_backward_scratch_bytes(m, c)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dx = torch.empty_like(z)
+
+    def sums():
+        assert lib.abn_backward_sums(z.data_ptr(), dz.data_ptr(), shift.data_ptr(),
+                                     w_t.data_ptr(), edz.data_ptr(), eydz.data_ptr(),
+                                     scratch.data_ptr(), nbytes, m, c, 0, slope, 1, bf16,
+                                     stream) == 0
+        return edz
+
+    def dx_pass():
+        assert lib.abn_backward_dx(z.data_ptr(), dz.data_ptr(), dx.data_ptr(), shift.data_ptr(),
+                                   w_t.data_ptr(), mul.data_ptr(), edz.data_ptr(),
+                                   eydz.data_ptr(), m, c, 0, slope, inv, bf16, stream) == 0
+        return dx
+
+    sums()
+    return {**out, "k8_sums": sums, "k8_dx": dx_pass}
+
+
+def compare_abn(other, this):
+    """K7 and K8 of both checkouts at the 13 ABN inputs of one ReID train
+    step, fp32 and bf16, in turns."""
+    from chip_smoke import (BF16, REID_ARCH, REID_HW, REID_IDS, REID_K, REID_P, abn_vectors,
+                            abn_work, capture_abn_inputs, reid_batch)
+    from vqvae2_tpu_torch.part.part_model import EmbedNet2
+
+    for dtype in (torch.float32, BF16):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(4)
+            model = EmbedNet2(class_num=REID_IDS, arch=REID_ARCH, dtype=dtype).cuda()
+        with torch.no_grad():
+            inputs = capture_abn_inputs(model, reid_batch(4, REID_P, REID_K, REID_HW, REID_IDS))
+        del model
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        largest = max(range(len(inputs)), key=lambda i: inputs[i][1].numel())
+        step = {"other_ms": [0.0, 0.0], "this_ms": [0.0, 0.0], "bound_ms": 0.0,
+                "bound_two_pass_ms": 0.0}
+        for i, (name, x) in enumerate(inputs):
+            m, c = x.shape
+            with torch.no_grad():
+                v = abn_vectors(c, gen, x.float())
+                z = this["inplace_abn"].abn_forward(x, v["mean"], v["scale"], v["shift"])
+                dz = (1e-3 * torch.randn(m, c, generator=gen, device="cuda")).to(dtype)
+                a = abn_launchers(other["inplace_abn"], x, z, dz, v)
+                b = abn_launchers(this["inplace_abn"], x, z, dz, v)
+                parts = ("k8", "k8_sums", "k8_dx", "k7") if i == largest else ("k8",)
+                times = {p: in_turns(a[p], b[p], reps=20) for p in parts}
+            work = abn_work("abn_backward", m, c, x.element_size())
+            for who in ("other_ms", "this_ms"):
+                step[who] = [s + t for s, t in zip(step[who], times["k8"][who])]
+            step["bound_ms"] += work["bound_ms"]
+            step["bound_two_pass_ms"] += work["bound_two_pass_ms"]
+            print(json.dumps({"kernels": "abn", "name": name, "m": m, "c": c,
+                              "dtype": str(dtype)[6:], **times,
+                              **{k: work[k] for k in ("bound_ms", "bound_two_pass_ms",
+                                                      "sums_bound_ms", "dx_bound_ms")}}),
+                  flush=True)
+            del z, dz, a, b
+        print(json.dumps({"kernels": "k8_step", "dtype": str(dtype)[6:],
+                          "launches": len(inputs), **step}), flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    # K8 at C = 4096 (two vectors a lane) with as many elements as the largest input
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(186624 * 256 // 4096, 4096, generator=gen, device="cuda")
+    with torch.no_grad():
+        v = abn_vectors(x.shape[1], gen, x)
+        z = this["inplace_abn"].abn_forward(x, v["mean"], v["scale"], v["shift"])
+        dz = 1e-3 * torch.randn(*x.shape, generator=gen, device="cuda")
+        a = abn_launchers(other["inplace_abn"], x, z, dz, v)
+        b = abn_launchers(this["inplace_abn"], x, z, dz, v)
+        times = {p: in_turns(a[p], b[p], reps=20) for p in ("k8", "k8_sums", "k8_dx")}
+    print(json.dumps({"kernels": "abn", "name": "wide", "m": x.shape[0], "c": x.shape[1],
+                      "dtype": "float32", **times}), flush=True)
+
+
 def build_all(checkouts: dict) -> dict:
     """Every library of both checkouts, each nvcc started together; the
     ptxas summary of each."""
@@ -130,6 +238,8 @@ def build_all(checkouts: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True, help="a checkout of another commit")
+    ap.add_argument("--kernels", nargs="+", choices=("attention", "search", "abn"),
+                    default=("attention", "search", "abn"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -137,8 +247,12 @@ def main(argv=None) -> int:
     checkouts = {"other": load_ops(os.path.abspath(args.against)), "this": load_ops(ROOT)}
     print(json.dumps({"against": args.against, "built": build_all(checkouts)}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    compare_attention(checkouts["other"], checkouts["this"], gen)
-    compare_search(checkouts["other"], checkouts["this"], gen)
+    if "attention" in args.kernels:
+        compare_attention(checkouts["other"], checkouts["this"], gen)
+    if "search" in args.kernels:
+        compare_search(checkouts["other"], checkouts["this"], gen)
+    if "abn" in args.kernels:
+        compare_abn(checkouts["other"], checkouts["this"])
     print(run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     return 0
 

@@ -122,6 +122,44 @@ def test_codestore_backends_write_the_same_bytes(tmp_path, use_native):
     assert codestore.HEADER.size == 56 and codestore.MAGIC == jax_codestore.MAGIC
 
 
+def test_the_native_code_store_is_built_from_the_ports_own_source(tmp_path):
+    """``use_native=True`` loads the library built from
+    ``vqvae2_tpu_torch/data/csrc/codestore.cpp`` into the package's own
+    ``data/_built/`` (named by a hash of the source), never the JAX
+    package's ``native/`` build."""
+    path = str(tmp_path / "native.vq2")
+    with codestore.CodeStoreWriter(path, (2, 2), (4, 4), use_native=True) as w:
+        w.append(np.zeros((1, 2, 2)), np.zeros((1, 4, 4)), np.zeros(1), ["a"])
+    store = codestore.CodeStore(path, use_native=True)
+    assert store.backend == "native" and len(store) == 1
+    store.close()
+    package = os.path.dirname(os.path.dirname(os.path.realpath(codestore.__file__)))
+    lib = os.path.realpath(codestore._load_native()._name)
+    assert lib == os.path.realpath(codestore.library_path())
+    assert os.path.dirname(lib) == os.path.realpath(codestore.BUILD_DIR)
+    assert lib.startswith(os.path.join(package, "data", "_built", "libcodestore_"))
+    assert os.path.realpath(codestore.SOURCE) == os.path.join(package, "data", "csrc",
+                                                              "codestore.cpp")
+
+
+def test_use_native_raises_where_the_native_store_cannot_be_built(tmp_path, monkeypatch):
+    """No compiler (or a failed build) is an error with ``use_native=True``,
+    not a quiet switch to numpy; ``use_native=False`` takes the numpy
+    backend."""
+    monkeypatch.setattr(codestore, "_lib", None)
+    monkeypatch.setattr(codestore, "library_path", lambda: str(tmp_path / "libcodestore.so"))
+    monkeypatch.setattr(codestore.shutil, "which", lambda name: None)
+    path = str(tmp_path / "codes.vq2")
+    with pytest.raises(RuntimeError, match="no g\\+\\+"):
+        codestore.CodeStoreWriter(path, (2, 2), (4, 4), use_native=True)
+    with codestore.CodeStoreWriter(path, (2, 2), (4, 4), use_native=False) as w:
+        w.append(np.zeros((1, 2, 2)), np.zeros((1, 4, 4)), np.zeros(1), ["a"])
+    with pytest.raises(RuntimeError, match="no g\\+\\+"):
+        codestore.CodeStore(path, use_native=True)
+    assert codestore.CodeStore(path, use_native=False).backend == "numpy"
+    assert not os.path.exists(tmp_path / "libcodestore.so")
+
+
 def test_main_synthetic_random_init_on_cpu(tmp_path, capsys):
     out = str(tmp_path / "codes.vq2")
     n = extract_codes.main(["--synthetic", "--random_init", "--device", "cpu", "--size",

@@ -14,6 +14,7 @@ against the same plain version on the card.
 """
 
 import importlib
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -337,3 +338,163 @@ def test_more_channels_than_a_shared_copy_holds_match_the_jax_op(activation):
         terms = ((y - bt) / (wt.abs() + 1e-5) * dy).abs().sum(0).numpy()
     err = np.abs(wt.grad.numpy() - np.asarray(want[1]))
     assert np.all(err <= GRAD_TOL["rtol"] * terms + GRAD_TOL["atol"]), float(np.max(err / terms))
+
+
+# ---------------------------------------------------------------------------
+# K8's row partition and its fixed summation order
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's bound on the kernel's sums against a float64 sum: each within
+# this fraction of the sum of its terms' magnitudes
+ABN_SUM_RTOL = 1e-5
+PARTITION_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", PARTITION_DTYPES, ids=str)
+@pytest.mark.parametrize("c", [3, 48, 256, 2049])
+def test_row_partition_covers_each_row_once(c, dtype):
+    """Whole tiles of rows dealt to the blocks: every row in exactly one tile
+    of exactly one block, no block without a tile, at most
+    ``PARTITION_BLOCKS`` of them, each block's tiles in rising order, from one
+    row to far beyond one tile; the same again from ``(M, C, dtype)``
+    alone."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile = max(1, ta.TILE_BYTES // (c * itemsize))
+    lanes = ta.summation_lanes(c, dtype)
+    for m in sorted({1, 2, 7, max(1, tile - 1), tile, tile + 1, 3 * tile + 5,
+                     ta.PARTITION_BLOCKS * tile + 3, 186624}):
+        tile_rows, blocks = ta.row_partition(m, c, dtype)
+        assert tile_rows * c * itemsize <= max(ta.TILE_BYTES, c * itemsize)
+        assert tile_rows == min(tile, m) or (tile_rows % lanes == 0 and tile - lanes < tile_rows)
+        assert 1 <= blocks <= ta.PARTITION_BLOCKS
+        assert blocks == min(ta.PARTITION_BLOCKS, -(-m // tile_rows))
+        per_block = ta.block_tiles(m, tile_rows, blocks)
+        assert len(per_block) == blocks and all(len(t) for t in per_block)
+        seen = np.zeros(m, np.int64)
+        for tiles in per_block:
+            assert list(tiles) == sorted(tiles)
+            for t in tiles:
+                seen[t * tile_rows:min(m, (t + 1) * tile_rows)] += 1
+        assert (seen == 1).all()
+        ta.row_partition.cache_clear()
+        assert ta.row_partition(m, c, dtype) == (tile_rows, blocks)
+    assert list(inspect.signature(ta.row_partition).parameters) == ["m", "c", "dtype"]
+
+
+def _fma32(a, b, acc):
+    """float32 fma(a, b, acc): the product is exact in float64."""
+    return (a.astype(np.float64) * b + acc).astype(np.float32)
+
+
+def _emulated_sums(z2d, dz2d, bias_t, weight_t, activation, aligned=True):
+    """``(edz, eydz)`` in float32 in K8's order: lane ``l`` of ``L`` taking
+    positions ``l, l + L, ...`` of its block's rows, its tiles' rows in order
+    (a sum and an FMA a row), the lanes added in order; then 32 groups of
+    consecutive blocks, each summed in block order, added in order."""
+    m, c = z2d.shape
+    tile_rows, blocks = ta.row_partition(m, c, z2d.dtype)
+    lanes = ta.summation_lanes(c, z2d.dtype, aligned)
+    y, dy = ta.act_invert(z2d.float(), dz2d.float(), activation, 0.01)
+    yhat = ((y - bias_t) * (1.0 / weight_t)).numpy()
+    dy = dy.numpy()
+    parts = np.zeros((2, blocks, c), np.float32)
+    for b, tiles in enumerate(ta.block_tiles(m, tile_rows, blocks)):
+        se, sy = np.zeros((2, lanes, c), np.float32)
+        rows = [row for t in tiles for row in range(t * tile_rows, min(m, (t + 1) * tile_rows))]
+        for p, row in enumerate(rows):
+            se[p % lanes] += dy[row]
+            sy[p % lanes] = _fma32(yhat[row], dy[row], sy[p % lanes])
+        for k, s in enumerate((se, sy)):
+            parts[k, b] = s[0]
+            for lane in range(1, lanes):
+                parts[k, b] += s[lane]
+    out = []
+    for k in range(2):
+        groups = [np.zeros(c, np.float32) for _ in range(32)]
+        for g in range(32):
+            for b in range(g * blocks // 32, (g + 1) * blocks // 32):
+                groups[g] += parts[k, b]
+        total = groups[0]
+        for g in range(1, 32):
+            total = total + groups[g]
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("activation", [ta.ACT_LEAKY_RELU, ta.ACT_ELU])
+@pytest.mark.parametrize("m,c,dtype,aligned,shift", [
+    (1, 48, torch.float32, True, 0.0),
+    (7, 3, torch.float32, True, 0.0),
+    (1031, 48, torch.float32, True, 0.0),
+    (513, 256, torch.bfloat16, True, 0.0),
+    (1500, 256, torch.float32, True, 0.0),
+    (1031, 48, torch.float32, False, 0.0),
+    (2000, 3, torch.bfloat16, True, 0.0),
+    (4096, 48, torch.bfloat16, True, -40.0),    # every z far below 0: elu on its asymptote -1
+], ids=lambda v: str(v))
+def test_the_fixed_summation_order_stays_within_abn_sum_rtol_of_float64(
+        activation, m, c, dtype, aligned, shift):
+    """K8's sums as its kernels order them (the ring route, or the generic
+    one where ``aligned`` is off or the rows are no whole vectors), emulated
+    in float32, against a float64 sum of the same fp32 terms: within
+    ABN_SUM_RTOL of the sum of the terms' magnitudes, the bound chip_smoke.py
+    holds the kernel to on the card."""
+    g = np.random.default_rng(m * 7 + c)
+    w = g.normal(size=(c,)).astype(np.float32)
+    w_t = _t(np.abs(w) + np.float32(1e-5))
+    b = _t((0.3 * g.normal(size=(c,)) + shift).astype(np.float32))
+    x = _t(g.normal(size=(m, c)).astype(np.float32))
+    mean, var = ta.batch_moments(x)
+    scale = torch.rsqrt(var + 1e-5) * w_t
+    z = ta.abn_forward_reference(x.to(dtype), mean, scale, b, activation)
+    dz = _t((1e-3 * g.normal(size=(m, c))).astype(np.float32)).to(dtype)
+    if shift and activation == ta.ACT_ELU:
+        assert float(z.float().max()) == -1.0
+    edz, eydz = _emulated_sums(z, dz, b, w_t, activation, aligned)
+    assert np.isfinite(edz).all() and np.isfinite(eydz).all()
+    # the terms the kernel sums: the fp32 inversion and yhat, widened
+    y, dy = ta.act_invert(z.float(), dz.float(), activation, 0.01)
+    dy = dy.double()
+    prod = ((y - b) * (1.0 / w_t)).double() * dy
+    for name, got, terms in (("edz", edz, dy), ("eydz", eydz, prod)):
+        err = np.abs(got - terms.sum(0).numpy())
+        mag = terms.abs().sum(0).numpy()
+        assert np.all(err <= ABN_SUM_RTOL * mag + 1e-30), (name, float(np.max(err / mag)))
+
+
+def test_both_entries_take_the_partition_and_one_allocation(monkeypatch):
+    """The host side of K8 without a card: the two C entries get the
+    partition of ``row_partition`` and the caller's stream, and the sums and
+    the blocks' partial rows share one allocation laid out as the entry
+    expects (edz, eydz, then the scratch)."""
+    calls = {}
+
+    class Lib:
+        def abn_backward_scratch_bytes(self, c, blocks):
+            return 2 * blocks * c * 4
+
+        def abn_backward_sums(self, *args):
+            calls["sums"] = args
+            return 0
+
+        def abn_backward_dx(self, *args):
+            calls["dx"] = args
+            return 0
+
+    monkeypatch.setattr(ta, "_library", lambda: Lib())
+    m, c = 3000, 256
+    z = torch.zeros(m, c)
+    v = torch.ones(c)
+    edz, eydz = ta._backward_sums_cuda(z, z, v, v, True, ta.ACT_ELU, 0.01, stream=7)
+    ta._backward_dx_cuda(z, z, v, v, v, edz, eydz, 1.0 / m, ta.ACT_ELU, 0.01, stream=7)
+    tile_rows, blocks = ta.row_partition(m, c, torch.float32)
+    assert tile_rows == ta.TILE_BYTES // (4 * c) and blocks == min(ta.PARTITION_BLOCKS,
+                                                                   -(-m // tile_rows))
+    sums, dx = calls["sums"], calls["dx"]
+    assert sums[-3:] == (tile_rows, blocks, 7) and dx[-3:] == (tile_rows, blocks, 7)
+    at = sums[4]
+    assert (edz.data_ptr(), eydz.data_ptr()) == (at, at + 4 * c) == dx[6:8]
+    assert sums[6] == at + 8 * c and sums[7] == 2 * blocks * c * 4
+    assert edz.untyped_storage().nbytes() == 8 * c + sums[7]
+    ta._backward_sums_cuda(z, z, v, v, False, ta.ACT_ELU, 0.01, stream=7)
+    assert calls["sums"][7] == 0 and calls["sums"][12] == 0

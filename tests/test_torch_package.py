@@ -216,7 +216,7 @@ def test_compare_kernels_loads_another_checkout_beside_this_one(tmp_path):
     shutil.copytree(PACKAGE, str(tmp_path / "vqvae2_tpu_torch"),
                     ignore=shutil.ignore_patterns("_built", "__pycache__"))
     other = compare_kernels.load_ops(str(tmp_path))
-    assert set(other) == {"flash_attention", "quantize"}
+    assert set(other) == {"flash_attention", "quantize", "inplace_abn"}
     for mod in other.values():
         assert os.path.dirname(mod.__file__) == str(tmp_path / "vqvae2_tpu_torch" / "ops")
         assert mod._build.BUILD_DIR == str(tmp_path / "vqvae2_tpu_torch" / "ops" / "_built")

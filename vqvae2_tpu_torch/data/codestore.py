@@ -5,9 +5,13 @@ written by either package is read by the other.
 
 Two backends, one on-disk format:
 
-* **native** — ``native/libcodestore.so`` (C++): mmap'd reads and a
-  thread-parallel batch gather, bound via ctypes.
-* **numpy** — structured-dtype ``np.memmap`` fallback with identical layout.
+* **native** (``use_native=True``) — the port's own C++ source,
+  ``data/csrc/codestore.cpp``: mmap'd reads and a thread-parallel batch
+  gather, built with ``g++`` at first use into ``data/_built/`` (git ignores
+  it; the file name carries a hash of the source and the flags) and bound via
+  ctypes.  A failed build or load raises.
+* **numpy** (``use_native=False``) — a structured-dtype ``np.memmap`` with
+  identical layout.
 
 Header (56 B): ``8s magic 'VQ2CODES' | i64 version | i64 count | i64 top_h |
 i64 top_w | i64 bot_h | i64 bot_w``; then ``count`` packed records of
@@ -17,10 +21,12 @@ i64 top_w | i64 bot_h | i64 bot_w``; then ``count`` packed records of
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import struct
 import subprocess
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,34 +34,51 @@ MAGIC = b"VQ2CODES"
 HEADER = struct.Struct("<8sqqqqqq")  # 56 bytes
 NAME_LEN = 64
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libcodestore.so")
+_DATA_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_DATA_DIR, "csrc", "codestore.cpp")
+BUILD_DIR = os.path.join(_DATA_DIR, "_built")
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-pthread")
 
-_lib = None
-_lib_tried = False
+_lib: Optional[ctypes.CDLL] = None
 
 
-def _load_native() -> Optional[ctypes.CDLL]:
-    """Load (building on first use) the native library; None if unavailable."""
-    global _lib, _lib_tried
-    if _lib_tried:
+def library_path() -> str:
+    """Where the native library of this source and these flags lives."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + "\0".join(CXX_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"libcodestore_{digest[:16]}.so")
+
+
+def build() -> str:
+    """Compile ``csrc/codestore.cpp`` with ``g++`` unless its library is
+    already there; returns the library's path.  Raises if there is no
+    compiler or the build fails."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no g++ on PATH to build the native code store")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"building the native code store failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent process sees all or nothing
+    return out
+
+
+def _load_native() -> ctypes.CDLL:
+    """The native library, built at first use; raises if it cannot be built
+    or loaded."""
+    global _lib
+    if _lib is not None:
         return _lib
-    _lib_tried = True
-    if not os.path.exists(_SO_PATH) and os.path.exists(
-        os.path.join(_NATIVE_DIR, "Makefile")
-    ):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-    if not os.path.exists(_SO_PATH):
-        return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
-        return None
+    lib = ctypes.CDLL(build())
     lib.cs_create.restype = ctypes.c_void_p
     lib.cs_create.argtypes = [ctypes.c_char_p] + [ctypes.c_int64] * 4
     lib.cs_append.restype = ctypes.c_int64

@@ -20,11 +20,14 @@ they use the plain PyTorch version below, which is also what the kernels are
 compared with on the card.  Two kernels are ported:
 
 * ``abn_forward``  — the fused normalise + activate pass (K7)
-* ``abn_backward`` — the per-channel sums ``edz``, ``eydz`` (partial sums per
-  row block, then summed in a fixed order: bit-repeatable) and the ``dx`` pass
-  (K8): two entries of the source, ``abn_backward_sums`` and
+* ``abn_backward`` — the per-channel sums ``edz``, ``eydz`` and the ``dx``
+  pass (K8): two entries of the source, ``abn_backward_sums`` and
   ``abn_backward_dx``, launched by one wrapper, which can reduce the sums
-  between them
+  between them.  Both walk the row partition of :func:`row_partition` —
+  whole tiles of rows dealt to persistent blocks (:func:`block_tiles`) —
+  which depends on ``(M, C, dtype)`` alone; the sums are taken in a fixed
+  order over it (:func:`summation_lanes` says how a block splits a tile), so
+  they repeat bit for bit
 
 :func:`batch_moments` stays torch reductions in fp32 with the JAX formula
 ``E[x^2] - E[x]^2``, as it lies outside the Pallas kernels in the JAX package
@@ -38,8 +41,10 @@ between the two entries, and ``dx`` takes ``1 / n_global``.  ``dweight`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,8 +56,19 @@ ACT_ELU = "elu"
 ACT_NONE = "none"
 _ACT_CODES = {ACT_LEAKY_RELU: 0, ACT_ELU: 1, ACT_NONE: 2}
 
-# The sums' grid has one slab of 32 channels per y index (at most 65,535).
+# The generic route's sums grid has one slab of 32 channels per y index (at
+# most 65,535).
 MAX_C = 32 * 65535
+# K8's row partition: a tile holds about TILE_BYTES of z (and as much of dz);
+# the tiles are dealt to at most PARTITION_BLOCKS persistent blocks, one on
+# each of an H100's 132 SMs.
+TILE_BYTES = 16384
+PARTITION_BLOCKS = 132
+# Consumer threads of a K8 block; threads and channels of a block of the
+# generic route.
+RING_CONSUMERS = 512
+GENERIC_THREADS = 256
+GENERIC_SLAB = 32
 # The elu inversion clamps z here: storage can round z onto the asymptote -1.
 ELU_CLAMP = -1.0 + 1e-6
 
@@ -155,6 +171,63 @@ def abn_backward_reference(
 
 
 # ---------------------------------------------------------------------------
+# K8's row partition and summation order
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def row_partition(m: int, c: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(tile_rows, blocks)`` of K8 for ``M`` rows of ``C`` channels in
+    ``dtype``: tiles of whole rows holding about ``TILE_BYTES`` each (fewer
+    rows when M is smaller; for rows the ring route takes, a whole number of
+    its lanes' rows), dealt to ``blocks`` persistent blocks, at least one tile
+    each (:func:`block_tiles`).  Nothing but the shape and the type decides
+    it, so the sums repeat from run to run and from card to card."""
+    if m < 1 or c < 1:
+        raise ValueError(f"need M >= 1 and C >= 1, got M={m}, C={c}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile_rows = max(1, min(m, TILE_BYTES // (c * itemsize)))
+    lanes = _ring_lanes(c, itemsize)
+    if lanes and lanes < tile_rows < m:
+        tile_rows -= tile_rows % lanes
+    tiles = -(-m // tile_rows)
+    return tile_rows, min(PARTITION_BLOCKS, tiles)
+
+
+def block_tiles(m: int, tile_rows: int, blocks: int) -> List[range]:
+    """The tiles of each block in the order the sums pass takes them (the dx
+    pass takes them the other way round): block ``b`` takes tiles ``b,
+    b + blocks, b + 2 * blocks, ...``, so the blocks sweep the rows together
+    and the last tiles of every block are the last rows; tile ``t`` holds
+    rows ``[t * tile_rows, min(M, (t + 1) * tile_rows))``."""
+    tiles = -(-m // tile_rows)
+    return [range(b, tiles, blocks) for b in range(blocks)]
+
+
+def _ring_lanes(c: int, itemsize: int) -> int:
+    """Lanes of the ring route for rows of ``C`` values of ``itemsize``
+    bytes, or 0 where it does not take them: rows that are no whole number of
+    16-byte vectors, or more vectors than a consumer thread each (two each in
+    fp32, where one lane takes every row)."""
+    nvec, rest = divmod(c * itemsize, 16)
+    most = RING_CONSUMERS * (2 if itemsize == 4 else 1)
+    return max(1, RING_CONSUMERS // nvec) if not rest and nvec <= most else 0
+
+
+def summation_lanes(c: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """How many lanes ``L`` of a K8 block share a channel: lane ``l`` sums
+    positions ``l, l + L, ...`` of the block's rows (its tiles' rows in
+    order), and the ``L`` lane sums are added in lane order.  Rows of whole
+    16-byte vectors, C up to 4096, with the tensors ``aligned`` on 16 bytes,
+    take the ring route: a lane owns a vector of ``16 / itemsize`` channels
+    (two in fp32 above 2048 channels, where one lane takes every row).
+    Anything else takes the generic route: a lane owns a channel of a slab of
+    ``min(C, GENERIC_SLAB)``, and ``GENERIC_THREADS / min(C, GENERIC_SLAB)``
+    lanes share it."""
+    lanes = _ring_lanes(c, torch.empty((), dtype=dtype).element_size())
+    return lanes if aligned and lanes else GENERIC_THREADS // min(c, GENERIC_SLAB)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/inplace_abn.cu)
 # ---------------------------------------------------------------------------
 
@@ -169,13 +242,13 @@ def _library() -> ctypes.CDLL:
         lib.abn_forward.restype = i32
         lib.abn_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, f32, i32, ptr]
         lib.abn_backward_scratch_bytes.restype = i64
-        lib.abn_backward_scratch_bytes.argtypes = [i64, i32]
+        lib.abn_backward_scratch_bytes.argtypes = [i32, i32]
         lib.abn_backward_sums.restype = i32
         lib.abn_backward_sums.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
-                                          f32, i32, i32, ptr]
+                                          f32, i32, i32, i32, i32, ptr]
         lib.abn_backward_dx.restype = i32
         lib.abn_backward_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
-                                        f32, f32, i32, ptr]
+                                        f32, f32, i32, i32, i32, ptr]
         lib.abn_error_string.restype = ctypes.c_char_p
         lib.abn_error_string.argtypes = [i32]
         _lib = lib
@@ -240,6 +313,52 @@ def _no_rows_backward(z2d, reduce_sums: Optional[SumsReducer]):
     return torch.empty_like(z2d), edz, eydz
 
 
+def _backward_sums_cuda(z2d, dz2d, bias_t, weight_t, training: bool, activation: str,
+                        slope: float, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's first entry on checked CUDA rows, on ``stream`` of their device
+    (which is current): ``(edz, eydz)``, zero in eval mode.  One allocation
+    holds both and the blocks' partial rows.  Counts no launch (the backward
+    does)."""
+    lib = _library()
+    m, c = z2d.shape
+    tile_rows, blocks = row_partition(m, c, z2d.dtype)
+    nbytes = lib.abn_backward_scratch_bytes(c, blocks) if training else 0
+    buf = torch.empty((2 * c + nbytes // 4,), dtype=torch.float32, device=z2d.device)
+    at = buf.data_ptr()
+    code = lib.abn_backward_sums(
+        z2d.data_ptr(), dz2d.data_ptr(), bias_t.data_ptr(), weight_t.data_ptr(), at, at + 4 * c,
+        at + 8 * c, nbytes, m, c, _ACT_CODES[activation], slope, int(training),
+        int(z2d.dtype == torch.bfloat16), tile_rows, blocks, stream)
+    _raise_on_error(lib, code, "abn_backward_sums")
+    return buf[:c], buf[c:2 * c]
+
+
+def _backward_dx_cuda(z2d, dz2d, bias_t, weight_t, mul, edz, eydz, inv_count: float,
+                      activation: str, slope: float, stream: int) -> torch.Tensor:
+    """K8's second entry on checked CUDA rows, on ``stream`` of their device
+    (which is current): ``dx`` from the sums (this call's, or summed over the
+    ranks).  Counts no launch."""
+    lib = _library()
+    m, c = z2d.shape
+    tile_rows, blocks = row_partition(m, c, z2d.dtype)
+    dx = torch.empty_like(z2d)
+    code = lib.abn_backward_dx(
+        z2d.data_ptr(), dz2d.data_ptr(), dx.data_ptr(), bias_t.data_ptr(), weight_t.data_ptr(),
+        mul.data_ptr(), edz.data_ptr(), eydz.data_ptr(), m, c, _ACT_CODES[activation], slope,
+        inv_count, int(z2d.dtype == torch.bfloat16), tile_rows, blocks, stream)
+    _raise_on_error(lib, code, "abn_backward_dx")
+    return dx
+
+
+def _on_device(t: torch.Tensor):
+    """A context that makes ``t``'s device current for the launches (none is
+    needed where it already is; a context switch costs microseconds, which
+    count at K8's smaller shapes)."""
+    index = t.get_device()
+    return contextlib.nullcontext() if index == torch.cuda.current_device() else \
+        torch.cuda.device(index)
+
+
 def _abn_backward_cuda(
     z2d: torch.Tensor, dz2d: torch.Tensor, bias_t: torch.Tensor, weight_t: torch.Tensor,
     mul: torch.Tensor, inv_count: float, training: bool, activation: str, slope: float,
@@ -254,28 +373,14 @@ def _abn_backward_cuda(
                          f"{dz2d.device} {dz2d.dtype} {tuple(dz2d.shape)}")
     if not dz2d.is_contiguous():
         raise ValueError("dz must be contiguous")
-    lib = _library()
-    m, c = z2d.shape
-    bf16 = int(z2d.dtype == torch.bfloat16)
-    dx = torch.empty_like(z2d)
-    edz = torch.empty((c,), dtype=torch.float32, device=z2d.device)
-    eydz = torch.empty((c,), dtype=torch.float32, device=z2d.device)
-    nbytes = lib.abn_backward_scratch_bytes(m, c) if training else 0
-    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=z2d.device)
-    with torch.cuda.device(z2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.abn_backward_sums(
-            z2d.data_ptr(), dz2d.data_ptr(), bias_t.data_ptr(), weight_t.data_ptr(),
-            edz.data_ptr(), eydz.data_ptr(), scratch.data_ptr(), nbytes, m, c,
-            _ACT_CODES[activation], slope, int(training), bf16, stream)
-        _raise_on_error(lib, code, "abn_backward_sums")
+    _library()   # built at first use, before the device is touched
+    with _on_device(z2d):
+        stream = torch._C._cuda_getCurrentRawStream(z2d.get_device())
+        edz, eydz = _backward_sums_cuda(z2d, dz2d, bias_t, weight_t, training, activation,
+                                        slope, stream)
         g_edz, g_eydz = reduce_sums(edz, eydz) if reduce_sums is not None else (edz, eydz)
-        g_edz, g_eydz = g_edz.contiguous(), g_eydz.contiguous()
-        code = lib.abn_backward_dx(
-            z2d.data_ptr(), dz2d.data_ptr(), dx.data_ptr(), bias_t.data_ptr(),
-            weight_t.data_ptr(), mul.data_ptr(), g_edz.data_ptr(), g_eydz.data_ptr(), m, c,
-            _ACT_CODES[activation], slope, inv_count, bf16, stream)
-    _raise_on_error(lib, code, "abn_backward_dx")
+        dx = _backward_dx_cuda(z2d, dz2d, bias_t, weight_t, mul, g_edz.contiguous(),
+                               g_eydz.contiguous(), inv_count, activation, slope, stream)
     launch_counts["abn_backward"] += 1
     return dx, edz, eydz
 
