@@ -184,6 +184,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import gc
 import itertools
 import json
 import os
@@ -381,6 +382,47 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The parts of a nearest-code call, by substrings of its kernels' names.
+SEARCH_PARTS = (("codebook_prep", "prologue"), ("nearest_code_kernel", "search"),
+                ("merge_kernel", "merge"), ("hist_kernel", "stats_tail"),
+                ("column_scan_kernel", "stats_tail"), ("code_scan_kernel", "stats_tail"),
+                ("scatter_kernel", "stats_tail"), ("piece_sum_kernel", "stats_tail"),
+                ("code_sum_kernel", "stats_tail"))
+
+
+def search_parts(fn, reps: int = 20) -> dict:
+    """A nearest-code call ``fn`` taken apart: the device µs a call of each
+    part (prologue, search, merge, the statistics tail, and PyTorch's own
+    kernels such as the zero statistics of the lookup flavour as ``other``)
+    by ``torch.profiler``'s kernel records, and the host µs a call takes to
+    enqueue it: the median of five runs of 20 calls by the host's clock, no
+    synchronise between the calls of a run."""
+    runs = []
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        runs.append((time.perf_counter() - t0) / 20 * 1e6)
+    host_us = float(np.median(runs))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((p for key, p in SEARCH_PARTS if key in e.name), "other")
+        parts[part] = parts.get(part, 0.0) + e.device_time_total / reps
+    if not parts:
+        return {"host_us": host_us, "device_us": "not measured: the profiler recorded no "
+                                                   "device time"}
+    return {"host_us": host_us, "device_us": parts, "device_us_sum": sum(parts.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -597,6 +639,11 @@ def phase_kernels(model, x: torch.Tensor):
     flat_t, flat_b = capture_quantizer_inputs(model, x)
     check(flat_t.shape == (BATCH * 32 * 32, D) and flat_b.shape == (BATCH * 64 * 64, D),
           f"main-path shapes {tuple(flat_t.shape)} {tuple(flat_b.shape)}")
+    # the stage-1 grids fill the card with row tiles: the search is not split
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stage1_ranges = {n: qz.search_split(n, K, sms) for n in (flat_t.shape[0], flat_b.shape[0])}
+    check(all(r == 1 for r in stage1_ranges.values()),
+          f"the stage-1 grids split the search: {stage1_ranges}")
     cases.append(compare_with_plain(flat_t, model.quantize_t.embed, "main path, top grid"))
     cases.append(compare_with_plain(flat_b, model.quantize_b.embed, "main path, bottom grid"))
     for n in (flat_t.shape[0], flat_b.shape[0]):
@@ -624,7 +671,8 @@ def phase_kernels(model, x: torch.Tensor):
             ("nearest_code_stats",),
             lambda: compare_stats_with_plain(flat, embed, f"embed_dim={d}, statistics")))
     emit("kernels", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, cases=cases, stats_cases=stats,
-         odd_shape_cases=odd)
+         odd_shape_cases=odd,
+         stage1_search_ranges=stage1_ranges)
     return flat_t, flat_b, cases, stats
 
 
@@ -3944,6 +3992,46 @@ def seed_deep_codebooks(model, batch) -> None:
         quantizer.embed_avg.copy_(flat[pick])
 
 
+def candidate_ranges(k: int) -> range:
+    """The splits of the codebook walk over ``k`` codes that the tests here
+    try: one range up to four (or as many as there are chunks)."""
+    return range(1, min(4, -(-k // qz.CHUNK)) + 1)
+
+
+def splits_against_whole(flat: torch.Tensor, embed: torch.Tensor, label: str) -> dict:
+    """The three kernels at every split against the whole walk (one range)
+    on the same rows: ids, ``q``, ``csum`` and ``esum`` bit-equal (the merge
+    keeps the first maximum, and ``esum`` sums in an order fixed by the
+    ids)."""
+    def outputs(ranges):
+        return (qz._nearest_code_ids_cuda(flat, embed, ranges),
+                *qz._nearest_code_lookup_cuda(flat, embed, ranges),
+                *qz._nearest_code_stats_cuda(flat, embed, ranges))
+
+    want = outputs(1)
+    differ = [r for r in candidate_ranges(embed.shape[0])
+              if not all(torch.equal(a, b) for a, b in zip(outputs(r), want))]
+    check(not differ, f"{label}: splits into {differ} ranges differ from the whole walk")
+    return {"case": label, "ranges_bit_equal": list(candidate_ranges(embed.shape[0]))}
+
+
+def cross_range_tie(gen: torch.Generator) -> dict:
+    """Codes 5 and 389 of a D = 256 codebook are one row, in different ranges
+    of every split of 512 codes; rows near it tie exactly across the ranges'
+    boundary, and every kernel at every split must give them code 5."""
+    embed = torch.randn(DEEP_CODES, DEEP_D, generator=gen, device="cuda")
+    embed[389] = embed[5]
+    flat = embed[5] + 0.01 * torch.randn(2592, DEEP_D, generator=gen, device="cuda")
+    ids = {}
+    for ranges in candidate_ranges(DEEP_CODES):
+        got = (qz._nearest_code_ids_cuda(flat, embed, ranges),
+               qz._nearest_code_lookup_cuda(flat, embed, ranges)[0],
+               qz._nearest_code_stats_cuda(flat, embed, ranges)[0])
+        ids[ranges] = sorted({int(i) for t in got for i in t.unique()})
+    check(all(v == [5] for v in ids.values()), f"cross-range tie: ids by ranges {ids}")
+    return {"n": flat.shape[0], "codes": [5, 389], "ids_by_ranges": ids}
+
+
 def deep_records(by_path: dict) -> list:
     """K2 and K3 at D = 256 on the rows a deep train step hands its
     quantizers (N = 10,368 and 2,592 at 288x144, batch 16; K = 512).  The
@@ -3951,10 +4039,12 @@ def deep_records(by_path: dict) -> list:
     timed on its own codebooks (``one_code_ms``, the main path's first
     steps); then each codebook is drawn among its rows, the rows taken again,
     and the kernels held against their plain versions at TIE_RTOL and
-    ESUM_RTOL with many codes in use, then timed beside their bounds, the
-    plain versions and one library route each, with the blocks of the grid
-    (one a 128 rows) against the card's SMs and the ptxas lines of the
-    search kernel's variants.  Also the deep step's time and split.
+    ESUM_RTOL with many codes in use, at every split against the whole
+    walk bit for bit, and on an exact tie across two ranges; then timed
+    beside their bounds, the plain versions and one library route each, with
+    the split the wrapper launches (ranges, blocks against the card's SMs),
+    each call taken apart (``search_parts``) and the ptxas lines
+    of the search kernel's variants.  Also the deep step's time and split.
     ``by_path`` holds the launch counts of each path that runs these
     kernels at D = 256; a record's ``launches`` is their sum."""
     launches = {k: sum(c[k] for c in by_path.values()) for k in by_path["deep"]}
@@ -3977,13 +4067,19 @@ def deep_records(by_path: dict) -> list:
                   for n in rows}
     check(all(c["drawn_from_rows"] > 1 for c in codes_used.values()),
           f"deep quantizer codes in use with codebooks drawn from the rows: {codes_used}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {n: qz.search_split(n, DEEP_CODES, sms) for n in rows}
+    check(all(r > 1 for r in splits.values()), f"the deep grids do not split the search: {splits}")
     cases = {n: compare_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
     stats = {n: compare_stats_with_plain(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    every_split = [splits_against_whole(f, e, f"deep D=256 N={n}") for n, (f, e) in rows.items()]
+    tie = cross_range_tie(torch.Generator(device="cuda").manual_seed(13))
     ptxas = {k: v for k, v in ptxas_summary(_build.build_info["quantize"]["log"]).items()
              if k.startswith("nearest_code_kernel")}
     emit("kernels_deep", tie_rtol=TIE_RTOL, esum_rtol=ESUM_RTOL, codes_used=codes_used,
-         cases=list(cases.values()), stats_cases=list(stats.values()), ptxas=ptxas)
+         search_ranges=splits,
+         cases=list(cases.values()), stats_cases=list(stats.values()),
+         every_split=every_split, cross_range_tie=tie, ptxas=ptxas)
     calls_of = {
         "nearest_code_lookup": (lambda f, e: qz.nearest_code(f, e, False),
                                 qz.nearest_code_lookup_reference,
@@ -3998,7 +4094,7 @@ def deep_records(by_path: dict) -> list:
             flat, embed = rows[n]
             work = (stats_work(n, DEEP_D, DEEP_CODES, 4) if name == "nearest_code_stats"
                     else kernel_work(name, n, DEEP_D, DEEP_CODES, 4))
-            blocks = -(-n // 128)
+            blocks = -(-n // qz.TILE_ROWS) * splits[n]
             one_flat, one_embed, _ = untrained[n]
             per_shape.append({"shape": {"n": n, "d": DEEP_D, "k": DEEP_CODES},
                               "codes_used": codes_used[n]["drawn_from_rows"],
@@ -4007,7 +4103,9 @@ def deep_records(by_path: dict) -> list:
                                                      reps=20),
                               "plain_ms": cuda_ms(lambda: plain(flat, embed), reps=5),
                               "library_ms": cuda_ms(lambda: library(flat, embed), reps=5),
-                              "search_blocks": blocks, "sms": sms, "grid_fill": min(blocks / sms, 1.0),
+                              "search_ranges": splits[n], "search_blocks": blocks,
+                              "sms": sms, "blocks_per_sm": blocks / sms,
+                              "parts": search_parts(lambda: kernel(flat, embed)),
                               **work})
         first = per_shape[0]
         err = (stats[10368]["esum_max_abs_err_vs_plain_sum"] if name == "nearest_code_stats"
@@ -4030,8 +4128,8 @@ def deep_records(by_path: dict) -> list:
          kernels={r["name"]: {k: r[k] for k in ("ms", "one_code_ms", "bound_ms", "plain_ms",
                                                  "library_ms", "launches", "share_of_bound")} | {
              "shapes": [{k: s[k] for k in ("shape", "codes_used", "ms", "one_code_ms",
-                                           "bound_ms", "plain_ms", "library_ms",
-                                           "search_blocks", "grid_fill")}
+                                           "bound_ms", "plain_ms", "library_ms", "search_ranges",
+                                           "search_blocks", "blocks_per_sm", "parts")}
                         for s in r["shapes"]]} for r in records})
     del model
     torch.cuda.empty_cache()
@@ -5949,8 +6047,13 @@ def with_world_n_launches(kernels: list, result: dict) -> None:
 
 
 def phase_parallel_trainers(tmp: str) -> dict:
-    result = {"card": card_name(), "world_1_nccl": pt_world_of_one(tmp),
-              "world_2_gloo": pt_world_of_two(tmp)}
+    world_1 = pt_world_of_one(tmp)
+    # the two ranks share the card with this process: hand back what its
+    # allocator keeps from the nine command lines (StarGAN's alone peaks at
+    # ~43 GB) before they start
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"card": card_name(), "world_1_nccl": world_1, "world_2_gloo": pt_world_of_two(tmp)}
     emit("parallel_trainers", **result)
     failures = result["world_2_gloo"]["failures"]
     check(not failures, "; ".join(failures))

@@ -16,7 +16,14 @@ inputs and is timed by CUDA events in the order other, this, this, other:
   prior's B*H = 256, N = 1024, for head widths 16, 32 and 64, fp32 and bf16,
   without and with dropout 0.1;
 - the three nearest-code kernels at the stage-1 train step's shapes
-  (N = 524,288 and 131,072 rows, D = 64, K = 512);
+  (N = 524,288 and 131,072 rows, D = 64, K = 512) and at the deep adaptor's
+  (N = 10,368 and 2,592 rows at 288x144, batch 16, D = 256, K = 512, the
+  codebook drawn among the rows), each call also taken apart by the profiler
+  (prologue, search, merge, statistics tail; device µs a call) beside the
+  wrapper's host µs a call, and at D = 256 one library route each
+  (``cdist`` + ``argmin``, and + ``bincount`` + ``index_add_``); with the
+  ranges each checkout's wrapper splits the search into, where it splits, and
+  at D = 256 this checkout's parts at each split into one to four ranges;
 - the in-place ABN kernels at the inputs of the 13 ABNs of one ReID train
   step (``EmbedNet2(resnet50)``, 72 images at 288x144), in fp32 and bf16:
   K8 at each shape and its total over the 13 (``k8_step``), and at the
@@ -45,13 +52,15 @@ import sys
 
 import torch
 
-from chip_smoke import cuda_ms, ptxas_summary, run_text
+from chip_smoke import cuda_ms, library_stats, ptxas_summary, run_text, search_parts
 
 PACKAGE = "vqvae2_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATTENTION_BH, ATTENTION_N = 256, 1024
 HEAD_DIMS = (16, 32, 64)
-SEARCH_ROWS, SEARCH_D, SEARCH_K = (524288, 131072), 64, 512
+SEARCH_K = 512
+# (N, D): the stage-1 train step's two grids, then the deep adaptor's two
+SEARCH_SHAPES = ((524288, 64), (131072, 64), (10368, 256), (2592, 256))
 
 
 def load_ops(root: str) -> dict:
@@ -111,16 +120,37 @@ def compare_attention(other, this, gen: torch.Generator):
 
 
 def compare_search(other, this, gen: torch.Generator):
-    embed = torch.randn(SEARCH_K, SEARCH_D, generator=gen, device="cuda")
-    for n in SEARCH_ROWS:
-        flat = torch.randn(n, SEARCH_D, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    embed64 = torch.randn(SEARCH_K, 64, generator=gen, device="cuda")
+    for n, d in SEARCH_SHAPES:
+        flat = torch.randn(n, d, generator=gen, device="cuda")
+        embed = embed64 if d == 64 else flat[torch.randperm(
+            n, generator=gen, device="cuda")[:SEARCH_K]].clone()
         calls = {"ids": lambda qz: qz.nearest_code_ids(flat, embed),
                  "lookup": lambda qz: qz.nearest_code(flat, embed, with_stats=False),
                  "stats": lambda qz: qz.nearest_code(flat, embed, with_stats=True)}
-        print(json.dumps({"kernels": "nearest_code", "n": n, "d": SEARCH_D, "k": SEARCH_K,
-                          **{name: in_turns(lambda: fn(other["quantize"]),
-                                            lambda: fn(this["quantize"]), reps=20)
-                             for name, fn in calls.items()}}), flush=True)
+        line = {"kernels": "nearest_code", "n": n, "d": d, "k": SEARCH_K,
+                **{name: in_turns(lambda: fn(other["quantize"]),
+                                  lambda: fn(this["quantize"]), reps=20)
+                   for name, fn in calls.items()}}
+        line["parts"] = {who: {name: search_parts(lambda: fn(mods["quantize"]))
+                               for name, fn in calls.items() if name != "ids"}
+                         for who, mods in (("other", other), ("this", this))}
+        for who, mods in (("other", other), ("this", this)):
+            split = getattr(mods["quantize"], "search_split", None)
+            if split is not None:
+                line[f"{who}_search_ranges"] = split(n, SEARCH_K, sms)
+        if d == 256 and hasattr(this["quantize"], "search_split"):
+            qz = this["quantize"]
+            line["this_by_ranges"] = {r: {
+                "lookup": search_parts(lambda: qz._nearest_code_lookup_cuda(flat, embed, r)),
+                "stats": search_parts(lambda: qz._nearest_code_stats_cuda(flat, embed, r))}
+                for r in range(1, 5)}
+        if d == 256:
+            line["library_ms"] = {
+                "lookup": cuda_ms(lambda: embed[torch.cdist(flat, embed).argmin(1)], reps=20),
+                "stats": cuda_ms(lambda: library_stats(flat, embed), reps=20)}
+        print(json.dumps(line), flush=True)
 
 
 def abn_launchers(ia, x, z, dz, v: dict) -> dict:

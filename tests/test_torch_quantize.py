@@ -244,3 +244,84 @@ def test_the_kernels_zero_pad_changes_no_dot_product(d):
                                       _fma_chain(a, b).view(np.int32))
     aligned = torch.from_numpy(_inputs(8, 64, 4)[0])
     assert _build.kernel_operands(aligned, aligned)[0] is aligned
+
+
+# -- the split of the search over the codebook (CUDA kernels' launch geometry) -----
+
+# (N, K, SMs)
+SPLIT_SHAPES = [(524288, 512, 132), (131072, 512, 132), (10368, 512, 132), (2592, 512, 132),
+                (1, 512, 132), (777, 130, 132), (300, 512, 132), (128, 12288, 132),
+                (2592, 512, 78)]
+
+
+@pytest.mark.parametrize("n,k,sms", SPLIT_SHAPES)
+def test_search_split_covers_every_code_once_in_whole_chunks(n, k, sms):
+    ranges = tq.search_split(n, k, sms)
+    assert 1 <= ranges <= min(-(-k // tq.CHUNK), tq.MAX_RANGES)
+    codes = tq.code_ranges(k, ranges)
+    assert len(codes) == ranges and codes[0][0] == 0 and codes[-1][1] == k
+    for (_, b), (c, _) in zip(codes, codes[1:]):
+        assert b == c and b % tq.CHUNK == 0       # contiguous, cut between chunks
+    assert all(b > a for a, b in codes)           # no range is empty
+    # the same arguments give the same split, whatever was asked before
+    tq.search_split.cache_clear()
+    assert tq.search_split(n, k, sms) == ranges
+
+
+@pytest.mark.parametrize("n,want", [(524288, 1), (131072, 1), (10368, 3), (2592, 4)])
+def test_search_split_at_the_main_paths_grids(n, want):
+    """Stage 1's grids make thousands of row tiles, which fill the card on
+    their own: one range, the search kernel as before the split.  The deep
+    adaptor's grids at D = 256 make 81 and 21 tiles for 132 SMs, one block an
+    SM: 21 tiles take four ranges of one chunk (84 blocks, one wave of a
+    quarter of the walk); 81 take three (one, one and two chunks), which the
+    scheduler packs into three chunks' time, where four ranges make 324
+    blocks in three waves with three start-ups."""
+    assert tq.search_split(n, 512, 132) == want
+
+
+def _split_and_merge(flat: np.ndarray, embed: np.ndarray, ranges: int):
+    """A plain emulation of the split search: each range's first maximum of
+    the scores (every score the same bits wherever it is computed, so the
+    columns of one score matrix), then the ranges merged in rising order,
+    a range's best taken only where strictly larger; ``q`` gathered."""
+    scores = tq.nearest_code_scores(torch.from_numpy(flat), torch.from_numpy(embed)).numpy()
+    best = np.full(flat.shape[0], -np.inf, dtype=np.float32)
+    idx = np.full(flat.shape[0], np.iinfo(np.int32).max, dtype=np.int64)
+    for a, b in tq.code_ranges(embed.shape[0], ranges):
+        local = a + np.argmax(scores[:, a:b], axis=1)       # the first maximum in the range
+        s = scores[np.arange(flat.shape[0]), local]
+        take = s > best
+        best[take], idx[take] = s[take], local[take]
+    idx = np.where(idx < embed.shape[0], idx, 0).astype(np.int32)
+    return idx, embed[idx]
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, 4])
+def test_split_and_merge_matches_the_jax_reference(ranges):
+    flat, embed = _inputs(300, 256, 512, seed=11)
+    ridx, rq, _, _ = jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))
+    idx, q = _split_and_merge(flat, embed, ranges)
+    np.testing.assert_array_equal(idx, np.asarray(ridx))
+    np.testing.assert_array_equal(q, np.asarray(rq))
+    np.testing.assert_array_equal(idx, tq.nearest_code_ids(torch.from_numpy(flat),
+                                                           torch.from_numpy(embed)).numpy())
+
+
+@pytest.mark.parametrize("ranges", [2, 3, 4])
+def test_an_exact_tie_across_ranges_takes_the_lower_index(ranges):
+    """Codes 5 and 389 are the same row and lie in different ranges; rows near
+    them tie exactly across the boundary and must take code 5, as argmax and
+    the Pallas kernel do."""
+    flat, embed = _inputs(300, 256, 512, seed=12)
+    embed[389] = embed[5]
+    flat = (embed[5] + 0.01 * flat).astype(np.float32)
+    (a5, b5), = [r for r in tq.code_ranges(512, ranges) if r[0] <= 5 < r[1]]
+    assert not a5 <= 389 < b5
+    idx, q = _split_and_merge(flat, embed, ranges)
+    assert (idx == 5).all()
+    np.testing.assert_array_equal(q, np.broadcast_to(embed[5], q.shape))
+    ridx = np.asarray(jq.nearest_code_reference(jnp.asarray(flat), jnp.asarray(embed))[0])
+    pidx = np.asarray(_jax_pallas(jq._nearest_code_pallas_ids, flat, embed))
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(idx, pidx)

@@ -23,10 +23,14 @@
 // * A prologue kernel writes the codebook transposed, E^T (D, Kpad) with Kpad
 //   the next multiple of 128 and zero columns past K, and |E|^2 of every code
 //   (an fp32 FMA chain over d in order) into a small scratch buffer: once a
-//   launch, not once a block and chunk.
+//   launch, not once a block and chunk.  A block takes 32 codes: it reads
+//   their rows 16 bytes a thread, four pieces of 32 features in flight at
+//   once, transposes them through shared memory and stores E^T a whole
+//   32-code row segment a warp; one thread a code runs the norm's chain from
+//   shared memory.
 // * A block of 256 threads owns 128 rows.  Its x tile (128 rows by D,
 //   transposed, widened to fp32) is staged once and stays resident in dynamic
-//   shared memory for the whole codebook walk (32 KB at D = 64, 128 KB at
+//   shared memory for its walk over the codebook (32 KB at D = 64, 128 KB at
 //   D = 256), with |x|^2 of each row (the same kind of chain).  Above
 //   X_RESIDENT_MAX_D features it does not fit beside the codebook ring: the x
 //   pieces then go through a ring of their own, each staged one step ahead
@@ -42,17 +46,32 @@
 //   comparing (score, idx) so that equal scores keep the lower index, as
 //   argmax does, and the chunk's best replaces the row's running best (in
 //   shared memory) only if strictly larger.  So no per-row state stays in
-//   registers across chunks (no spill at 128 registers, two blocks an SM), and
-//   nothing of size (N, K) exists anywhere.
+//   registers across chunks (no spill at 128 registers, two blocks an SM up
+//   to D = 64, one at D = 256), and nothing of size (N, K) exists anywhere.
+// * The split.  A grid of one block a row tile fills the card only when the
+//   rows are many: at D = 256 one 128-row block fits on an SM (152 KB of
+//   shared memory), and the deep adaptor's 2,592 rows make 21 blocks for 132
+//   SMs, each walking all 512 codes.  So the wrapper may also split the
+//   codebook walk into S ranges of whole chunks (range r takes chunks
+//   [r*C/S, (r+1)*C/S) of C): block (tile, r) walks only its range with the
+//   loop above and writes each row's best (score, index) of the range to
+//   scratch; a merge kernel then takes, row by row and range by range in
+//   rising order, a range's best only if strictly larger.  Both the rule
+//   within a block and the merge keep the first maximum, and every score is
+//   the same bits wherever it is computed, so the merged ids are the unsplit
+//   kernel's for every split; the merge then gathers q.  With S = 1 (the
+//   stage-1 shapes: thousands of row tiles) the search kernel writes ids and
+//   q itself and no merge runs, as before the split existed.
 // Every code's score is the same sequence of operations wherever it lies in a
-// tile: the dot product an FMA chain over d in order, then (2 * dot - |x|^2) -
-// |E|^2; so duplicated codebook rows tie exactly and the lower index wins.  No
-// TF32 and no tensor cores: their truncating fp32 sums would move scores by
-// more than the near-tie tolerance.  The lookup is an exact row gather from the
-// codebook.  N and K are runtime values and their ragged tails are masked; D
-// is a multiple of 4 here (16-byte loads): the Python wrapper pads the feature
-// axis of x and E with zeros for any other D, which leaves every dot product
-// and norm bit for bit as it was (an FMA of 0 * 0 onto s gives s).
+// tile or range: the dot product an FMA chain over d in order, then (2 * dot -
+// |x|^2) - |E|^2; so duplicated codebook rows tie exactly and the lower index
+// wins.  No TF32 and no tensor cores: their truncating fp32 sums would move
+// scores by more than the near-tie tolerance.  The lookup is an exact row
+// gather from the codebook.  N and K are runtime values and their ragged tails
+// are masked; D is a multiple of 4 here (16-byte loads): the Python wrapper
+// pads the feature axis of x and E with zeros for any other D, which leaves
+// every dot product and norm bit for bit as it was (an FMA of 0 * 0 onto s
+// gives s).
 //
 // The statistics are the search kernel (the lookup flavour, unchanged)
 // followed by six small kernels of their own, not one fused kernel.  The TPU
@@ -144,25 +163,69 @@ __device__ __forceinline__ int strip(int t, int i) {
 // Codes padded to whole chunks: the row length of E^T.
 __host__ __device__ inline int padded_codes(int k) { return static_cast<int>(cdiv(k, KC) * KC); }
 
-// Scratch of the search: E^T (D, Kpad) and |E|^2 (Kpad,), floats.
-__host__ inline long long search_scratch_bytes(int d, int k) {
-  return (static_cast<long long>(d) + 1) * padded_codes(k) * 4;
+// Scratch of the search: E^T (D, Kpad) and |E|^2 (Kpad,), floats; with a
+// split (ranges > 1) also each range's best score (floats) and index (ints)
+// of every row, range-major; rounded up to whole 256 bytes.
+__host__ inline long long search_scratch_bytes(long long n, int d, int k, int ranges) {
+  const long long bytes = (static_cast<long long>(d) + 1) * padded_codes(k) * 4 +
+                          (ranges > 1 ? ranges * n * 8 : 0);
+  return cdiv(bytes, 256) * 256;
 }
 
+constexpr int PC = 32;    // codes of a prologue block
+constexpr int PF = 32;    // features of a prologue piece
+constexpr int PU = 4;     // pieces a prologue thread has in flight
+
 // The prologue: et[c][code] = E[code][c] and ee[code] = |E[code]|^2 (an FMA
-// chain over c in order), zeros for the padding codes.  One thread a code.
+// chain over c in order), zeros for the padding codes.  One block of 256
+// threads a 32 codes: each round reads PU pieces of 32 features of their rows
+// (one 16-byte load a thread a piece, all in flight together) into shared
+// memory, stores them transposed (a warp a 32-code segment of an E^T row),
+// and the first warp carries each code's chain on, a thread a code.
 __global__ void __launch_bounds__(256)
 codebook_prep_kernel(const float* __restrict__ embed, float* __restrict__ et,
                      float* __restrict__ ee, int d, int k, int kpad) {
-  const int code = blockIdx.x * blockDim.x + threadIdx.x;
-  if (code >= kpad) return;
+  __shared__ float tile[PU][PC][PF + 1];
+  const int t = threadIdx.x;
+  const int code0 = blockIdx.x * PC;
+  const int lc = t / (PF / 4);         // the code this thread loads
+  const int lf = (t % (PF / 4)) * 4;   // ... at these four features of a piece
+  const int wc = t % PC;               // the code this thread stores
+  const bool live = code0 + lc < k;
+  const float* row = embed + static_cast<long long>(code0 + lc) * d;
   float sq = 0.f;
-  for (int c = 0; c < d; ++c) {
-    const float e = code < k ? embed[static_cast<long long>(code) * d + c] : 0.f;
-    sq = fmaf(e, e, sq);
-    et[static_cast<long long>(c) * kpad + code] = e;
+  for (int d0 = 0; d0 < d; d0 += PU * PF) {
+    float4 v[PU];
+#pragma unroll
+    for (int u = 0; u < PU; ++u) {
+      const int f = d0 + u * PF + lf;
+      v[u] = (live && f < d) ? load4(row + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < PU; ++u) {
+      tile[u][lc][lf + 0] = v[u].x;
+      tile[u][lc][lf + 1] = v[u].y;
+      tile[u][lc][lf + 2] = v[u].z;
+      tile[u][lc][lf + 3] = v[u].w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < PU; ++u) {
+      for (int f = t / PC; f < PF; f += 256 / PC) {
+        const int c = d0 + u * PF + f;
+        if (c < d) et[static_cast<long long>(c) * kpad + code0 + wc] = tile[u][wc][f];
+      }
+    }
+    if (t < PC) {
+      for (int u = 0; u < PU; ++u) {
+        for (int f = 0; f < PF && d0 + u * PF + f < d; ++f) {
+          sq = fmaf(tile[u][t][f], tile[u][t][f], sq);
+        }
+      }
+    }
+    __syncthreads();
   }
-  ee[code] = sq;
+  if (t < PC) ee[code0 + t] = sq;
 }
 
 // Dynamic shared memory of a search block: the x tile (resident: all of D,
@@ -172,11 +235,16 @@ __host__ inline size_t search_smem_bytes(int d, bool resident) {
   return static_cast<size_t>((x_floats + static_cast<long long>(STAGES) * DC * KC) * 4);
 }
 
-template <typename XT, bool WITH_Q, bool RESIDENT>
+// Without SPLIT: block x owns rows [x*TN, x*TN + TN) and walks every code; it
+// writes idx (and with WITH_Q, q).  With SPLIT: block (x, r) walks only the
+// chunks of range r of gridDim.y and writes its rows' best score and index of
+// the range to part_s / part_i [r][row].
+template <typename XT, bool WITH_Q, bool SPLIT, bool RESIDENT>
 __global__ void __launch_bounds__(NT, 2)
 nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
                     const float* __restrict__ et, const float* __restrict__ ee,
-                    int* __restrict__ idx_out, XT* __restrict__ q_out, long long n, int d, int k,
+                    int* __restrict__ idx_out, XT* __restrict__ q_out,
+                    float* __restrict__ part_s, int* __restrict__ part_i, long long n, int d, int k,
                     int kpad) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float xx_s[TN];     // |x|^2 of each row
@@ -190,12 +258,18 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
   const int pieces = static_cast<int>(cdiv(d, DC));
   float* xs = smem;                                                   // [.][DC or D][TN]
   float* es = smem + (RESIDENT ? pieces * DC : STAGES * DC) * TN;     // [STAGES][DC][KC]
+  // This block's codes [k_begin, k_end): whole chunks, every code without SPLIT.
+  const long long chunks = kpad / KC;
+  const int k_begin = SPLIT ? static_cast<int>(blockIdx.y * chunks / gridDim.y * KC) : 0;
+  const int k_end = SPLIT ? static_cast<int>(min(static_cast<long long>(k),
+                                                 (blockIdx.y + 1) * chunks / gridDim.y * KC))
+                          : k;
 
   // The E^T piece (codes e_k0 .., features e_d0 ..) into ring slot e_slot;
   // then the next step's (chunk-major, pieces in order).
-  int e_k0 = 0, e_d0 = 0, e_slot = 0;
+  int e_k0 = k_begin, e_d0 = 0, e_slot = 0;
   auto stage_e = [&]() {
-    if (e_k0 < k) {
+    if (e_k0 < k_end) {
       float* dst = es + e_slot * DC * KC;
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
@@ -263,7 +337,7 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
   }
 
   int slot = 0;   // ring slot of the current step
-  for (int k0 = 0; k0 < k; k0 += KC) {
+  for (int k0 = k_begin; k0 < k_end; k0 += KC) {
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -275,7 +349,7 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
       __syncthreads();   // this step's pieces are in; every thread is done with the last step
       stage_e();         // two steps ahead, into the slot the last step used
       const int next = slot == STAGES - 1 ? 0 : slot + 1;
-      if (!RESIDENT && (p + 1 < pieces || k0 + KC < k)) {
+      if (!RESIDENT && (p + 1 < pieces || k0 + KC < k_end)) {
         // the next step's x piece, into the slot the step before last used
         stage_x(xs + next * DC * TN, p + 1 < pieces ? (p + 1) * DC : 0);
       }
@@ -335,6 +409,15 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
   }
   __syncthreads();
 
+  if (SPLIT) {
+    if (tid < TN && row0 + tid < n) {
+      const long long at = static_cast<long long>(blockIdx.y) * n + row0 + tid;
+      part_s[at] = run_s[tid];
+      part_i[at] = run_i[tid];
+    }
+    return;
+  }
+
   if (tid < TN && row0 + tid < n) idx_out[row0 + tid] = run_i[tid] < k ? run_i[tid] : 0;
 
   if (WITH_Q) {
@@ -352,42 +435,110 @@ nearest_code_kernel(const XT* __restrict__ x, const float* __restrict__ embed,
   }
 }
 
-template <typename XT, bool WITH_Q, bool RESIDENT>
+constexpr int MR = 32;   // rows of a merge block
+
+// The merge of a split search: each row's best over the ranges, taken in
+// rising order and only where strictly larger (the first maximum, as within a
+// block), then (WITH_Q) q gathered from the codebook.  256 threads a MR rows.
+template <typename XT, bool WITH_Q>
+__global__ void __launch_bounds__(256)
+merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
+             const float* __restrict__ embed, int* __restrict__ idx_out, XT* __restrict__ q_out,
+             long long n, int d, int k, int ranges) {
+  __shared__ int ids[MR];
+  const long long row0 = static_cast<long long>(blockIdx.x) * MR;
+  if (threadIdx.x < MR) {
+    const long long row = row0 + threadIdx.x;
+    int bidx = 0;
+    if (row < n) {
+      float best = -INFINITY;
+      bidx = 0x7fffffff;
+      for (int r = 0; r < ranges; ++r) {
+        const float s = part_s[r * n + row];
+        if (s > best) {
+          best = s;
+          bidx = part_i[r * n + row];
+        }
+      }
+      bidx = bidx < k ? bidx : 0;
+      idx_out[row] = bidx;
+    }
+    ids[threadIdx.x] = bidx;
+  }
+  if (WITH_Q) {
+    __syncthreads();
+    const int d4 = d / 4;
+    for (int f = threadIdx.x; f < MR * d4; f += 256) {
+      const int r = f / d4;
+      const int c = (f % d4) * 4;
+      const long long row = row0 + r;
+      if (row < n) {
+        store4(q_out + row * d + c, load4(embed + static_cast<long long>(ids[r]) * d + c));
+      }
+    }
+  }
+}
+
+template <typename XT, bool WITH_Q, bool SPLIT, bool RESIDENT>
 int launch_search(const void* x, const void* embed, const float* et, const float* ee, void* idx,
-                  void* q, long long n, int d, int k, cudaStream_t stream) {
-  auto kernel = nearest_code_kernel<XT, WITH_Q, RESIDENT>;
+                  void* q, float* part_s, int* part_i, long long n, int d, int k, int ranges,
+                  cudaStream_t stream) {
+  auto kernel = nearest_code_kernel<XT, WITH_Q, SPLIT, RESIDENT>;
   const size_t smem = search_smem_bytes(d, RESIDENT);
   // set once per variant to the most any D of this variant needs
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(search_smem_bytes(RESIDENT ? X_RESIDENT_MAX_D : DC, RESIDENT)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = cdiv(n, TN);
-  kernel<<<static_cast<unsigned int>(blocks), NT, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned int>(cdiv(n, TN)), static_cast<unsigned int>(ranges));
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const float*>(embed), et, ee, static_cast<int*>(idx),
-      static_cast<XT*>(q), n, d, k, padded_codes(k));
+      static_cast<XT*>(q), part_s, part_i, n, d, k, padded_codes(k));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The prologue, then the search.  `scratch` holds search_scratch_bytes(d, k).
+// The search kernel, x resident where it fits beside the ring, else in a ring of its own.
+template <typename XT, bool WITH_Q, bool SPLIT>
+int launch_by_width(const void* x, const void* embed, const float* et, const float* ee,
+                    void* idx, void* q, float* part_s, int* part_i, long long n, int d, int k,
+                    int ranges, cudaStream_t stream) {
+  return d <= X_RESIDENT_MAX_D
+             ? launch_search<XT, WITH_Q, SPLIT, true>(x, embed, et, ee, idx, q, part_s, part_i, n,
+                                                      d, k, ranges, stream)
+             : launch_search<XT, WITH_Q, SPLIT, false>(x, embed, et, ee, idx, q, part_s, part_i,
+                                                       n, d, k, ranges, stream);
+}
+
+// The prologue, the search and, with a split (ranges > 1), the merge.
+// `scratch` holds search_scratch_bytes(n, d, k, ranges).
 template <typename XT, bool WITH_Q>
 int launch(const void* x, const void* embed, void* scratch, void* idx, void* q, long long n, int d,
-           int k, cudaStream_t stream) {
+           int k, int ranges, cudaStream_t stream) {
   const int kpad = padded_codes(k);
   float* et = static_cast<float*>(scratch);
   float* ee = et + static_cast<long long>(d) * kpad;
-  codebook_prep_kernel<<<static_cast<unsigned int>(cdiv(kpad, 256)), 256, 0, stream>>>(
+  codebook_prep_kernel<<<static_cast<unsigned int>(kpad / PC), 256, 0, stream>>>(
       static_cast<const float*>(embed), et, ee, d, k, kpad);
-  const int err = static_cast<int>(cudaGetLastError());
+  int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  return d <= X_RESIDENT_MAX_D
-             ? launch_search<XT, WITH_Q, true>(x, embed, et, ee, idx, q, n, d, k, stream)
-             : launch_search<XT, WITH_Q, false>(x, embed, et, ee, idx, q, n, d, k, stream);
+  if (ranges == 1) {
+    return launch_by_width<XT, WITH_Q, false>(x, embed, et, ee, idx, q, nullptr, nullptr, n, d,
+                                              k, 1, stream);
+  }
+  float* part_s = ee + kpad;
+  int* part_i = reinterpret_cast<int*>(part_s + ranges * n);
+  err = launch_by_width<XT, false, true>(x, embed, et, ee, nullptr, nullptr, part_s, part_i, n,
+                                         d, k, ranges, stream);
+  if (err) return err;
+  merge_kernel<XT, WITH_Q><<<static_cast<unsigned int>(cdiv(n, MR)), 256, 0, stream>>>(
+      part_s, part_i, static_cast<const float*>(embed), static_cast<int*>(idx),
+      static_cast<XT*>(q), n, d, k, ranges);
+  return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(long long n, int d, int k) {
-  return n < 1 || d < 4 || d % 4 != 0 || k < 1 || k > INT_MAX - KC ||
-         cdiv(n, TN) > 2147483647LL;
+bool bad_shape(long long n, int d, int k, int ranges) {
+  return n < 1 || d < 4 || d % 4 != 0 || k < 1 || k > INT_MAX - KC || ranges < 1 ||
+         ranges > cdiv(k, KC) || ranges > 65535 || cdiv(n, TN) > 2147483647LL;
 }
 
 // ---------------------------------------------------------------------------
@@ -587,13 +738,13 @@ struct StatsScratch {
 };
 
 // With base == nullptr only .bytes is meaningful.
-StatsScratch stats_scratch(void* base, long long n, int d, int k) {
+StatsScratch stats_scratch(void* base, long long n, int d, int k, int ranges) {
   const long long pieces = cdiv(n, SP) + k;
   const long long chunks = cdiv(n, HR);
   StatsScratch s;
   char* p = static_cast<char*>(base);
   s.search = reinterpret_cast<float*>(p);
-  long long off = search_scratch_bytes(d, k);
+  long long off = search_scratch_bytes(n, d, k, ranges);
   s.partial = reinterpret_cast<float*>(p + off);
   off += pieces * d * 4;
   s.table = reinterpret_cast<int*>(p + off);
@@ -612,9 +763,9 @@ StatsScratch stats_scratch(void* base, long long n, int d, int k) {
 
 template <typename XT>
 int launch_stats(const void* x, const void* embed, void* idx, void* q, float* csum, float* esum,
-                 void* scratch, long long n, int d, int k, cudaStream_t stream) {
-  const StatsScratch s = stats_scratch(scratch, n, d, k);
-  int err = launch<XT, true>(x, embed, s.search, idx, q, n, d, k, stream);
+                 void* scratch, long long n, int d, int k, int ranges, cudaStream_t stream) {
+  const StatsScratch s = stats_scratch(scratch, n, d, k, ranges);
+  int err = launch<XT, true>(x, embed, s.search, idx, q, n, d, k, ranges, stream);
   if (err) return err;
   const int* ids = static_cast<const int*>(idx);
   const unsigned int chunks = static_cast<unsigned int>(cdiv(n, HR));
@@ -639,60 +790,68 @@ int launch_stats(const void* x, const void* embed, void* idx, void* q, float* cs
 
 }  // namespace
 
+// `ranges` (1 up to the number of 128-code chunks) is the number of ranges
+// the codebook walk is split into, as vqvae2_tpu_torch/ops/quantize.py's
+// search_split picks it; every value gives the same ids and q.
+
 // Bytes of scratch that vq_nearest_ids and vq_nearest_lookup need for this
-// shape (the codebook transposed, and its norms; the caller allocates it).
-extern "C" long long vq_search_scratch_bytes(int d, int k) { return search_scratch_bytes(d, k); }
+// shape and split (the codebook transposed, its norms and the ranges' bests;
+// the caller allocates it).
+extern "C" long long vq_search_scratch_bytes(long long n, int d, int k, int ranges) {
+  return search_scratch_bytes(n, d, k, ranges);
+}
 
 // Both return cudaGetLastError() after the last launch (0 on success), or
-// cudaErrorInvalidValue for a shape the kernels do not take or too little
-// scratch.  They launch on the given stream and do not synchronise.
+// cudaErrorInvalidValue for a shape or split the kernels do not take or too
+// little scratch.  They launch on the given stream and do not synchronise.
 extern "C" int vq_nearest_ids(const void* x, const void* embed, void* idx, void* scratch,
                               long long scratch_bytes, long long n, int d, int k, int x_is_bf16,
-                              void* stream) {
-  if (bad_shape(n, d, k) || scratch_bytes < search_scratch_bytes(d, k)) {
+                              int ranges, void* stream) {
+  if (bad_shape(n, d, k, ranges) || scratch_bytes < search_scratch_bytes(n, d, k, ranges)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? launch<__nv_bfloat16, false>(x, embed, scratch, idx, nullptr, n, d, k, s)
-                   : launch<float, false>(x, embed, scratch, idx, nullptr, n, d, k, s);
+  return x_is_bf16
+             ? launch<__nv_bfloat16, false>(x, embed, scratch, idx, nullptr, n, d, k, ranges, s)
+             : launch<float, false>(x, embed, scratch, idx, nullptr, n, d, k, ranges, s);
 }
 
 extern "C" int vq_nearest_lookup(const void* x, const void* embed, void* idx, void* q,
                                  void* scratch, long long scratch_bytes, long long n, int d, int k,
-                                 int x_is_bf16, void* stream) {
-  if (bad_shape(n, d, k) || scratch_bytes < search_scratch_bytes(d, k)) {
+                                 int x_is_bf16, int ranges, void* stream) {
+  if (bad_shape(n, d, k, ranges) || scratch_bytes < search_scratch_bytes(n, d, k, ranges)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? launch<__nv_bfloat16, true>(x, embed, scratch, idx, q, n, d, k, s)
-                   : launch<float, true>(x, embed, scratch, idx, q, n, d, k, s);
+  return x_is_bf16 ? launch<__nv_bfloat16, true>(x, embed, scratch, idx, q, n, d, k, ranges, s)
+                   : launch<float, true>(x, embed, scratch, idx, q, n, d, k, ranges, s);
 }
 
-// Bytes of scratch that vq_nearest_stats needs for this shape (the caller
-// allocates it; the kernels allocate nothing).
-extern "C" long long vq_stats_scratch_bytes(long long n, int d, int k) {
-  return stats_scratch(nullptr, n, d, k).bytes;
+// Bytes of scratch that vq_nearest_stats needs for this shape and split (the
+// caller allocates it; the kernels allocate nothing).
+extern "C" long long vq_stats_scratch_bytes(long long n, int d, int k, int ranges) {
+  return stats_scratch(nullptr, n, d, k, ranges).bytes;
 }
 
 // idx and q as vq_nearest_lookup, and csum (K,) and esum (K, D) in fp32.
 // Returns cudaGetLastError() after the last launch (0 on success), or
-// cudaErrorInvalidValue for a shape the kernels do not take or too little
-// scratch.  Launches on the given stream and does not synchronise.
+// cudaErrorInvalidValue for a shape or split the kernels do not take or too
+// little scratch.  Launches on the given stream and does not synchronise.
 extern "C" int vq_nearest_stats(const void* x, const void* embed, void* idx, void* q, void* csum,
                                 void* esum, void* scratch, long long scratch_bytes, long long n,
-                                int d, int k, int x_is_bf16, void* stream) {
-  if (bad_shape(n, d, k) || k > MAX_K_STATS || n > INT_MAX) {
+                                int d, int k, int x_is_bf16, int ranges, void* stream) {
+  if (bad_shape(n, d, k, ranges) || k > MAX_K_STATS || n > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (scratch_bytes < stats_scratch(nullptr, n, d, k).bytes) {
+  if (scratch_bytes < stats_scratch(nullptr, n, d, k, ranges).bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* cs = static_cast<float*>(csum);
   float* es = static_cast<float*>(esum);
   return x_is_bf16
-             ? launch_stats<__nv_bfloat16>(x, embed, idx, q, cs, es, scratch, n, d, k, s)
-             : launch_stats<float>(x, embed, idx, q, cs, es, scratch, n, d, k, s);
+             ? launch_stats<__nv_bfloat16>(x, embed, idx, q, cs, es, scratch, n, d, k, ranges, s)
+             : launch_stats<float>(x, embed, idx, q, cs, es, scratch, n, d, k, ranges, s);
 }
 
 extern "C" const char* vq_error_string(int code) {

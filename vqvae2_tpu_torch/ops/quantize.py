@@ -17,6 +17,10 @@ plain version.  On a CPU tensor — and only because the tensor lies on the
 CPU — they use the plain PyTorch version below, which is also what the kernels
 are compared with on the card.
 
+The search splits its walk over the codebook into ranges of whole 128-code
+chunks where the rows alone cannot fill the card (:func:`search_split`); a
+merge keeps each row's first maximum, so every split gives the same ids.
+
 Three kernels are ported here:
 
 * ``nearest_code_ids``                 — indices only
@@ -35,7 +39,9 @@ themselves.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+import heapq
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -105,6 +111,66 @@ def nearest_code_reference(
 # CUDA kernels (csrc/quantize.cu)
 # ---------------------------------------------------------------------------
 
+# The split of the search (csrc/quantize.cu).  A block of the search kernel
+# owns TILE_ROWS rows and walks one range of whole CHUNK-code chunks of the
+# codebook; with more than one range a merge kernel takes each row's first
+# maximum over the ranges.  Every split gives the same ids (the kernel's
+# note), so it is chosen for speed alone.
+TILE_ROWS = 128
+CHUNK = 128
+MAX_RANGES = 16
+# A block's start-up (its rows staged, their norms, the ring's first pieces)
+# in units of the walk over one chunk: a tenth, as measured at D = 256.
+START_UP = 0.1
+
+
+def code_ranges(k: int, ranges: int) -> List[Tuple[int, int]]:
+    """``[first, end)`` codes of each range of a split, as the kernel cuts
+    them: range r takes chunks ``[r*C // S, (r+1)*C // S)`` of the ``C``."""
+    chunks = -(-k // CHUNK)
+    return [(r * chunks // ranges * CHUNK, min(k, (r + 1) * chunks // ranges * CHUNK))
+            for r in range(ranges)]
+
+
+@functools.lru_cache(maxsize=None)
+def search_split(n: int, k: int, sms: int) -> int:
+    """The number of ranges the search over ``n`` rows and ``k`` codes is
+    split into on a card of ``sms`` SMs.
+
+    Where the row tiles alone make four waves or more (the stage-1 shapes:
+    thousands of tiles), the whole walk is kept.  Else each count of ranges
+    up to MAX_RANGES is timed by a model of the block scheduler: the blocks,
+    range after range as they launch, each go to the SM that frees first and
+    hold it for START_UP plus their chunks; the fastest wins, fewer ranges
+    among equals, but only where it beats the whole walk by more than an
+    eighth (a split also pays a merge kernel)."""
+    tiles = -(-n // TILE_ROWS)
+    if tiles >= 4 * sms:
+        return 1
+
+    def makespan(ranges: int) -> float:
+        free = [0.0] * sms
+        for a, b in code_ranges(k, ranges):
+            for _ in range(tiles):
+                heapq.heapreplace(free, free[0] + START_UP + -(-(b - a) // CHUNK))
+        return max(free)
+
+    times = {s: makespan(s) for s in range(1, min(-(-k // CHUNK), MAX_RANGES) + 1)}
+    best = min(times, key=lambda s: (times[s], s))
+    return best if 8 * times[best] < 7 * times[1] else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _ranges_for(flat: torch.Tensor, embed: torch.Tensor, ranges: Optional[int]) -> int:
+    if ranges is not None:
+        return ranges
+    return search_split(flat.shape[0], embed.shape[0], _sm_count(flat.device.index))
+
+
 _lib = None
 
 
@@ -114,16 +180,17 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("quantize")
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.vq_search_scratch_bytes.restype = i64
-        lib.vq_search_scratch_bytes.argtypes = [i32, i32]
+        lib.vq_search_scratch_bytes.argtypes = [i64, i32, i32, i32]
         lib.vq_nearest_ids.restype = i32
-        lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
+        lib.vq_nearest_ids.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32, ptr]
         lib.vq_nearest_lookup.restype = i32
-        lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
+        lib.vq_nearest_lookup.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32,
+                                          ptr]
         lib.vq_stats_scratch_bytes.restype = i64
-        lib.vq_stats_scratch_bytes.argtypes = [i64, i32, i32]
+        lib.vq_stats_scratch_bytes.argtypes = [i64, i32, i32, i32]
         lib.vq_nearest_stats.restype = i32
         lib.vq_nearest_stats.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
-                                         i32, ptr]
+                                         i32, i32, ptr]
         lib.vq_error_string.restype = ctypes.c_char_p
         lib.vq_error_string.argtypes = [i32]
         _lib = lib
@@ -151,10 +218,13 @@ def _check_cuda_inputs(flat: torch.Tensor, embed: torch.Tensor) -> None:
         raise ValueError(f"need N >= 1, K >= 1 and D >= 1, got N={n}, K={embed.shape[0]}, D={d}")
 
 
-def _search_scratch(lib: ctypes.CDLL, flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """The search's scratch: the codebook transposed, and its norms."""
-    nbytes = lib.vq_search_scratch_bytes(flat.shape[1], embed.shape[0])
-    return torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
+def _launch(device: torch.device, call):
+    """``call(stream)`` on ``device``'s current stream, with ``device`` the
+    current one while it launches (switched only where it is not)."""
+    if device.index == torch.cuda.current_device():
+        return call(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return call(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -163,39 +233,42 @@ def _raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code} ({message})")
 
 
-def _nearest_code_ids_cuda(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+def _nearest_code_ids_cuda(flat: torch.Tensor, embed: torch.Tensor,
+                           ranges: Optional[int] = None) -> torch.Tensor:
     _check_cuda_inputs(flat, embed)
     flat, embed = _build.kernel_operands(flat, embed)
     lib = _library()
     n, d = flat.shape
+    k = embed.shape[0]
+    ranges = _ranges_for(flat, embed, ranges)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
-    scratch = _search_scratch(lib, flat, embed)
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.vq_nearest_ids(
-            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), n, d, embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
+    nbytes = lib.vq_search_scratch_bytes(n, d, k, ranges)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
+    code = _launch(flat.device, lambda stream: lib.vq_nearest_ids(
+        flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), scratch.data_ptr(), nbytes, n, d, k,
+        int(flat.dtype == torch.bfloat16), ranges, stream))
     _raise_on_error(lib, code, "vq_nearest_ids")
     launch_counts["nearest_code_ids"] += 1
     return idx
 
 
 def _nearest_code_lookup_cuda(
-    flat: torch.Tensor, embed: torch.Tensor
+    flat: torch.Tensor, embed: torch.Tensor, ranges: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(flat, embed)
     d_in = flat.shape[1]
     flat, embed = _build.kernel_operands(flat, embed)
     lib = _library()
     n, d = flat.shape
+    k = embed.shape[0]
+    ranges = _ranges_for(flat, embed, ranges)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
     q = torch.empty((n, d), dtype=flat.dtype, device=flat.device)
-    scratch = _search_scratch(lib, flat, embed)
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.vq_nearest_lookup(
-            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), n, d, embed.shape[0], int(flat.dtype == torch.bfloat16), stream)
+    nbytes = lib.vq_search_scratch_bytes(n, d, k, ranges)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
+    code = _launch(flat.device, lambda stream: lib.vq_nearest_lookup(
+        flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+        nbytes, n, d, k, int(flat.dtype == torch.bfloat16), ranges, stream))
     _raise_on_error(lib, code, "vq_nearest_lookup")
     launch_counts["nearest_code_lookup"] += 1
     return idx, _build.unpad(q, d_in)
@@ -206,7 +279,7 @@ MAX_K_STATS = 12288
 
 
 def _nearest_code_stats_cuda(
-    flat: torch.Tensor, embed: torch.Tensor
+    flat: torch.Tensor, embed: torch.Tensor, ranges: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(flat, embed)
     d_in = flat.shape[1]
@@ -217,18 +290,17 @@ def _nearest_code_stats_cuda(
         raise ValueError(
             f"the statistics kernel takes K <= {MAX_K_STATS} and N < 2^31, got K={k}, N={n}")
     lib = _library()
+    ranges = _ranges_for(flat, embed, ranges)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
     q = torch.empty((n, d), dtype=flat.dtype, device=flat.device)
     csum = torch.empty((k,), dtype=torch.float32, device=flat.device)
     esum = torch.empty((k, d), dtype=torch.float32, device=flat.device)
-    nbytes = lib.vq_stats_scratch_bytes(n, d, k)
+    nbytes = lib.vq_stats_scratch_bytes(n, d, k, ranges)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=flat.device)
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.vq_nearest_stats(
-            flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), csum.data_ptr(),
-            esum.data_ptr(), scratch.data_ptr(), nbytes, n, d, k,
-            int(flat.dtype == torch.bfloat16), stream)
+    code = _launch(flat.device, lambda stream: lib.vq_nearest_stats(
+        flat.data_ptr(), embed.data_ptr(), idx.data_ptr(), q.data_ptr(), csum.data_ptr(),
+        esum.data_ptr(), scratch.data_ptr(), nbytes, n, d, k, int(flat.dtype == torch.bfloat16),
+        ranges, stream))
     _raise_on_error(lib, code, "vq_nearest_stats")
     launch_counts["nearest_code_stats"] += 1
     return idx, _build.unpad(q, d_in), csum, _build.unpad(esum, d_in)
@@ -292,8 +364,8 @@ def nearest_code(
         idx, q = nearest_code_lookup_reference(flat, embed)
     else:
         raise _unsupported_device(flat)
-    return (idx, q, torch.zeros((k,), dtype=torch.float32, device=flat.device),
-            torch.zeros((k, d), dtype=torch.float32, device=flat.device))
+    zeros = torch.zeros((k * (d + 1),), dtype=torch.float32, device=flat.device)   # one fill
+    return idx, q, zeros[:k], zeros[k:].view(k, d)
 
 
 def quantize_lookup(indices: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
