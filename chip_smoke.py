@@ -23,7 +23,7 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               flash-attention forward and its two backward kernels (also with
               dropout on); and at shapes the JAX package
               runs that the kernels once refused (embed_dim 30, 1 and 66; head
-              widths 6, 72 and 128 in fp32 and bf16, with and without dropout,
+              widths 6, 68, 72, 128 and 136 in fp32 and bf16, with and without dropout,
               at N = 1024 and 777; ABN channels 2049 and 4096), each shown by
               the launch counters to have gone through its kernel
 4. main     — stage 1: ``VQVAE()`` at full width, 256 px: ``forward`` and
@@ -48,7 +48,9 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               refused, with plain and library times; ``encode_ids`` in
               img/s, the top prior's forward in ms, a train step of stage 1
               and of both priors, each in fp32 and in bf16 from the same
-              weights
+              weights; then (``wide_prior_step``) one fp32 step of the top
+              prior at ``--channel 2048`` (D = 128) at the largest batch of
+              32, 16, 8 that fits, with K4-K6's share of it by the profiler
 6. abn_kernels — the in-place ABN forward (K7) and backward (K8) against their
               plain versions at the inputs of the 13 ABNs of
               ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
@@ -315,15 +317,18 @@ KERNELS = {
     },
 }
 SOURCES = ("quantize", "flash_attention", "inplace_abn", "tc_probe")
-# Kernels of which no variant may spill registers (ptxas -v): both designs of
-# the dq kernel, the dk/dv kernel, the nearest-code search and K8's kernels.
-NO_SPILL_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_kernel",
-                    "nearest_code_kernel", "abn_sums_ring_kernel", "abn_sums_generic_kernel",
+# Kernels of which no variant may spill registers (ptxas -v): the designs of
+# the dq kernel, the dk/dv kernel (narrow and wide), the nearest-code search
+# and K8's kernels.
+NO_SPILL_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dq_wide_kernel",
+                    "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel", "nearest_code_kernel", "abn_sums_ring_kernel", "abn_sums_generic_kernel",
                     "abn_sums_final_kernel", "abn_dx_ring_kernel", "abn_backward_dx_kernel")
 # Shapes the JAX package runs that the kernels once refused: head widths that
-# are no multiple of 4 (D = 6 is --channel 96) or above 64, embed_dim that is
-# no multiple of 4 (and 1, and 66), and ABN channels above 2048.
-ODD_HEAD_DIMS = (6, 72, 128)
+# are no multiple of 4 (D = 6 is --channel 96) or above 64 (68 is --channel
+# 1088, the narrowest wide head; 128 one wide tile of the backward kernels,
+# 136 two), embed_dim that is no multiple of 4 (and 1, and 66), and ABN
+# channels above 2048.
+ODD_HEAD_DIMS = (6, 68, 72, 128, 136)
 ODD_SEQ_LENS = (1024, 777)
 ODD_EMBED_DIMS = (30, 1, 66)
 WIDE_ABN_CHANNELS = (2049, 4096)
@@ -1813,6 +1818,89 @@ def odd_shape_times() -> dict:
     return out
 
 
+# The top prior at --channel 2048: attention of channel 1024 in 8 heads, D =
+# 128, the widest head the backward kernels take in one tile.  Batches tried in
+# turn until one fits the card.
+WIDE_PRIOR_CHANNEL = 2048
+WIDE_PRIOR_BATCHES = (32, 16, 8)
+ATTENTION_KERNEL_NAMES = {"causal_flash_attention": "flash_fwd_kernel",
+                          "causal_flash_attention_dq": "flash_bwd_dq",
+                          "causal_flash_attention_dkv": "flash_bwd_dkv"}
+
+
+def wide_prior_step_times() -> dict:
+    """One train step of the top prior at ``--channel 2048`` (D = 128, seeded
+    random weights, fp32, dropout 0.1) at the first batch of
+    ``WIDE_PRIOR_BATCHES`` that fits: ms a step by the host's clock (mean of
+    two after a first step), peak memory, the attention kernels' launches
+    in a step (counters), and from ``torch.profiler`` over one more step the
+    card's busy time and the device ms of K4, K5 and K6 with their share of
+    the step."""
+    config = argparse.Namespace(**{**PRIOR_CONFIG, "channel": WIDE_PRIOR_CHANNEL, "bf16": False})
+    for batch in WIDE_PRIOR_BATCHES:
+        prior = state = step = None
+        fits = False
+        try:
+            torch.manual_seed(0)
+            with torch.device("cuda"):
+                prior = build_model("top", config, code_hw=(TOP_HW, BOTTOM_HW)).cuda()
+            tx = schedules.adam(3e-4)
+            state = tv.create_state(prior, tx)
+            step = tp.make_train_step(prior, tx, conditional=False)
+            codes = {"target": numpy_codes(11, batch, TOP_HW, TOP_HW)}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_counts()
+            step(state, codes)
+            torch.cuda.synchronize()
+            launches = {k: fa.launch_counts[k] for k in ATTENTION_KERNEL_NAMES}
+            check(all(launches.values()) and not any(fa.plain_counts.values()),
+                  f"wide prior step: kernels launched {launches}, plain {fa.plain_counts}")
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(state, codes)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 2 * 1e3
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state, codes)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            pass
+        if not fits:   # freed once the exception (and the frames it holds) is gone
+            del prior, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.device_time_total for e in events) / 1e3
+        kernel_ms = {name: sum(e.device_time_total for e in events if sub in e.name) / 1e3
+                     for name, sub in ATTENTION_KERNEL_NAMES.items()}
+        out = {"channel": WIDE_PRIOR_CHANNEL, "head_dim": WIDE_PRIOR_CHANNEL // 2 // N_HEAD,
+               "batch": batch, "grid": [TOP_HW, TOP_HW], "dtype": "float32",
+               "dropout": PRIOR_CONFIG["dropout"], "ms": ms, "peak_memory_gb": peak_gb,
+               "kernel_launches_per_step": launches,
+               "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                                 "kernel_device_ms": kernel_ms}}
+        if busy_ms > 0:
+            out["profiled_step"].update(
+                k4_k6_share_of_busy=sum(kernel_ms.values()) / busy_ms,
+                k4_k6_share_of_wall=sum(kernel_ms.values()) / wall_ms)
+        else:
+            out["profiled_step"]["k4_k6_share_of_busy"] = (
+                "not measured: the profiler recorded no device time")
+        del prior, state, step, prof, events
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    raise RuntimeError(f"the top prior at --channel {WIDE_PRIOR_CHANNEL} fits no batch of "
+                       f"{WIDE_PRIOR_BATCHES} on this card")
+
+
 def train_step_times(dirs: dict) -> dict:
     """One train step of each trainer at its command line's batch, fp32 then
     bf16 from the same fp32-run weights, by the host's clock around steps that
@@ -1927,6 +2015,8 @@ def phase_times(model, x, flat_t, flat_b, launches, cases, top, attention_qkv,
     with torch.enable_grad():
         train_steps = train_step_times(dirs)
     emit("times_odd_shapes", **odd_shape_times())
+    with torch.enable_grad():
+        emit("wide_prior_step", **wide_prior_step_times())
     emit("times", batch=BATCH, size=SIZE, encode_ids_ms=enc_ms,
          encode_ids_img_per_s=BATCH / enc_ms * 1e3, forward_ms=fwd_ms,
          forward_img_per_s=BATCH / fwd_ms * 1e3, peak_memory_gb=stage1_gb,

@@ -13,8 +13,11 @@ loaded side by side; each builds its own libraries under its own
 inputs and is timed by CUDA events in the order other, this, this, other:
 
 - the attention forward and the backward's dq and dk/dv kernels at the top
-  prior's B*H = 256, N = 1024, for head widths 16, 32 and 64, fp32 and bf16,
-  without and with dropout 0.1;
+  prior's B*H = 256, N = 1024, for head widths 16, 32 and 64 and the wide
+  heads 72 and 128 (``--channel`` 1152 and 2048), fp32 and bf16, without and
+  with dropout 0.1; without dropout, also the backward of
+  ``scaled_dot_product_attention`` on the same inputs (dq, dk and dv
+  together);
 - the three nearest-code kernels at the stage-1 train step's shapes
   (N = 524,288 and 131,072 rows, D = 64, K = 512) and at the deep adaptor's
   (N = 10,368 and 2,592 rows at 288x144, batch 16, D = 256, K = 512, the
@@ -31,8 +34,10 @@ inputs and is timed by CUDA events in the order other, this, this, other:
   C = 4096 (M = 11,664, fp32), where a lane of its ring takes two vectors of
   each row.
 
-``--kernels`` picks some of ``attention``, ``search`` and ``abn`` (all by
-default).
+``--kernels`` picks some of ``attention``, ``search`` and ``abn`` (all three by
+default) and ``prior_step``: a train step of the top prior at ``--channel
+2048`` (D = 128, batch 32, fp32 at the port's reference precision) through
+each checkout's trainer, in the same turns.
 
 Prints the registers and spilled bytes of both checkouts' kernel variants,
 one JSON line a shape (each kernel's two times a checkout, and the largest
@@ -44,29 +49,39 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import importlib
 import itertools
 import json
 import os
 import sys
+import time
 
 import torch
 
-from chip_smoke import cuda_ms, library_stats, ptxas_summary, run_text, search_parts
+from chip_smoke import (cuda_ms, library_backward_ms, library_stats, ptxas_summary, run_text,
+                        search_parts)
 
 PACKAGE = "vqvae2_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ATTENTION_BH, ATTENTION_N = 256, 1024
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 72, 128)
 SEARCH_K = 512
+PRIOR_STEP_BATCH = 32
 # (N, D): the stage-1 train step's two grids, then the deep adaptor's two
 SEARCH_SHAPES = ((524288, 64), (131072, 64), (10368, 256), (2592, 256))
 
 
-def load_ops(root: str) -> dict:
+# modules of each checkout besides its three kernel modules: what a train step
+# of the top prior runs through
+STEP_MODULES = ("train.pixelsnail", "train.vqvae", "utils.schedules")
+
+
+def load_ops(root: str, extra=()) -> dict:
     """``root``'s ``flash_attention``, ``quantize`` and ``inplace_abn``
-    modules, imported beside whatever copy of the package is already loaded
-    (which stays)."""
+    modules, and those of ``extra`` (dotted names within the package, such as
+    ``STEP_MODULES``) under their names, imported together beside whatever
+    copy of the package is already loaded (which stays)."""
     def ours(name):
         return name == PACKAGE or name.startswith(PACKAGE + ".")
 
@@ -75,6 +90,7 @@ def load_ops(root: str) -> dict:
     try:
         mods = {name: importlib.import_module(f"{PACKAGE}.ops.{name}")
                 for name in ("flash_attention", "quantize", "inplace_abn")}
+        mods.update({name: importlib.import_module(f"{PACKAGE}.{name}") for name in extra})
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if ours(k)]:
@@ -113,10 +129,12 @@ def compare_attention(other, this, gen: torch.Generator):
                                    device="cuda").to(dtype) for _ in range(4))
         a = attention_launchers(other["flash_attention"], q, k, v, do, rate)
         b = attention_launchers(this["flash_attention"], q, k, v, do, rate)
-        print(json.dumps({"kernels": "attention", "bh": ATTENTION_BH, "n": ATTENTION_N, "d": d,
-                          "dtype": str(dtype)[6:], "dropout_rate": rate,
-                          **{name: in_turns(a[name], b[name], reps=10) for name in a}}),
-              flush=True)
+        line = {"kernels": "attention", "bh": ATTENTION_BH, "n": ATTENTION_N, "d": d,
+                "dtype": str(dtype)[6:], "dropout_rate": rate,
+                **{name: in_turns(a[name], b[name], reps=10) for name in a}}
+        if rate == 0.0:
+            line["library_backward_ms"] = library_backward_ms(q, k, v, do)
+        print(json.dumps(line), flush=True)
 
 
 def compare_search(other, this, gen: torch.Generator):
@@ -251,10 +269,60 @@ def compare_abn(other, this):
                       "dtype": "float32", **times}), flush=True)
 
 
+def prior_step(mods: dict, steps: int = 3) -> dict:
+    """One checkout's train step of the top prior at ``--channel 2048`` (D =
+    128; fp32 under the port's reference precision, as the trainer runs it;
+    dropout 0.1, seeded random weights) at chip_smoke's batch 32: ms a step by
+    the host's clock over ``steps`` steps after a first one, and the attention
+    kernels' launches in that first step."""
+    from chip_smoke import PRIOR_CONFIG, TOP_HW, BOTTOM_HW, WIDE_PRIOR_CHANNEL, numpy_codes
+
+    tp, tv, fa = mods["train.pixelsnail"], mods["train.vqvae"], mods["flash_attention"]
+    config = argparse.Namespace(**{**PRIOR_CONFIG, "channel": WIDE_PRIOR_CHANNEL, "bf16": False})
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        prior = tp.build_model("top", config, code_hw=(TOP_HW, BOTTOM_HW)).cuda()
+    tx = mods["utils.schedules"].adam(3e-4)
+    state = tv.create_state(prior, tx)
+    step = tp.make_train_step(prior, tx, conditional=False)
+    codes = {"target": numpy_codes(11, PRIOR_STEP_BATCH, TOP_HW, TOP_HW)}
+    fa.reset_counts()
+    step(state, codes)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, codes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    del prior, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": launches}
+
+
+def compare_prior_step(other, this):
+    """The top prior's train step at ``--channel 2048`` through each
+    checkout's modules, in the order other, this, this, other (one model on
+    the card at a time)."""
+    import vqvae2_tpu_torch as port
+    from chip_smoke import WIDE_PRIOR_CHANNEL
+
+    port.set_reference_precision()   # no TF32 in cuDNN, deterministic algorithms
+    runs = [prior_step(mods) for mods in (other, this, this, other)]
+    print(json.dumps({"kernels": "prior_step", "channel": WIDE_PRIOR_CHANNEL,
+                      "batch": PRIOR_STEP_BATCH,
+                      "other_ms": [runs[0]["ms"], runs[3]["ms"]],
+                      "this_ms": [runs[1]["ms"], runs[2]["ms"]],
+                      "other_launches": runs[0]["launches"],
+                      "this_launches": runs[1]["launches"]}), flush=True)
+
+
 def build_all(checkouts: dict) -> dict:
     """Every library of both checkouts, each nvcc started together; the
     ptxas summary of each."""
-    jobs = [(who, name, mod) for who, mods in checkouts.items() for name, mod in mods.items()]
+    jobs = [(who, name, mod) for who, mods in checkouts.items() for name, mod in mods.items()
+            if hasattr(mod, "_library")]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: job[2]._library(), jobs))
     out = {}
@@ -268,13 +336,15 @@ def build_all(checkouts: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True, help="a checkout of another commit")
-    ap.add_argument("--kernels", nargs="+", choices=("attention", "search", "abn"),
+    ap.add_argument("--kernels", nargs="+", choices=("attention", "search", "abn", "prior_step"),
                     default=("attention", "search", "abn"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
-    checkouts = {"other": load_ops(os.path.abspath(args.against)), "this": load_ops(ROOT)}
+    extra = STEP_MODULES if "prior_step" in args.kernels else ()
+    checkouts = {"other": load_ops(os.path.abspath(args.against), extra),
+                 "this": load_ops(ROOT, extra)}
     print(json.dumps({"against": args.against, "built": build_all(checkouts)}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "attention" in args.kernels:
@@ -283,6 +353,9 @@ def main(argv=None) -> int:
         compare_search(checkouts["other"], checkouts["this"], gen)
     if "abn" in args.kernels:
         compare_abn(checkouts["other"], checkouts["this"])
+    if "prior_step" in args.kernels:
+        with torch.enable_grad():
+            compare_prior_step(checkouts["other"], checkouts["this"])
     print(run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     return 0
 

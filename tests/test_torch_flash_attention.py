@@ -362,15 +362,16 @@ def test_large_scores_need_the_plain_versions_rounding_of_the_scores():
 
 # ---------------------------------------------------------------------------
 # Head widths the kernels once refused (D = 6 is --channel 96; D = 72 is
-# above one 64-wide tile), and what the tensor-core dq arithmetic does
+# above one 64-wide tile; D = 128 is one wide tile of the backward kernels,
+# D = 136 two), and what the tensor-core dq arithmetic does
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [6, 72])
+@pytest.mark.parametrize("d", [6, 72, 128, 136])
 def test_widths_the_jax_package_runs_match_its_reference_and_its_gradient(d):
     """The plain version and the written-out backward (what the kernels are
     held against on the card) against ``causal_attention_reference`` and
-    ``jax.grad`` of it at D = 6 and D = 72, with the upstream gradient of
-    ``sum(sin(o))``."""
+    ``jax.grad`` of it at D = 6, 72, 128 and 136, with the upstream gradient
+    of ``sum(sin(o))``."""
     q, k, v = qkv(60 + d, 1, 2, 64, d)
     want_o = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v))))
     o, lse = fa.causal_attention_reference_lse(*(torch.from_numpy(a) for a in (q, k, v)))
@@ -437,6 +438,65 @@ def test_tensor_core_dq_arithmetic_needs_a_fresh_accumulator_per_key_tile():
     one = mma_product(ds, k, 64, fresh=False)
     torch.testing.assert_close(fresh, want, **TOL)
     assert float((one - want).abs().max()) > 2 * float((fresh - want).abs().max())
+
+
+def test_backward_tiling_covers_every_width():
+    """The wrapper's choice of the backward kernels' variant for every head
+    width from 1 to 512: a tile the kernels have, groups whose columns cover
+    the padded width with the last group not empty, the narrow variants of
+    today up to 64 features (16, 32 or 64, one group), and 128-wide tiles
+    above."""
+    for d in range(1, 513):
+        padded = -(-d // 4) * 4                     # what _build.kernel_operands hands over
+        tile, groups = fa.backward_tiling(d)
+        assert (tile, groups) == fa.backward_tiling(padded), d
+        assert tile in fa.NARROW_TILES + (fa.WIDE_TILE,), d
+        assert groups >= 1 and groups * tile >= padded and (groups - 1) * tile < d, d
+        if d <= 64:
+            assert groups == 1 and tile == min(t for t in fa.NARROW_TILES if t >= d), d
+        else:
+            assert tile == fa.WIDE_TILE == 128 and groups == -(-d // 128), d
+    with pytest.raises(ValueError):
+        fa.backward_tiling(0)
+
+
+def float64_backward(q, k, v, do):
+    """dq, dk, dv of strictly-causal attention in float64, written out."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    n, d = q.shape[-2:]
+    seen = torch.arange(n)[None, :] < torch.arange(n)[:, None]
+    s = torch.where(seen, q @ k.transpose(-1, -2) / np.sqrt(d), torch.tensor(-np.inf).double())
+    p = torch.nan_to_num(torch.softmax(s, dim=-1))          # row 0 attends nothing
+    o = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True)) / np.sqrt(d)
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+def test_wide_backward_arithmetic_sums_dp_over_the_whole_head():
+    """The wide backward kernels' arithmetic at D = 128 (one 128-wide tile):
+    scores as fp32 FMA chains; dP = dO·Vᵀ over all 128 features in one
+    truncating accumulator (the 64-wide design took each 64-feature chunk
+    into a fresh one); dsum an FMA chain; dq += dS·K a fresh accumulator per
+    32-key tile, dK += dSᵀ·Q and dV += Pᵀ·dO a fresh one per 64-query tile.
+    At B·H = 2, N = 512 each gradient stays within FA_TOL of float64 and of
+    the plain fp32 backward."""
+    q, k, v, do = (torch.from_numpy(a) for a in qkv(52, 2, 512, 128) + qkv(53, 2, 512, 128)[:1])
+    n, d = q.shape[-2:]
+    o, lse = fa.causal_attention_reference_lse(q, k, v)
+    scale = np.float32(1.0 / np.sqrt(d))
+    seen = torch.arange(n)[None, :] < torch.arange(n)[:, None]
+    p = torch.where(seen, torch.exp(fma_chain_scores(q, k) * scale - lse), torch.zeros(n, n))
+    dsum = fma_chain_scores(do[..., None, :], o[..., None, :])[..., 0]   # <do, o> a row
+    dp = mma_product(do, v.transpose(-1, -2), d, fresh=False)
+    ds = p * (dp - dsum) * scale
+    got = (mma_product(ds, k, 32, fresh=True),
+           mma_product(ds.transpose(-1, -2), q, 64, fresh=True),
+           mma_product(p.transpose(-1, -2), do, 64, fresh=True))
+    plain = fa.causal_attention_backward_reference(q, k, v, o, lse, do)
+    exact = float64_backward(q, k, v, do)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+        torch.testing.assert_close(g.double(), x, **TOL, msg=name)
 
 
 @pytest.mark.parametrize("d", [6, 1, 13])

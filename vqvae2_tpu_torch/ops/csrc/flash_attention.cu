@@ -56,10 +56,13 @@
 // Any head width.  D that is not a multiple of 4 is zero-padded to one by the
 // wrapper (an FMA of 0 * 0 onto a score leaves it bit for bit; the scale takes
 // the head's own D).  Up to 64 features a head is one tile wide (variants of
-// 16, 32 and 64 columns); above, it is cut into 64-wide chunks (WIDE): each
-// block owns one 64-wide group of its output's columns (a grid axis), and the
-// scores continue their FMA chains across the chunks in order, so they round
-// as one chain over d.  The score work is repeated for every column group.
+// 16, 32 and 64 columns).  Above, K4 cuts it into 64-wide chunks (WIDE): each
+// block owns one 64-wide group of o's columns (a grid axis), and the scores
+// continue their FMA chains across the chunks in order, so they round as one
+// chain over d; the score work is repeated for every column group.  K5 and K6
+// take wide heads in variants of their own, one 128-wide tile up to 128
+// features, which compute S and dP once for all the columns they write
+// (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel below).
 //
 // Dropout is a counter-based draw: Philox-4x32-10 keyed on the seed, with the
 // absolute (bh, i, j / 4) as the counter and word j % 4 of the result as the
@@ -78,8 +81,9 @@
 //   dp[i, j] = <do[i], v[j]> * m[i, j]
 //   ds[i, j] = p * (dp - dsum[i]) * (1 / sqrt(D)),   dsum[i] = <do[i], o[i]>
 //   dq[i] = sum_j ds * k[j];  dk[j] = sum_i ds * q[i];  dv[j] = sum_i p * m * do[i]
-// Both backward kernels run on K4's design where the dq kernel's CUDA-core
-// design (below) does not run: see dq_on_cuda_cores.  The dq kernel (K5): a block of
+// Up to 64 features both backward kernels run on K4's design where the dq
+// kernel's CUDA-core design (below) does not run: see dq_on_cuda_cores.  The
+// dq kernel (K5): a block of
 // four warps owns 64 query rows, 16 a warp, with dq in registers; it walks key
 // tiles (64, or 32 at D = 64) up to the diagonal with k and v staged two deep
 // by cp.async; the scores are fp32 FMA chains rounded as K4's, dP = dO.V^T and
@@ -260,12 +264,13 @@ __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wai
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // Rows row0 .. row0 + ROWS - 1, columns c0 .. c0 + DP - 1 of a (n, d) matrix
-// into a (ROWS, LD) fp32 tile, zero past row n and column d.  fp32 goes by
-// cp.async; bf16 is widened on the way (plain loads, stored at once).
-template <typename T, int ROWS, int DP, int LD>
+// into a (ROWS, LD) fp32 tile, zero past row n and column d, by a block of
+// THREADS threads.  fp32 goes by cp.async; bf16 is widened on the way (plain
+// loads, stored at once).
+template <typename T, int ROWS, int DP, int LD, int THREADS = TC_THREADS>
 __device__ __forceinline__ void stage_rows(float (*dst)[LD], const T* __restrict__ src, int row0,
                                            int n, int d, int c0 = 0) {
-  for (int f = threadIdx.x; f < ROWS * (DP / 4); f += TC_THREADS) {
+  for (int f = threadIdx.x; f < ROWS * (DP / 4); f += THREADS) {
     const int r = f / (DP / 4);
     const int c = (f % (DP / 4)) * 4;
     const bool in = row0 + r < n && c0 + c < d;
@@ -344,6 +349,31 @@ __device__ __forceinline__ unsigned int keep_bits_rows(unsigned long long seed, 
          static_cast<unsigned int>(wa1 >= threshold) << 1 |
          static_cast<unsigned int>(wb0 >= threshold) << 2 |
          static_cast<unsigned int>(wb1 >= threshold) << 3;
+}
+
+// The keep bits of K6's score fragment (keys ka = key0 + g, kb = ka + 8 of
+// the warp's 16; queries i0, i0 + 1): the warp's 16 keys are four Philox
+// quads, and its lanes of one t hold two queries: 8 draws, one a lane.  Lane
+// (g, t) draws quad key0 / 4 + g / 2 of query i0 + (g & 1) and turns it into
+// four keep bits; a lane reads the bits of its two keys (word g & 3 of quads
+// g / 4 and 2 + g / 4) from the four lanes that drew them.  Bit c: element c
+// (key ka for c < 2 else kb, query i0 + (c & 1)) is kept.
+__device__ __forceinline__ unsigned int keep_bits_keys(unsigned long long seed, long long bh,
+                                                       int key0, int i0, int g, int t,
+                                                       unsigned int threshold) {
+  const uint4 bits = dropout_bits4(seed, bh, i0 + (g & 1), (key0 >> 2) + (g >> 1));
+  const unsigned int mine = static_cast<unsigned int>(bits.x >= threshold) |
+                            static_cast<unsigned int>(bits.y >= threshold) << 1 |
+                            static_cast<unsigned int>(bits.z >= threshold) << 2 |
+                            static_cast<unsigned int>(bits.w >= threshold) << 3;
+  const int h = g >> 2;
+  const unsigned int m0 = __shfl_sync(FULL, mine, (2 * h) * 4 + t);       // ka, i0
+  const unsigned int m1 = __shfl_sync(FULL, mine, (2 * h + 1) * 4 + t);   // ka, i0 + 1
+  const unsigned int m2 = __shfl_sync(FULL, mine, (2 * h + 4) * 4 + t);   // kb, i0
+  const unsigned int m3 = __shfl_sync(FULL, mine, (2 * h + 5) * 4 + t);   // kb, i0 + 1
+  const int w = g & 3;
+  return ((m0 >> w) & 1u) | ((m1 >> w) & 1u) << 1 | ((m2 >> w) & 1u) << 2 |
+         ((m3 >> w) & 1u) << 3;
 }
 
 // K4: o and lse.  One block of four warps owns 64 query rows, 16 a warp (the
@@ -869,13 +899,11 @@ flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 //                  to the running dq by a rounded fp32 add (the tensor cores'
 //                  sums truncate).
 // dsum = <do, o> of each row is an FMA chain over d in order (what K6 reads).
-// It runs from 32 features up (dq_on_cuda_cores), where q and the split dO
-// fragments would not fit in registers beside S and dP: each use reads them
-// through L1 (a warp's rows of q and do are at most 8 KB).  WIDE (D > 64): as K4's, a block owns
-// one 64-wide group of dq's columns (blockIdx.y); S and dP run over K's and
-// V's feature chunks in turn (dP's chunks each into a fresh accumulator), then
-// K's chunk of the block's group is staged for dq.
-template <typename T, int DP, bool DROP, bool WIDE>
+// It runs from 32 features up to 64 (dq_on_cuda_cores), where q and the split
+// dO fragments would not fit in registers beside S and dP: each use reads them
+// through L1 (a warp's rows of q and do are at most 8 KB).  Wider heads take
+// flash_bwd_dq_wide_kernel.
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
@@ -887,8 +915,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int DS = DP / 8;     // k-steps of dP; 8-wide column tiles of dq
   constexpr int JT = KT / 8;     // 8-key column tiles of S and dP; k-steps of dq
   // ... of a sub-tile (fewer registers, and shorter chains of mma into one
-  // accumulator); WIDE computes its whole tile's S and dP across the chunks
-  constexpr int JS = WIDE ? JT : (JT >= 4 ? 4 : JT);
+  // accumulator)
+  constexpr int JS = JT >= 4 ? 4 : JT;
   constexpr bool EXACT = ExactInTf32<T>::value;
   __shared__ __align__(16) float k_tile[2][KT][LD];
   __shared__ __align__(16) float v_tile[2][KT][LD];
@@ -899,9 +927,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
-  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // dq's column group
-  const int col0 = cg * DP;
-  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
   const int row0 = qt * TC_ROWS + warp * 16;
   const int ra = row0 + g;
   const int rb = ra + 8;
@@ -923,18 +948,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int c = 0; c < d; ++c) dsum_b = fmaf(to_float(dout[at + c]), to_float(o[at + c]), dsum_b);
     lse_b = lse[bh * n + rb];
   }
-  if (t == 0 && cg == 0) {
+  if (t == 0) {
     if (ra < n) dsum_out[bh * n + ra] = dsum_a;
     if (rb < n) dsum_out[bh * n + rb] = dsum_b;
   }
 
-  // dO's A fragment of k-step s of the chunk at c0: (ra, 8s + t), (rb, 8s + t),
-  // (ra, 8s + t + 4), (rb, 8s + t + 4)
-  auto do_fragment = [&](int s, int c0, unsigned int (&h)[4], unsigned int (&l)[4]) {
+  // dO's A fragment of k-step s: (ra, 8s + t), (rb, 8s + t), (ra, 8s + t + 4),
+  // (rb, 8s + t + 4)
+  auto do_fragment = [&](int s, unsigned int (&h)[4], unsigned int (&l)[4]) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = (r & 1) ? rb : ra;
-      const int col = c0 + s * 8 + t + (r >> 1) * 4;
+      const int col = s * 8 + t + (r >> 1) * 4;
       const float x = (row < n && col < d) ? to_float(gbase[static_cast<long long>(row) * d + col]) : 0.f;
       split_tf32(x, h[r], l[r]);
     }
@@ -947,10 +972,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int warp_last = row0 < n ? min(n, row0 + 16) - 1 : 0;
   const int tiles = (key_end + KT - 1) / KT;
 
-  // S and dP of the JS column tiles from j0 of a staged chunk (columns c0 ..)
-  // of K and V; kmax as in the tile loop
+  // S and dP of the JS column tiles from j0 of a staged tile of K and V; kmax
+  // as in the tile loop
   auto scores_and_dp = [&](float (&s)[JS][4], float (&dp)[JS][4], const float (*kt)[LD],
-                           const float (*vt)[LD], int c0, int j0, int kmax) {
+                           const float (*vt)[LD], int j0, int kmax) {
     // q's rows read through L1 four features at a time (held whole they
     // would not fit beside S and dP); the same chains as score_chains
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -964,9 +989,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll 1
         for (int dd = 0; dd < DP; dd += 4) {
           const float4 kk = *reinterpret_cast<const float4*>(row + dd);
-          const bool in = c0 + dd < d;
-          const float4 xa = (ra < n && in) ? load4(qbase + static_cast<long long>(ra) * d + c0 + dd) : zero;
-          const float4 xb = (rb < n && in) ? load4(qbase + static_cast<long long>(rb) * d + c0 + dd) : zero;
+          const bool in = dd < d;
+          const float4 xa = (ra < n && in) ? load4(qbase + static_cast<long long>(ra) * d + dd) : zero;
+          const float4 xb = (rb < n && in) ? load4(qbase + static_cast<long long>(rb) * d + dd) : zero;
           sa = fmaf(xa.x, kk.x, sa);
           sa = fmaf(xa.y, kk.y, sa);
           sa = fmaf(xa.z, kk.z, sa);
@@ -983,7 +1008,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int ds = 0; ds < DS; ++ds) {
       unsigned int ah[4], al[4];
-      do_fragment(ds, c0, ah, al);
+      do_fragment(ds, ah, al);
 #pragma unroll
       for (int j = 0; j < JS; ++j) {
         if ((j0 + j) * 8 >= kmax) continue;
@@ -995,15 +1020,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   };
 
-  if (tiles > 0 && !WIDE) {
+  if (tiles > 0) {
     stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
     stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d);
   }
   cp_async_commit();
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * KT;
-    int st = it & 1;
-    if (!WIDE && it + 1 < tiles) {   // the next tile loads while this one is computed
+    const int st = it & 1;
+    if (it + 1 < tiles) {   // the next tile loads while this one is computed
       stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
       stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d);
     }
@@ -1012,52 +1037,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     __syncthreads();
 
     const int kmax = warp_last - k0;   // column tile j is seen when 8j < kmax (warp-uniform)
-    float sw[JS][4], dpw[JS][4];       // WIDE: the whole tile's S and dP (JS == JT)
-    if constexpr (WIDE) {
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        sw[j][0] = sw[j][1] = sw[j][2] = sw[j][3] = 0.f;
-        dpw[j][0] = dpw[j][1] = dpw[j][2] = dpw[j][3] = 0.f;
-      }
-      // K's and V's chunks in turn through buffer 0, then K's chunk of this
-      // block's column group into buffer 1 for dq (the block waits for each)
-      for (int fc = 0; fc < chunks; ++fc) {
-        stage_rows<T, KT, DP, LD>(k_tile[0], kb, k0, n, d, fc * DP);
-        stage_rows<T, KT, DP, LD>(v_tile[0], vb, k0, n, d, fc * DP);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (kmax > 0) {
-          float dpc[JS][4];
-#pragma unroll
-          for (int j = 0; j < JS; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
-          scores_and_dp(sw, dpc, k_tile[0], v_tile[0], fc * DP, 0, kmax);
-#pragma unroll
-          for (int j = 0; j < JS; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dpw[j][e] += dpc[j][e];
-        }
-        __syncthreads();   // consumed before the next chunk overwrites it
-      }
-      stage_rows<T, KT, DP, LD>(k_tile[1], kb, k0, n, d, col0);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      st = 1;
-    }
-
     for (int j0 = 0; j0 < JT; j0 += JS) {
       if (j0 * 8 >= kmax) break;   // no seen key from here on (warp-uniform)
       float s[JS][4], dp[JS][4];
 #pragma unroll
       for (int j = 0; j < JS; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = WIDE ? sw[j][e] : 0.f;
-          dp[j][e] = WIDE ? dpw[j][e] : 0.f;
-        }
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
-      if constexpr (!WIDE) scores_and_dp(s, dp, k_tile[st], v_tile[st], 0, j0, kmax);
+      scores_and_dp(s, dp, k_tile[st], v_tile[st], j0, kmax);
 
       // dS = p * (dP * m - dsum) * scale, into s; element c of column tile
       // j0 + j is (row ra for c < 2 else rb, key k0 + 8(j0 + j) + 2t + (c & 1))
@@ -1117,7 +1105,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 #pragma unroll
   for (int ds = 0; ds < DS; ++ds) {
-    const int col = col0 + ds * 8 + 2 * t;
+    const int col = ds * 8 + 2 * t;
     if (col >= d) continue;
     if (ra < n) store2(dq + base + static_cast<long long>(ra) * d + col, acc[ds][0], acc[ds][1]);
     if (rb < n) store2(dq + base + static_cast<long long>(rb) * d + col, acc[ds][2], acc[ds][3]);
@@ -1130,15 +1118,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // with q, do, lse and dsum staged two deep by cp.async.  A tile is computed in
 // sub-tiles of JS 8-query columns (fewer registers: at D = 64 one column).
 // Blocks are ordered by the length of their query loop, longest (the first key
-// tile) first, across all heads.
-//
-// WIDE (D > 64): as K4's, a block owns one 64-wide group of dk's and dv's
-// columns (blockIdx.y).  For each query tile, S^T and dP^T run over the
-// feature chunks of Q and dO in turn (K's and V's chunks read from global
-// memory; each chunk of dP^T into a fresh accumulator), for the whole tile at
-// once; then Q's and dO's chunks of the block's group are staged for dV and
-// dK.
-template <typename T, int DP, bool DROP, bool WIDE>
+// tile) first, across all heads.  Wider heads take flash_bwd_dkv_wide_kernel.
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -1149,7 +1130,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int LD = kTcLd<DP>;
   constexpr int DS = DP / 8;           // k-steps of S^T and dP^T; column tiles of dK, dV
   constexpr int JT = QT / 8;           // 8-query column tiles of a query tile
-  constexpr int JS = WIDE ? JT : (DP >= 64 ? 1 : 4);  // ... of a sub-tile
+  constexpr int JS = DP >= 64 ? 1 : 4;  // ... of a sub-tile
   constexpr bool EXACT = ExactInTf32<T>::value;
   __shared__ __align__(16) float q_tile[2][QT][LD];
   __shared__ __align__(16) float g_tile[2][QT][LD];   // do
@@ -1162,9 +1143,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int kt = static_cast<int>(blockIdx.x / bh_count);
-  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // dk's and dv's column group
-  const int col0 = cg * DP;
-  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
   const int key0 = kt * TC_ROWS + warp * 16;   // first key of this warp, a multiple of 16
   const int ka = key0 + g;                     // this thread's two keys
   const int kb = ka + 8;
@@ -1177,12 +1155,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // 8s + t or 8s + t + 4).  At D = 16 they stay in registers; at larger D they
   // would not fit beside the accumulators, and each use reads them again (from
   // L1: the warp's keys and values are at most 8 KB).
-  constexpr bool KV_IN_REGS = DP <= 16 && !WIDE;
+  constexpr bool KV_IN_REGS = DP <= 16;
   const T* ka_row = k + base + static_cast<long long>(ka) * d;
   const T* kb_row = k + base + static_cast<long long>(kb) * d;
-  auto v_at = [&](int s, int r, long long& at, int c0) {
+  auto v_at = [&](int s, int r, long long& at) {
     const int row = (r & 1) ? kb : ka;
-    const int col = c0 + s * 8 + t + (r >> 1) * 4;
+    const int col = s * 8 + t + (r >> 1) * 4;
     at = base + static_cast<long long>(row) * d + col;
     return row < n && col < d;
   };
@@ -1198,7 +1176,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         long long at;
-        const bool in = v_at(s, r, at, 0);
+        const bool in = v_at(s, r, at);
         vf[s][r] = in ? to_float(v[at]) : 0.f;
       }
     }
@@ -1213,8 +1191,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int q_first = kt * TC_ROWS;   // no query before the block's first key sees it
   const int tiles = (n - q_first + QT - 1) / QT;
   auto stage = [&](int buf, int q0) {
-    stage_rows<T, QT, DP, LD>(q_tile[buf], qb, q0, n, d, col0);
-    stage_rows<T, QT, DP, LD>(g_tile[buf], gb, q0, n, d, col0);
+    stage_rows<T, QT, DP, LD>(q_tile[buf], qb, q0, n, d);
+    stage_rows<T, QT, DP, LD>(g_tile[buf], gb, q0, n, d);
     for (int r = threadIdx.x; r < 2 * QT; r += TC_THREADS) {
       const int i = r % QT;
       const bool in = q0 + i < n;
@@ -1227,95 +1205,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   };
 
-  if (!WIDE) stage(0, q_first);
+  stage(0, q_first);
   cp_async_commit();
   for (int it = 0; it < tiles; ++it) {
     const int q0 = q_first + it * QT;
-    int st = it & 1;
-    float sw[JS][4], dpw[JS][4];   // WIDE: the whole tile's S^T and dP^T (JS == JT)
-    if constexpr (!WIDE) {
-      if (it + 1 < tiles) stage(st ^ 1, q0 + QT);   // the next tile loads while this one is computed
-      cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();
-    } else {
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        sw[j][0] = sw[j][1] = sw[j][2] = sw[j][3] = 0.f;
-        dpw[j][0] = dpw[j][1] = dpw[j][2] = dpw[j][3] = 0.f;
-      }
-      // Q's and dO's chunks in turn through buffer 0 (the block waits for
-      // each), then the block's column group and lse, dsum into buffer 1
-      for (int fc = 0; fc < chunks; ++fc) {
-        const int c0 = fc * DP;
-        stage_rows<T, QT, DP, LD>(q_tile[0], qb, q0, n, d, c0);
-        stage_rows<T, QT, DP, LD>(g_tile[0], gb, q0, n, d, c0);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (key0 < n) {
-          // S^T continues its chains (k's chunk read from global memory)
-#pragma unroll
-          for (int j = 0; j < JS; ++j) {
-            if (q0 + j * 8 + 7 <= key0) continue;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float* qr = &q_tile[0][j * 8 + 2 * t + c][0];
-              float sa = sw[j][c], sb = sw[j][2 + c];
-#pragma unroll 1
-              for (int dd = 0; dd < DP; dd += 4) {
-                const float4 qq = *reinterpret_cast<const float4*>(qr + dd);
-                const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-                const float4 xa = (ka < n && c0 + dd < d) ? load4(ka_row + c0 + dd) : zero;
-                const float4 xb = (kb < n && c0 + dd < d) ? load4(kb_row + c0 + dd) : zero;
-                sa = fmaf(qq.x, xa.x, sa);
-                sa = fmaf(qq.y, xa.y, sa);
-                sa = fmaf(qq.z, xa.z, sa);
-                sa = fmaf(qq.w, xa.w, sa);
-                sb = fmaf(qq.x, xb.x, sb);
-                sb = fmaf(qq.y, xb.y, sb);
-                sb = fmaf(qq.z, xb.z, sb);
-                sb = fmaf(qq.w, xb.w, sb);
-              }
-              sw[j][c] = sa;
-              sw[j][2 + c] = sb;
-            }
-          }
-          // dP^T of the chunk into a fresh accumulator
-          float dpc[JS][4];
-#pragma unroll
-          for (int j = 0; j < JS; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
-#pragma unroll
-          for (int ds = 0; ds < DS; ++ds) {
-            unsigned int vh[4], vl[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              long long at;
-              const bool in = v_at(ds, r, at, c0);
-              split_tf32(in ? to_float(v[at]) : 0.f, vh[r], vl[r]);
-            }
-#pragma unroll
-            for (int j = 0; j < JS; ++j) {
-              if (q0 + j * 8 + 7 <= key0) continue;
-              unsigned int bh_[2], bl_[2];
-              split_tf32(g_tile[0][j * 8 + g][ds * 8 + t], bh_[0], bl_[0]);
-              split_tf32(g_tile[0][j * 8 + g][ds * 8 + t + 4], bh_[1], bl_[1]);
-              mma_3xtf32<EXACT, EXACT>(dpc[j], vh, vl, bh_, bl_);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < JS; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dpw[j][e] += dpc[j][e];
-        }
-        __syncthreads();   // consumed before the next chunk overwrites it
-      }
-      stage(1, q0);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      st = 1;
-    }
+    const int st = it & 1;
+    if (it + 1 < tiles) stage(st ^ 1, q0 + QT);   // the next tile loads while this one is computed
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
 
     // Column tile j (queries q0 + 8j .. + 7) holds a query that sees a key of
     // this warp when q0 + 8j + 7 > key0 (warp-uniform).
@@ -1325,10 +1223,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int j = 0; j < JS; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = WIDE ? sw[j][e] : 0.f;
-          dp[j][e] = WIDE ? dpw[j][e] : 0.f;
-        }
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
       // S^T = K.Q^T: s[j][2h + c] is (key ka or kb for h = 0, 1, query
       // q0 + 8(j0 + j) + 2t + c), an fp32 FMA chain over d in order, so that it
@@ -1336,74 +1231,70 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       // then stays at most 1 whatever the scores' size: from scores rounded
       // otherwise (the tensor cores'), p overflows once the scores reach
       // 1e10, as a few steps of training bring them to.
-      if constexpr (!WIDE) {
 #pragma unroll
-        for (int j = 0; j < JS; ++j) {
-          const int r0 = (j0 + j) * 8;
-          if (q0 + r0 + 7 <= key0) continue;
+      for (int j = 0; j < JS; ++j) {
+        const int r0 = (j0 + j) * 8;
+        if (q0 + r0 + 7 <= key0) continue;
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float* qr = &q_tile[st][r0 + 2 * t + c][0];
-            float sa = 0.f, sb = 0.f;
-            auto chain = [&](const float4& qq, const float4& xa, const float4& xb) {
-              sa = fmaf(qq.x, xa.x, sa);
-              sa = fmaf(qq.y, xa.y, sa);
-              sa = fmaf(qq.z, xa.z, sa);
-              sa = fmaf(qq.w, xa.w, sa);
-              sb = fmaf(qq.x, xb.x, sb);
-              sb = fmaf(qq.y, xb.y, sb);
-              sb = fmaf(qq.z, xb.z, sb);
-              sb = fmaf(qq.w, xb.w, sb);
-            };
-            if (KV_IN_REGS) {
+        for (int c = 0; c < 2; ++c) {
+          const float* qr = &q_tile[st][r0 + 2 * t + c][0];
+          float sa = 0.f, sb = 0.f;
+          auto chain = [&](const float4& qq, const float4& xa, const float4& xb) {
+            sa = fmaf(qq.x, xa.x, sa);
+            sa = fmaf(qq.y, xa.y, sa);
+            sa = fmaf(qq.z, xa.z, sa);
+            sa = fmaf(qq.w, xa.w, sa);
+            sb = fmaf(qq.x, xb.x, sb);
+            sb = fmaf(qq.y, xb.y, sb);
+            sb = fmaf(qq.z, xb.z, sb);
+            sb = fmaf(qq.w, xb.w, sb);
+          };
+          if (KV_IN_REGS) {
 #pragma unroll
-              for (int dd = 0; dd < DP; dd += 4) {
-                chain(*reinterpret_cast<const float4*>(qr + dd),
-                      make_float4(kra[dd], kra[dd + 1], kra[dd + 2], kra[dd + 3]),
-                      make_float4(krb[dd], krb[dd + 1], krb[dd + 2], krb[dd + 3]));
-              }
-            } else {
-              const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-              // one step at a time: hoisted, the loads would not fit the registers
-#pragma unroll 1
-              for (int dd = 0; dd < DP; dd += 4) {
-                chain(*reinterpret_cast<const float4*>(qr + dd),
-                      (ka < n && dd < d) ? load4(ka_row + dd) : zero,
-                      (kb < n && dd < d) ? load4(kb_row + dd) : zero);
-              }
+            for (int dd = 0; dd < DP; dd += 4) {
+              chain(*reinterpret_cast<const float4*>(qr + dd),
+                    make_float4(kra[dd], kra[dd + 1], kra[dd + 2], kra[dd + 3]),
+                    make_float4(krb[dd], krb[dd + 1], krb[dd + 2], krb[dd + 3]));
             }
-            s[j][c] = sa;
-            s[j][2 + c] = sb;
+          } else {
+            const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+            // one step at a time: hoisted, the loads would not fit the registers
+#pragma unroll 1
+            for (int dd = 0; dd < DP; dd += 4) {
+              chain(*reinterpret_cast<const float4*>(qr + dd),
+                    (ka < n && dd < d) ? load4(ka_row + dd) : zero,
+                    (kb < n && dd < d) ? load4(kb_row + dd) : zero);
+            }
           }
+          s[j][c] = sa;
+          s[j][2 + c] = sb;
         }
       }
       // dP^T = V.dO^T in three TF32 passes
-      if constexpr (!WIDE) {
 #pragma unroll
-        for (int ds = 0; ds < DS; ++ds) {
-          unsigned int vh[4], vl[4];
+      for (int ds = 0; ds < DS; ++ds) {
+        unsigned int vh[4], vl[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float vx;
-            if (KV_IN_REGS) {
-              vx = vf[ds][r];
-            } else {
-              long long at;
-              const bool in = v_at(ds, r, at, 0);
-              vx = in ? to_float(v[at]) : 0.f;
-            }
-            split_tf32(vx, vh[r], vl[r]);
+        for (int r = 0; r < 4; ++r) {
+          float vx;
+          if (KV_IN_REGS) {
+            vx = vf[ds][r];
+          } else {
+            long long at;
+            const bool in = v_at(ds, r, at);
+            vx = in ? to_float(v[at]) : 0.f;
           }
+          split_tf32(vx, vh[r], vl[r]);
+        }
 #pragma unroll
-          for (int j = 0; j < JS; ++j) {
-            const int row = (j0 + j) * 8 + g;
-            if (q0 + row - g + 7 <= key0) continue;
-            const int c = ds * 8 + t;
-            unsigned int bh_[2], bl_[2];
-            split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
-            split_tf32(g_tile[st][row][c + 4], bh_[1], bl_[1]);
-            mma_3xtf32<EXACT, EXACT>(dp[j], vh, vl, bh_, bl_);
-          }
+        for (int j = 0; j < JS; ++j) {
+          const int row = (j0 + j) * 8 + g;
+          if (q0 + row - g + 7 <= key0) continue;
+          const int c = ds * 8 + t;
+          unsigned int bh_[2], bl_[2];
+          split_tf32(g_tile[st][row][c], bh_[0], bl_[0]);
+          split_tf32(g_tile[st][row][c + 4], bh_[1], bl_[1]);
+          mma_3xtf32<EXACT, EXACT>(dp[j], vh, vl, bh_, bl_);
         }
       }
 
@@ -1417,26 +1308,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const float2 lq = *reinterpret_cast<const float2*>(&l_tile[st][col]);
         const float2 sq = *reinterpret_cast<const float2*>(&sum_tile[st][col]);
         unsigned int keep = 0xFu;   // bit c: element c is kept
-        if (DROP) {
-          // The warp's 16 keys are four Philox quads, and its lanes of one t
-          // hold two queries: 8 draws, one a lane.  Lane (g, t) draws quad
-          // key0 / 4 + g / 2 of query i0 + (g & 1) and turns it into four keep
-          // bits; a lane reads the bits of its two keys (word g & 3 of quads
-          // g / 4 and 2 + g / 4) from the four lanes that drew them.
-          const uint4 bits = dropout_bits4(seed, bh, i0 + (g & 1), (key0 >> 2) + (g >> 1));
-          const unsigned int mine = static_cast<unsigned int>(bits.x >= threshold) |
-                                    static_cast<unsigned int>(bits.y >= threshold) << 1 |
-                                    static_cast<unsigned int>(bits.z >= threshold) << 2 |
-                                    static_cast<unsigned int>(bits.w >= threshold) << 3;
-          const int h = g >> 2;
-          const unsigned int m0 = __shfl_sync(FULL, mine, (2 * h) * 4 + t);       // ka, i0
-          const unsigned int m1 = __shfl_sync(FULL, mine, (2 * h + 1) * 4 + t);   // ka, i0 + 1
-          const unsigned int m2 = __shfl_sync(FULL, mine, (2 * h + 4) * 4 + t);   // kb, i0
-          const unsigned int m3 = __shfl_sync(FULL, mine, (2 * h + 5) * 4 + t);   // kb, i0 + 1
-          const int w = g & 3;
-          keep = ((m0 >> w) & 1u) | ((m1 >> w) & 1u) << 1 | ((m2 >> w) & 1u) << 2 |
-                 ((m3 >> w) & 1u) << 3;
-        }
+        if (DROP) keep = keep_bits_keys(seed, bh, key0, i0, g, t, threshold);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = c < 2 ? ka : kb;
@@ -1501,7 +1373,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 #pragma unroll
   for (int ds = 0; ds < DS; ++ds) {
-    const int col = col0 + ds * 8 + 2 * t;
+    const int col = ds * 8 + 2 * t;
     if (col >= d) continue;
     if (ka < n) {
       const long long at = base + static_cast<long long>(ka) * d + col;
@@ -1513,6 +1385,600 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       store2(dk + at, dka[ds][2], dka[ds][3]);
       store2(dv + at, dva[ds][2], dva[ds][3]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 and K6 for heads wider than 64 features
+// ---------------------------------------------------------------------------
+//
+// The head is one tile of CW = 128 features wide up to 128 (zero-padded past
+// d; whole 16-feature steps of the score chains and 8-feature k-steps of the
+// products that lie past d are skipped), and above that is cut into CW-wide
+// chunks: the scores continue their FMA chains over the chunks in order, dP
+// takes each chunk into a fresh accumulator added by a rounded fp32 add, and
+// a block owns one CW-wide group of its output's columns (blockIdx.y; one
+// group up to 128 features).  Each block computes S and dP once for all the
+// columns it writes.  Both kernels have eight warps and 1 block an SM, with
+// dynamic shared memory set once a variant above the 48 KB of static shared
+// memory:
+//   K5 (203,264 bytes): the block's 128 query rows of q and do, staged once
+//     (two 67.6 KB tiles), and a ring of two stages of 32 keys of K and V
+//     (33.8 KB a stage), loaded by cp.async while the previous stage is
+//     computed.  Each warp owns 16 rows as the narrow kernel does, with dq (64
+//     fp32 a thread) in registers.
+//   K6 (224,256 bytes): the block's 64 keys of k and v, staged once, a ring
+//     of two stages of 64 queries of Q, dO, lse and dsum (68.1 KB a stage),
+//     and a 20 KB tile through which the two warpgroups pass P^T.  Warpgroup
+//     0 computes S^T (the FMA chains), P^T and the keep bits of its 64 keys
+//     and accumulates dV (64 fp32 a thread); warpgroup 1 computes dP^T,
+//     takes P^T and the keep bits through shared memory (a named barrier),
+//     forms dS^T and accumulates dK.  So S^T and dP^T are computed once, and
+//     neither warp holds more than one 64 x 128 accumulator.
+// Above one chunk (D > 128) the block's own rows are staged again, one chunk
+// at a time, as each ring stage of the same chunk comes (the block waits for
+// them), and the chunk of the block's column group that the last products
+// take is staged into their buffers.
+
+constexpr int CW = 128;                 // feature tile of a wide head, and its column groups
+constexpr int CW_LD = CW + 4;           // row stride of a staged chunk in floats (kTcLd)
+constexpr int WIDE_WARPS = 8;
+constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+constexpr int DQW_ROWS = 16 * WIDE_WARPS;   // query rows of a K5 block
+constexpr int DQW_KT = 32;                  // keys of a stage of its ring
+constexpr int DKVW_KEYS = 64;               // keys of a K6 block, 16 a warp of each warpgroup
+constexpr int DKVW_QT = 64;                 // queries of a stage of its ring
+constexpr int DQW_SMEM =
+    (2 * DQW_ROWS * CW_LD + 2 * 2 * DQW_KT * CW_LD + DQW_ROWS) * static_cast<int>(sizeof(float));
+constexpr int DKVW_SMEM =
+    (2 * DKVW_KEYS * CW_LD + 2 * (2 * DKVW_QT * CW_LD + 2 * DKVW_QT) + 4 * (DKVW_QT / 8) * 32 * 5) *
+    static_cast<int>(sizeof(float));
+static_assert(DQW_SMEM <= 232448 && DKVW_SMEM <= 232448, "a block has at most 227 KB");
+
+// Named barrier `id` of `threads` threads: arrive without waiting, or wait.
+// Shared-memory writes made before the arrival are seen after the wait.
+__device__ __forceinline__ void barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// K5 for D > 64: dq of one CW-wide column group, and dsum.  Each warp owns 16
+// query rows (ra, rb as in flash_bwd_dq_kernel) and walks the ring's 32-key
+// stages up to its diagonal; the block's longest key loop first, across all
+// heads.  A stage: S's chains and dP over its chunk (dP into a fresh
+// accumulator), and after the last chunk dS and dq += dS.K into a fresh
+// accumulator.  dsum is one FMA chain over d a row, by one thread a row, from
+// the staged do.
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ o,
+                         const T* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dsum_out, T* __restrict__ dq, long long bh_count,
+                         int n, int d, int nq, float scale, unsigned int threshold,
+                         float inv_keep, unsigned long long seed) {
+  constexpr int ROWS = DQW_ROWS;
+  constexpr int KT = DQW_KT;
+  constexpr int LD = CW_LD;
+  constexpr int JT = KT / 8;     // 8-key column tiles of S and dP; k-steps of dq
+  constexpr int DS = CW / 8;     // k-steps of dP; 8-wide column tiles of dq
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  extern __shared__ __align__(16) float smem[];
+  float (*q_rows)[LD] = reinterpret_cast<float (*)[LD]>(smem);   // above one chunk: then K's
+  float (*do_rows)[LD] = q_rows + ROWS;
+  float (*ring)[LD] = do_rows + ROWS;   // stage s: K's KT rows at ring + 2 KT s, then V's
+  float* dsum_rows = smem + (2 * ROWS + 4 * KT) * LD;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int cg = static_cast<int>(blockIdx.y);   // dq's column group
+  const int col0 = cg * CW;
+  const int chunks = (d + CW - 1) / CW;
+  const int qrow0 = qt * ROWS;
+  const int wrow = warp * 16;          // the warp's first row within the block
+  const int row0 = qrow0 + wrow;
+  const int ra = row0 + g;
+  const int rb = ra + 8;
+  const long long base = bh * n * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const T* qbase = q + base;
+  const T* gbase = dout + base;
+
+  const int key_end = min(n, qrow0 + ROWS) - 1;
+  const int tiles = (key_end + KT - 1) / KT;
+  const int items = tiles * chunks;   // ring stages: (key tile, chunk), the chunks innermost
+  auto stage_item = [&](int u) {
+    const int it = u / chunks;
+    const int c0 = (u - it * chunks) * CW;
+    float (*kt)[LD] = ring + 2 * KT * (u & 1);
+    stage_rows<T, KT, CW, LD, WIDE_THREADS>(kt, kb, it * KT, n, d, c0);
+    stage_rows<T, KT, CW, LD, WIDE_THREADS>(kt + KT, vb, it * KT, n, d, c0);
+  };
+
+  stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(q_rows, qbase, qrow0, n, d);
+  stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(do_rows, gbase, qrow0, n, d);
+  cp_async_commit();
+  if (items > 0) stage_item(0);
+  cp_async_commit();
+  cp_async_wait_one();   // the rows have landed
+  __syncthreads();
+
+  if (threadIdx.x < ROWS) {
+    const int r = threadIdx.x;
+    const int i = qrow0 + r;
+    float sum = 0.f;
+    if (i < n) {
+      const long long at = base + static_cast<long long>(i) * d;
+#pragma unroll 4
+      for (int c = 0; c < d; c += 4) {
+        const float4 x = chunks == 1 ? *reinterpret_cast<const float4*>(&do_rows[r][c])
+                                     : load4(dout + at + c);
+        const float4 y = load4(o + at + c);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      }
+      if (cg == 0) dsum_out[bh * n + i] = sum;
+    }
+    dsum_rows[r] = sum;
+  }
+  __syncthreads();
+  const float dsum_a = dsum_rows[wrow + g];
+  const float dsum_b = dsum_rows[wrow + g + 8];
+  const float lse_a = ra < n ? lse[bh * n + ra] : 0.f;
+  const float lse_b = rb < n ? lse[bh * n + rb] : 0.f;
+  const float* qa_row = &q_rows[wrow + g][0];
+  const float* qb_row = &q_rows[wrow + g + 8][0];
+  const int warp_last = row0 < n ? min(n, row0 + 16) - 1 : 0;
+
+  float acc[DS][4];   // dq: rows ra (0, 1) and rb (2, 3), columns col0 + 8s + 2t, + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+  float s[JT][4], dp[JT][4];   // S and dP of the key tile: rows ra (0, 1), rb (2, 3), keys 8j + 2t, + 1
+
+  for (int u = 0; u < items; ++u) {
+    const int it = u / chunks;
+    const int fc = u - it * chunks;
+    const int k0 = it * KT;
+    const int c0 = fc * CW;
+    if (u + 1 < items) stage_item(u + 1);   // the next stage loads while this one is computed
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (chunks > 1 && u > 0) {   // this chunk of the block's rows
+      stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(q_rows, qbase, qrow0, n, d, c0);
+      stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(do_rows, gbase, qrow0, n, d, c0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const float (*kt)[LD] = ring + 2 * KT * (u & 1);
+    const float (*vt)[LD] = kt + KT;
+    const int kmax = warp_last - k0;   // column tile j is seen when 8j < kmax (warp-uniform)
+    const int width = min(CW, d - c0);  // this chunk's features
+    if (fc == 0) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+    }
+    if (kmax > 0) {
+      // S = Q.K^T: s[j][c] is (ra, key k0 + 8j + 2t + c), s[j][2 + c] (rb, the
+      // same key), each chain continued over this chunk's features in order
+#pragma unroll 1
+      for (int db = 0; db < width; db += 16) {
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const int dd = db + e;
+          const float4 xa = *reinterpret_cast<const float4*>(qa_row + dd);
+          const float4 xb = *reinterpret_cast<const float4*>(qb_row + dd);
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float4 kk = *reinterpret_cast<const float4*>(&kt[j * 8 + 2 * t + c][dd]);
+              s[j][c] = fmaf(xa.x, kk.x, s[j][c]);
+              s[j][c] = fmaf(xa.y, kk.y, s[j][c]);
+              s[j][c] = fmaf(xa.z, kk.z, s[j][c]);
+              s[j][c] = fmaf(xa.w, kk.w, s[j][c]);
+              s[j][2 + c] = fmaf(xb.x, kk.x, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.y, kk.y, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.z, kk.z, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.w, kk.w, s[j][2 + c]);
+            }
+          }
+        }
+      }
+      // dP = dO.V^T over this chunk in three TF32 passes, into a fresh
+      // accumulator added to dP by a rounded fp32 add
+      float dpc[JT][4];
+#pragma unroll
+      for (int j = 0; j < JT; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DS; ++ks) {
+        if (ks * 8 >= width) break;
+        const int c = ks * 8 + t;
+        unsigned int ah[4], al[4];
+        split_tf32(do_rows[wrow + g][c], ah[0], al[0]);
+        split_tf32(do_rows[wrow + g + 8][c], ah[1], al[1]);
+        split_tf32(do_rows[wrow + g][c + 4], ah[2], al[2]);
+        split_tf32(do_rows[wrow + g + 8][c + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          unsigned int bh_[2], bl_[2];
+          split_tf32(vt[j * 8 + g][c], bh_[0], bl_[0]);
+          split_tf32(vt[j * 8 + g][c + 4], bh_[1], bl_[1]);
+          mma_3xtf32<EXACT, EXACT>(dpc[j], ah, al, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] += dpc[j][e];
+    }
+
+    if (fc == chunks - 1) {
+      const float (*kd)[LD] = kt;   // K's columns of this block's group
+      if (chunks > 1) {
+        __syncthreads();   // every warp is done with the rows' chunk
+        stage_rows<T, KT, CW, LD, WIDE_THREADS>(q_rows, kb, k0, n, d, col0);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        kd = q_rows;
+      }
+      if (kmax > 0) {
+        // dS = p * (dP * m - dsum) * scale, into s
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          if (j * 8 >= kmax) continue;
+          const int key0 = k0 + j * 8;
+          unsigned int keep = 0xFu;
+          if (DROP) keep = keep_bits_rows(seed, bh, ra, rb, key0, t, threshold);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int row = c < 2 ? ra : rb;
+            const int key = key0 + 2 * t + (c & 1);
+            const bool seen = key < row && row < n;
+            const float p = seen ? __expf(s[j][c] * scale - (c < 2 ? lse_a : lse_b)) : 0.f;
+            float m = 1.f;
+            if (DROP) m = ((keep >> c) & 1u) ? inv_keep : 0.f;
+            s[j][c] = p * (dp[j][c] * m - (c < 2 ? dsum_a : dsum_b)) * scale;
+          }
+        }
+        // dq += dS.K in three TF32 passes (dS as K4's P, keys reordered), the
+        // tile into a fresh accumulator added by a rounded fp32 add
+        float part[DS][4];
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds) part[ds][0] = part[ds][1] = part[ds][2] = part[ds][3] = 0.f;
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          if (j * 8 >= kmax) continue;
+          unsigned int ph[4], pl[4];
+          split_tf32(s[j][0], ph[0], pl[0]);
+          split_tf32(s[j][2], ph[1], pl[1]);
+          split_tf32(s[j][1], ph[2], pl[2]);
+          split_tf32(s[j][3], ph[3], pl[3]);
+          const int r = j * 8 + 2 * t;
+#pragma unroll
+          for (int ds = 0; ds < DS; ++ds) {
+            if (col0 + ds * 8 >= d) break;
+            const int c = ds * 8 + g;
+            unsigned int kh[2], kl[2];
+            split_tf32(kd[r][c], kh[0], kl[0]);
+            split_tf32(kd[r + 1][c], kh[1], kl[1]);
+            mma_3xtf32<false, EXACT>(part[ds], ph, pl, kh, kl);
+          }
+        }
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ds][e] += part[ds][e];
+      }
+    }
+    __syncthreads();   // this stage is consumed before the ring overwrites it
+  }
+
+#pragma unroll
+  for (int ds = 0; ds < DS; ++ds) {
+    const int col = col0 + ds * 8 + 2 * t;
+    if (col >= d) continue;
+    if (ra < n) store2(dq + base + static_cast<long long>(ra) * d + col, acc[ds][0], acc[ds][1]);
+    if (rb < n) store2(dq + base + static_cast<long long>(rb) * d + col, acc[ds][2], acc[ds][3]);
+  }
+}
+
+// K6 for D > 64: dk and dv of one CW-wide column group.  Warp w of warpgroup
+// w / 4 owns keys 16 (w % 4) .. + 15 of the block's 64 (ka, kb as in
+// flash_bwd_dkv_kernel); the block walks the ring's 64-query stages from its
+// first key to N, the longest loop (the first key tile) first, across all
+// heads.  A stage: warpgroup 0 continues S^T's chains over its chunk,
+// warpgroup 1 takes dP^T over it into a fresh accumulator; after the last
+// chunk warpgroup 0 forms P^T and the keep bits, hands them over and
+// accumulates dV += (P^T m).dO, and warpgroup 1 forms dS^T and accumulates
+// dK += dS^T.Q, each tile into a fresh accumulator added by a rounded fp32 add.
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dsum,
+                          T* __restrict__ dk, T* __restrict__ dv, long long bh_count, int n,
+                          int d, float scale, unsigned int threshold, float inv_keep,
+                          unsigned long long seed) {
+  constexpr int KEYS = DKVW_KEYS;
+  constexpr int QT = DKVW_QT;
+  constexpr int LD = CW_LD;
+  constexpr int JT = QT / 8;     // 8-query column tiles of a stage; k-steps of dK, dV
+  constexpr int DS = CW / 8;     // k-steps of dP^T; column tiles of dK, dV
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  extern __shared__ __align__(16) float smem[];
+  float (*k_rows)[LD] = reinterpret_cast<float (*)[LD]>(smem);   // above one chunk: then Q's
+  float (*v_rows)[LD] = k_rows + KEYS;                             // ... then dO's
+  float (*ring)[LD] = v_rows + KEYS;   // stage s: Q's QT rows at ring + 2 QT s, then dO's
+  float* lse_ring = smem + (2 * KEYS + 4 * QT) * LD;   // [2][QT]
+  float* dsum_ring = lse_ring + 2 * QT;                // [2][QT]
+  float4* p_tile = reinterpret_cast<float4*>(dsum_ring + 2 * QT);           // [4][JT][32]
+  unsigned int* keep_tile = reinterpret_cast<unsigned int*>(p_tile + 4 * JT * 32);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int role = warp >> 2;   // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK
+  const int wk = warp & 3;      // the warp's 16 keys within the block
+  const long long bh = blockIdx.x % bh_count;
+  const int kt = static_cast<int>(blockIdx.x / bh_count);
+  const int cg = static_cast<int>(blockIdx.y);   // dk's and dv's column group
+  const int col0 = cg * CW;
+  const int chunks = (d + CW - 1) / CW;
+  const int kblock0 = kt * KEYS;
+  const int key0 = kblock0 + wk * 16;   // first key of this warp, a multiple of 16
+  const int ka = key0 + g;              // this thread's two keys
+  const int kb = ka + 8;
+  const long long base = bh * n * d;
+  const T* qbase = q + base;
+  const T* gbase = dout + base;
+  const T* kbase = k + base;
+  const T* vbase = v + base;
+
+  const int q_first = kblock0;   // no query before the block's first key sees it
+  const int tiles = (n - q_first + QT - 1) / QT;
+  const int items = tiles * chunks;   // ring stages: (query tile, chunk), the chunks innermost
+  auto stage_item = [&](int u) {
+    const int it = u / chunks;
+    const int c0 = (u - it * chunks) * CW;
+    const int q0 = q_first + it * QT;
+    const int st = u & 1;
+    float (*qt_)[LD] = ring + 2 * QT * st;
+    stage_rows<T, QT, CW, LD, WIDE_THREADS>(qt_, qbase, q0, n, d, c0);
+    stage_rows<T, QT, CW, LD, WIDE_THREADS>(qt_ + QT, gbase, q0, n, d, c0);
+    for (int r = threadIdx.x; r < 2 * QT; r += WIDE_THREADS) {
+      const int i = r % QT;
+      const bool in = q0 + i < n;
+      const long long at = in ? bh * n + q0 + i : 0;
+      if (r < QT) {
+        cp_async4(&lse_ring[st * QT + i], lse + at, in);
+      } else {
+        cp_async4(&dsum_ring[st * QT + i], dsum + at, in);
+      }
+    }
+  };
+
+  stage_rows<T, KEYS, CW, LD, WIDE_THREADS>(k_rows, kbase, kblock0, n, d);
+  stage_rows<T, KEYS, CW, LD, WIDE_THREADS>(v_rows, vbase, kblock0, n, d);
+  if (items > 0) stage_item(0);
+  cp_async_commit();
+
+  const bool active = key0 < n;   // the warp has keys (warp-uniform)
+  const float* ka_row = &k_rows[wk * 16 + g][0];
+  const float* kb_row = &k_rows[wk * 16 + g + 8][0];
+  float4* p_warp = p_tile + wk * JT * 32;
+  unsigned int* keep_warp = keep_tile + wk * JT * 32;
+  float acc[DS][4];   // dV (warpgroup 0) or dK (1): rows ka (0, 1), kb (2, 3), columns col0 + 8s + 2t, + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+  // S^T (warpgroup 0) or dP^T (1) of the query tile: x[j][2h + c] is (key ka
+  // for h = 0, kb for h = 1, query q0 + 8j + 2t + c)
+  float x[JT][4];
+
+  for (int u = 0; u < items; ++u) {
+    const int it = u / chunks;
+    const int fc = u - it * chunks;
+    const int q0 = q_first + it * QT;
+    const int c0 = fc * CW;
+    const int st = u & 1;
+    if (u + 1 < items) stage_item(u + 1);   // the next stage loads while this one is computed
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (chunks > 1 && u > 0) {   // this chunk of the block's keys
+      stage_rows<T, KEYS, CW, LD, WIDE_THREADS>(k_rows, kbase, kblock0, n, d, c0);
+      stage_rows<T, KEYS, CW, LD, WIDE_THREADS>(v_rows, vbase, kblock0, n, d, c0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const float (*qt_)[LD] = ring + 2 * QT * st;
+    const float (*gt_)[LD] = qt_ + QT;
+    const int width = min(CW, d - c0);   // this chunk's features
+    if (fc == 0) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+    }
+    if (active && role == 0) {
+      // S^T = K.Q^T, each chain continued over this chunk's features in
+      // order, so that it rounds as the forward's score of the same pair
+#pragma unroll 1
+      for (int db = 0; db < width; db += 16) {
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const int dd = db + e;
+          const float4 xa = *reinterpret_cast<const float4*>(ka_row + dd);
+          const float4 xb = *reinterpret_cast<const float4*>(kb_row + dd);
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float4 qq = *reinterpret_cast<const float4*>(&qt_[j * 8 + 2 * t + c][dd]);
+              x[j][c] = fmaf(qq.x, xa.x, x[j][c]);
+              x[j][c] = fmaf(qq.y, xa.y, x[j][c]);
+              x[j][c] = fmaf(qq.z, xa.z, x[j][c]);
+              x[j][c] = fmaf(qq.w, xa.w, x[j][c]);
+              x[j][2 + c] = fmaf(qq.x, xb.x, x[j][2 + c]);
+              x[j][2 + c] = fmaf(qq.y, xb.y, x[j][2 + c]);
+              x[j][2 + c] = fmaf(qq.z, xb.z, x[j][2 + c]);
+              x[j][2 + c] = fmaf(qq.w, xb.w, x[j][2 + c]);
+            }
+          }
+        }
+      }
+    } else if (active) {
+      // dP^T = V.dO^T over this chunk in three TF32 passes, into a fresh
+      // accumulator added by a rounded fp32 add
+      float dpc[JT][4];
+#pragma unroll
+      for (int j = 0; j < JT; ++j) dpc[j][0] = dpc[j][1] = dpc[j][2] = dpc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DS; ++ks) {
+        if (ks * 8 >= width) break;
+        const int c = ks * 8 + t;
+        unsigned int ah[4], al[4];
+        split_tf32(v_rows[wk * 16 + g][c], ah[0], al[0]);
+        split_tf32(v_rows[wk * 16 + g + 8][c], ah[1], al[1]);
+        split_tf32(v_rows[wk * 16 + g][c + 4], ah[2], al[2]);
+        split_tf32(v_rows[wk * 16 + g + 8][c + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          unsigned int bh_[2], bl_[2];
+          split_tf32(gt_[j * 8 + g][c], bh_[0], bl_[0]);
+          split_tf32(gt_[j * 8 + g][c + 4], bh_[1], bl_[1]);
+          mma_3xtf32<EXACT, EXACT>(dpc[j], ah, al, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] += dpc[j][e];
+    }
+
+    if (fc == chunks - 1) {
+      const float (*qsrc)[LD] = qt_;   // Q's and dO's columns of this block's group
+      const float (*gsrc)[LD] = gt_;
+      if (chunks > 1) {
+        __syncthreads();   // every warp is done with the keys' chunk
+        stage_rows<T, QT, CW, LD, WIDE_THREADS>(k_rows, qbase, q0, n, d, col0);
+        stage_rows<T, QT, CW, LD, WIDE_THREADS>(v_rows, gbase, q0, n, d, col0);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        qsrc = k_rows;
+        gsrc = v_rows;
+      }
+      const float* lq = lse_ring + st * QT;
+      const float* sq = dsum_ring + st * QT;
+      // Column tile j holds a query that sees a key of this warp when
+      // q0 + 8j + 7 > key0 (warp-uniform); element c of it is (key ka for
+      // c < 2 else kb, query q0 + 8j + 2t + (c & 1)).
+      if (role == 0) {
+        if (active) {
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+            if (q0 + j * 8 + 7 <= key0) continue;
+            const int col = j * 8 + 2 * t;
+            const int i0 = q0 + col;
+            const float2 l2 = *reinterpret_cast<const float2*>(&lq[col]);
+            unsigned int keep = 0xFu;
+            if (DROP) keep = keep_bits_keys(seed, bh, key0, i0, g, t, threshold);
+            float p[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int key = c < 2 ? ka : kb;
+              const int i = i0 + (c & 1);
+              const bool seen = key < i && i < n;
+              p[c] = seen ? __expf(x[j][c] * scale - ((c & 1) ? l2.y : l2.x)) : 0.f;
+              float m = 1.f;
+              if (DROP) m = ((keep >> c) & 1u) ? inv_keep : 0.f;
+              x[j][c] = p[c] * m;   // into dv
+            }
+            p_warp[j * 32 + lane] = make_float4(p[0], p[1], p[2], p[3]);
+            if (DROP) keep_warp[j * 32 + lane] = keep;
+          }
+        }
+        barrier_arrive(1, WIDE_THREADS);   // P^T and the keep bits are written
+      } else {
+        barrier_wait(1, WIDE_THREADS);
+        if (active) {
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+            if (q0 + j * 8 + 7 <= key0) continue;
+            const float2 s2 = *reinterpret_cast<const float2*>(&sq[j * 8 + 2 * t]);
+            const float4 p4 = p_warp[j * 32 + lane];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+            const unsigned int keep = DROP ? keep_warp[j * 32 + lane] : 0xFu;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              float m = 1.f;
+              if (DROP) m = ((keep >> c) & 1u) ? inv_keep : 0.f;
+              x[j][c] = p[c] * (x[j][c] * m - ((c & 1) ? s2.y : s2.x)) * scale;   // into dk
+            }
+          }
+        }
+      }
+      if (active) {
+        // dV += (P^T m).dO or dK += dS^T.Q in three TF32 passes: x's fragments
+        // of column j are the A fragments of k-step j with the queries
+        // reordered (k = t is query 8j + 2t, k = t + 4 is 8j + 2t + 1), and the
+        // B fragments are read from those two rows of dO or Q; the tile into
+        // a fresh accumulator added by a rounded fp32 add
+        const float (*src)[LD] = role == 0 ? gsrc : qsrc;
+        float part[DS][4];
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds) part[ds][0] = part[ds][1] = part[ds][2] = part[ds][3] = 0.f;
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          if (q0 + j * 8 + 7 <= key0) continue;
+          unsigned int ph[4], pl[4];
+          split_tf32(x[j][0], ph[0], pl[0]);
+          split_tf32(x[j][2], ph[1], pl[1]);
+          split_tf32(x[j][1], ph[2], pl[2]);
+          split_tf32(x[j][3], ph[3], pl[3]);
+          const int r = j * 8 + 2 * t;
+#pragma unroll
+          for (int ds = 0; ds < DS; ++ds) {
+            if (col0 + ds * 8 >= d) break;
+            const int c = ds * 8 + g;
+            unsigned int bh_[2], bl_[2];
+            split_tf32(src[r][c], bh_[0], bl_[0]);
+            split_tf32(src[r + 1][c], bh_[1], bl_[1]);
+            mma_3xtf32<false, EXACT>(part[ds], ph, pl, bh_, bl_);
+          }
+        }
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ds][e] += part[ds][e];
+      }
+    }
+    __syncthreads();   // this stage and the P^T tile are consumed before they are overwritten
+  }
+
+  T* out = role == 0 ? dv : dk;
+#pragma unroll
+  for (int ds = 0; ds < DS; ++ds) {
+    const int col = col0 + ds * 8 + 2 * t;
+    if (col >= d) continue;
+    if (ka < n) store2(out + base + static_cast<long long>(ka) * d + col, acc[ds][0], acc[ds][1]);
+    if (kb < n) store2(out + base + static_cast<long long>(kb) * d + col, acc[ds][2], acc[ds][3]);
   }
 }
 
@@ -1550,23 +2016,62 @@ int launch_dq_fma(const BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP, bool DROP, bool WIDE>
+template <typename T, int DP, bool DROP>
 int launch_dq(const BwdArgs& a, cudaStream_t stream) {
   const int nq = (a.n + TC_ROWS - 1) / TC_ROWS;
   dim3 grid;
-  if (!grid_of(a.bh, a.n, a.d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_kernel<T, DP, DROP, WIDE><<<grid, TC_THREADS, 0, stream>>>(
+  if (!grid_of(a.bh, a.n, a.d, false, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dq_kernel<T, DP, DROP><<<grid, TC_THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
       static_cast<T*>(a.dq), a.bh, a.n, a.d, nq, a.scale, a.threshold, a.inv_keep, a.seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP, bool DROP, bool WIDE>
+template <typename T, int DP, bool DROP>
 int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   dim3 grid;
-  if (!grid_of(a.bh, a.n, a.d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dkv_kernel<T, DP, DROP, WIDE><<<grid, TC_THREADS, 0, stream>>>(
+  if (!grid_of(a.bh, a.n, a.d, false, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_kernel<T, DP, DROP><<<grid, TC_THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.bh, a.n, a.d, a.scale, a.threshold, a.inv_keep, a.seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grid of a wide kernel: (heads x row tiles of `rows`) along x, the
+// column groups along y.
+inline bool wide_grid_of(long long bh, int n, int rows, int groups, dim3& grid) {
+  const long long blocks = bh * ((n + rows - 1) / rows);
+  if (blocks > 2147483647LL || groups > 65535) return false;
+  grid = dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(groups));
+  return true;
+}
+
+template <typename T, bool DROP>
+int launch_dq_wide(const BwdArgs& a, int groups, cudaStream_t stream) {
+  // set once a variant: the attribute outlives the call
+  static const int allowed = static_cast<int>(cudaFuncSetAttribute(
+      flash_bwd_dq_wide_kernel<T, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, DQW_SMEM));
+  if (allowed != 0) return allowed;
+  dim3 grid;
+  if (!wide_grid_of(a.bh, a.n, DQW_ROWS, groups, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = (a.n + DQW_ROWS - 1) / DQW_ROWS;
+  flash_bwd_dq_wide_kernel<T, DROP><<<grid, WIDE_THREADS, DQW_SMEM, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
+      static_cast<T*>(a.dq), a.bh, a.n, a.d, nq, a.scale, a.threshold, a.inv_keep, a.seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DROP>
+int launch_dkv_wide(const BwdArgs& a, int groups, cudaStream_t stream) {
+  static const int allowed = static_cast<int>(cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_kernel<T, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, DKVW_SMEM));
+  if (allowed != 0) return allowed;
+  dim3 grid;
+  if (!wide_grid_of(a.bh, a.n, DKVW_KEYS, groups, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_wide_kernel<T, DROP><<<grid, WIDE_THREADS, DKVW_SMEM, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.bh, a.n, a.d, a.scale, a.threshold, a.inv_keep, a.seed);
@@ -1576,50 +2081,67 @@ int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
 // The backward launches: dq by the design chosen for the shape, or dk/dv.
 enum BwdPass { PASS_DQ = 0, PASS_DKV = 1 };
 
-// K5's design for a shape: the CUDA-core one wherever none of its variants
-// spills registers (chip_smoke.py's check) -- fp32 and bf16 heads up to 32
-// features, but for bf16 at 32 under dropout -- the tensor-core one elsewhere.
-// Where both are spill-free the CUDA-core design is as fast (bf16, D = 16,
-// no dropout) or 1.16-2.05 times faster; at 64 features it is faster too,
-// 1.25-1.87 times, but spills 180-752 bytes in every variant, and 28 at bf16
-// D = 32 under dropout (compare_kernels.py at B*H = 256, N = 1024; PERF.md).
-// Wide heads run on the tensor cores only.
-template <typename T, int DP, bool DROP, bool WIDE>
+// K5's design for a narrow shape: the CUDA-core one wherever none of its
+// variants spills registers (chip_smoke.py's check) -- fp32 and bf16 heads up
+// to 32 features, but for bf16 at 32 under dropout -- the tensor-core one
+// elsewhere.  Where both are spill-free the CUDA-core design is as fast (bf16,
+// D = 16, no dropout) or 1.16-2.05 times faster; at 64 features it is faster
+// too, 1.25-1.87 times, but spills 180-752 bytes in every variant, and 28 at
+// bf16 D = 32 under dropout (compare_kernels.py at B*H = 256, N = 1024;
+// PERF.md).
+template <typename T, int DP, bool DROP>
 constexpr bool dq_on_cuda_cores() {
-  return !WIDE && (DP <= 16 || (DP <= 32 && !(DROP && std::is_same<T, __nv_bfloat16>::value)));
+  return DP <= 16 || (DP <= 32 && !(DROP && std::is_same<T, __nv_bfloat16>::value));
 }
 
-template <typename T, int DP, bool WIDE>
+template <typename T, int DP>
 int launch_bwd_drop(const BwdArgs& a, int pass, cudaStream_t stream) {
   const bool drop = a.threshold > 0;
   if (pass == PASS_DKV) {
-    return drop ? launch_dkv<T, DP, true, WIDE>(a, stream) : launch_dkv<T, DP, false, WIDE>(a, stream);
+    return drop ? launch_dkv<T, DP, true>(a, stream) : launch_dkv<T, DP, false>(a, stream);
   }
   // rows a thread of the CUDA-core design: two at D = 16 without dropout; one
   // under dropout and at D = 32 (two rows and eight keys a step spill under
   // dropout, and one row with four keys runs as fast)
   constexpr int R = DP <= 16 ? 2 : 1;
   if (drop) {
-    if constexpr (dq_on_cuda_cores<T, DP, true, WIDE>()) return launch_dq_fma<T, DP, 1, true>(a, stream);
-    else return launch_dq<T, DP, true, WIDE>(a, stream);
+    if constexpr (dq_on_cuda_cores<T, DP, true>()) return launch_dq_fma<T, DP, 1, true>(a, stream);
+    else return launch_dq<T, DP, true>(a, stream);
   }
-  if constexpr (dq_on_cuda_cores<T, DP, false, WIDE>()) return launch_dq_fma<T, DP, R, false>(a, stream);
-  else return launch_dq<T, DP, false, WIDE>(a, stream);
+  if constexpr (dq_on_cuda_cores<T, DP, false>()) return launch_dq_fma<T, DP, R, false>(a, stream);
+  else return launch_dq<T, DP, false>(a, stream);
 }
 
 template <typename T>
-int launch_bwd_by_depth(const BwdArgs& a, int pass, cudaStream_t stream) {
-  if (a.d <= 16) return launch_bwd_drop<T, 16, false>(a, pass, stream);
-  if (a.d <= 32) return launch_bwd_drop<T, 32, false>(a, pass, stream);
-  if (a.d <= 64) return launch_bwd_drop<T, 64, false>(a, pass, stream);
-  return launch_bwd_drop<T, 64, true>(a, pass, stream);
+int launch_bwd_by_tile(const BwdArgs& a, int tile, int groups, int pass, cudaStream_t stream) {
+  if (tile == 16) return launch_bwd_drop<T, 16>(a, pass, stream);
+  if (tile == 32) return launch_bwd_drop<T, 32>(a, pass, stream);
+  if (tile == 64) return launch_bwd_drop<T, 64>(a, pass, stream);
+  if (pass == PASS_DKV) {
+    return a.threshold > 0 ? launch_dkv_wide<T, true>(a, groups, stream)
+                           : launch_dkv_wide<T, false>(a, groups, stream);
+  }
+  return a.threshold > 0 ? launch_dq_wide<T, true>(a, groups, stream)
+                         : launch_dq_wide<T, false>(a, groups, stream);
 }
 
-int backward(const BwdArgs& a, int head_dim, int pass, int is_bf16, void* stream) {
-  if (bad_shape(a.bh, a.n, a.d, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+// A feature tile the backward kernels have (16, 32 or 64 with one group for a
+// head up to its width; CW with the groups whose columns cover d and none
+// wholly past it): what ops/flash_attention.py's backward_tiling chooses.
+inline bool bad_tiling(int d, int tile, int groups) {
+  if (tile == 16 || tile == 32 || tile == 64) return groups != 1 || d > tile;
+  return tile != CW || groups < 1 || groups > 65535 ||
+         d > static_cast<long long>(groups) * CW || d <= (groups - 1) * CW;
+}
+
+int backward(const BwdArgs& a, int head_dim, int tile, int groups, int pass, int is_bf16,
+             void* stream) {
+  if (bad_shape(a.bh, a.n, a.d, head_dim) || bad_tiling(a.d, tile, groups)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd_by_depth<__nv_bfloat16>(a, pass, s)
-                 : launch_bwd_by_depth<float>(a, pass, s);
+  return is_bf16 ? launch_bwd_by_tile<__nv_bfloat16>(a, tile, groups, pass, s)
+                 : launch_bwd_by_tile<float>(a, tile, groups, pass, s);
 }
 
 }  // namespace
@@ -1647,30 +2169,33 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
 // The backward, in two launches on one stream, from q, k, v, o, do (BH, N, D)
 // in one type and the forward's lse (BH, N) fp32, all contiguous; d,
 // head_dim, threshold, inv_keep and seed as for fa_forward (the same values
-// give the same mask).  fa_backward_dq writes dq (BH, N, D) in the inputs'
-// type and dsum (BH, N) fp32; fa_backward_dkv then reads that dsum and writes
-// dk, dv.  Each returns cudaGetLastError() after its launch (0 on success), or
-// cudaErrorInvalidValue for a shape the kernels do not take, and does not
-// synchronise.
+// give the same mask).  tile and groups pick the kernels' variant:
+// 16, 32 or 64 with groups = 1 for d up to the tile, or 128 with the groups of
+// 128 columns that cover d (none wholly past it), as ops/flash_attention.py's
+// backward_tiling gives them.  fa_backward_dq writes dq (BH, N, D) in the
+// inputs' type and dsum (BH, N) fp32; fa_backward_dkv then reads that dsum
+// and writes dk, dv.  Each returns cudaGetLastError() after its launch (0 on
+// success), or cudaErrorInvalidValue for a shape or tiling the kernels do not
+// take, and does not synchronise.
 extern "C" int fa_backward_dq(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dsum, void* dq,
                               long long bh, int n, int d, int head_dim, int is_bf16,
-                              unsigned int threshold, float inv_keep, unsigned long long seed,
-                              void* stream) {
+                              int tile, int groups, unsigned int threshold, float inv_keep,
+                              unsigned long long seed, void* stream) {
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(dsum),
                   dq, nullptr, nullptr, bh, n, d, scale_of(head_dim), threshold, inv_keep, seed};
-  return backward(a, head_dim, PASS_DQ, is_bf16, stream);
+  return backward(a, head_dim, tile, groups, PASS_DQ, is_bf16, stream);
 }
 
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* dsum, void* dk, void* dv,
                                long long bh, int n, int d, int head_dim, int is_bf16,
-                               unsigned int threshold, float inv_keep, unsigned long long seed,
-                               void* stream) {
+                               int tile, int groups, unsigned int threshold, float inv_keep,
+                               unsigned long long seed, void* stream) {
   const BwdArgs a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                   const_cast<float*>(static_cast<const float*>(dsum)), nullptr, dk, dv, bh, n, d,
                   scale_of(head_dim), threshold, inv_keep, seed};
-  return backward(a, head_dim, PASS_DKV, is_bf16, stream);
+  return backward(a, head_dim, tile, groups, PASS_DKV, is_bf16, stream);
 }
 
 // keep (BH, N, N) bytes: 1 where the forward kernel keeps element (bh, i, j)

@@ -209,7 +209,8 @@ def _library() -> ctypes.CDLL:
                                    ptr]
         for name in ("fa_backward_dq", "fa_backward_dkv"):
             getattr(lib, name).restype = i32
-            getattr(lib, name).argtypes = [ptr] * 8 + [i64, i32, i32, i32, i32, u32, f32, u64, ptr]
+            getattr(lib, name).argtypes = [ptr] * 8 + [i64, i32, i32, i32, i32, i32, i32, u32, f32,
+                                                       u64, ptr]
         lib.fa_keep_mask.restype = i32
         lib.fa_keep_mask.argtypes = [ptr, i64, i32, u32, u64, ptr]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -269,10 +270,30 @@ def _causal_flash_attention_cuda(
     return _build.unpad(o, head_dim), lse
 
 
+# The backward kernels' feature tiles: one tile for a head up to 64 features,
+# and above that tiles of WIDE_TILE columns, each a column group of the output.
+NARROW_TILES = (16, 32, 64)
+WIDE_TILE = 128
+
+
+def backward_tiling(d: int) -> Tuple[int, int]:
+    """``(tile, groups)`` of the backward kernels for a head of ``d``
+    features: the narrowest of 16, 32 and 64 that holds it, in one group;
+    above 64, ``WIDE_TILE``-wide tiles, as many groups as cover ``d``.  The
+    variant computes the scores and ``dP`` once for all of a group's
+    columns."""
+    if d < 1:
+        raise ValueError(f"need d >= 1, got {d}")
+    for tile in NARROW_TILES:
+        if d <= tile:
+            return tile, 1
+    return WIDE_TILE, -(-d // WIDE_TILE)
+
+
 def _backward_args(q: torch.Tensor, dropout_rate: float, seed: int,
                    head_dim: Optional[int]) -> tuple:
     bh, n, d = q.shape
-    return (bh, n, d, head_dim or d, int(q.dtype == torch.bfloat16),
+    return (bh, n, d, head_dim or d, int(q.dtype == torch.bfloat16), *backward_tiling(d),
             dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate),
             seed & 0xFFFFFFFFFFFFFFFF)
 
