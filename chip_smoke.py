@@ -50,7 +50,8 @@ Phases, each printing one JSON line; the first failure ends the run non-zero:
               and of both priors, each in fp32 and in bf16 from the same
               weights; then (``wide_prior_step``) one fp32 step of the top
               prior at ``--channel 2048`` (D = 128) at the largest batch of
-              32, 16, 8 that fits, with K4-K6's share of it by the profiler
+              32, 16, 8 that fits, with the device ms of K4, K5 and K6 and
+              their share of it by the profiler
 6. abn_kernels — the in-place ABN forward (K7) and backward (K8) against their
               plain versions at the inputs of the 13 ABNs of
               ``EmbedNet2(resnet50)`` on a train batch of 72 images at 288x144,
@@ -317,15 +318,16 @@ KERNELS = {
     },
 }
 SOURCES = ("quantize", "flash_attention", "inplace_abn", "tc_probe")
-# Kernels of which no variant may spill registers (ptxas -v): the designs of
-# the dq kernel, the dk/dv kernel (narrow and wide), the nearest-code search
-# and K8's kernels.
-NO_SPILL_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dq_wide_kernel",
+# Kernels of which no variant may spill registers (ptxas -v): the wide forward,
+# the designs of the dq kernel, the dk/dv kernel (narrow and wide), the
+# nearest-code search and K8's kernels.
+NO_SPILL_KERNELS = ("flash_fwd_wide_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel", "flash_bwd_dq_wide_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel", "nearest_code_kernel", "abn_sums_ring_kernel", "abn_sums_generic_kernel",
                     "abn_sums_final_kernel", "abn_dx_ring_kernel", "abn_backward_dx_kernel")
 # Shapes the JAX package runs that the kernels once refused: head widths that
 # are no multiple of 4 (D = 6 is --channel 96) or above 64 (68 is --channel
-# 1088, the narrowest wide head; 128 one wide tile of the backward kernels,
+# 1088, the narrowest wide head; 128 one wide tile of the attention kernels,
 # 136 two), embed_dim that is no multiple of 4 (and 1, and 66), and ABN
 # channels above 2048.
 ODD_HEAD_DIMS = (6, 68, 72, 128, 136)
@@ -1768,7 +1770,8 @@ def backward_records(qkv, do, launches, backward_cases) -> list:
 def odd_shape_times() -> dict:
     """Times of the kernels at shapes they once refused, at the main path's
     sizes otherwise: attention at the top prior's B*H = 256, N = 1024 with
-    D = 6 (--channel 96) and D = 128 (--channel 2048); the quantizer's three
+    D = 6 (--channel 96), D = 128 (--channel 2048, one wide tile) and D = 136
+    (two 128-wide chunks and column groups); the quantizer's three
     kernels at embed_dim 30 (K1, K3 at N = 524,288; K2 at 131,072).  Each
     beside its bound, as in the kernels' records; without dropout, also the
     plain versions' and the library's times (the backward's: dq, dk and dv
@@ -1776,7 +1779,7 @@ def odd_shape_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(31)
     out = {"attention": [], "quantizer": []}
     bh, n = PRIOR_BATCH * N_HEAD, TOP_HW * TOP_HW
-    for d in (6, 128):
+    for d in (6, 128, 136):
         q, k, v, do = (torch.randn(bh, n, d, generator=gen, device="cuda") for _ in range(4))
         for rate in (0.0, PRIOR_CONFIG["dropout"]):
             run_dq, run_dkv = backward_launchers(q, k, v, do, rate, 0xC0FFEE)
@@ -1819,13 +1822,14 @@ def odd_shape_times() -> dict:
 
 
 # The top prior at --channel 2048: attention of channel 1024 in 8 heads, D =
-# 128, the widest head the backward kernels take in one tile.  Batches tried in
-# turn until one fits the card.
+# 128, the widest head the attention kernels take in one tile.  Batches tried
+# in turn until one fits the card.  Each wrapper's device time is summed over
+# the profiler's events of its wide kernel, which must have run.
 WIDE_PRIOR_CHANNEL = 2048
 WIDE_PRIOR_BATCHES = (32, 16, 8)
-ATTENTION_KERNEL_NAMES = {"causal_flash_attention": "flash_fwd_kernel",
-                          "causal_flash_attention_dq": "flash_bwd_dq",
-                          "causal_flash_attention_dkv": "flash_bwd_dkv"}
+ATTENTION_KERNEL_NAMES = {"causal_flash_attention": "flash_fwd_wide_kernel",
+                          "causal_flash_attention_dq": "flash_bwd_dq_wide_kernel",
+                          "causal_flash_attention_dkv": "flash_bwd_dkv_wide_kernel"}
 
 
 def wide_prior_step_times() -> dict:
@@ -1887,6 +1891,8 @@ def wide_prior_step_times() -> dict:
                "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                  "kernel_device_ms": kernel_ms}}
         if busy_ms > 0:
+            check(all(kernel_ms.values()),
+                  f"wide prior step: a wide attention kernel took no device time: {kernel_ms}")
             out["profiled_step"].update(
                 k4_k6_share_of_busy=sum(kernel_ms.values()) / busy_ms,
                 k4_k6_share_of_wall=sum(kernel_ms.values()) / wall_ms)

@@ -15,9 +15,9 @@ inputs and is timed by CUDA events in the order other, this, this, other:
 - the attention forward and the backward's dq and dk/dv kernels at the top
   prior's B*H = 256, N = 1024, for head widths 16, 32 and 64 and the wide
   heads 72 and 128 (``--channel`` 1152 and 2048), fp32 and bf16, without and
-  with dropout 0.1; without dropout, also the backward of
-  ``scaled_dot_product_attention`` on the same inputs (dq, dk and dv
-  together);
+  with dropout 0.1; without dropout, also ``scaled_dot_product_attention``
+  (with the strict mask, row 0 zeroed) on the same inputs, its forward and
+  its backward (dq, dk and dv together);
 - the three nearest-code kernels at the stage-1 train step's shapes
   (N = 524,288 and 131,072 rows, D = 64, K = 512) and at the deep adaptor's
   (N = 10,368 and 2,592 rows at 288x144, batch 16, D = 256, K = 512, the
@@ -59,8 +59,8 @@ import time
 
 import torch
 
-from chip_smoke import (cuda_ms, library_backward_ms, library_stats, ptxas_summary, run_text,
-                        search_parts)
+from chip_smoke import (cuda_ms, library_attention, library_backward_ms, library_stats,
+                        ptxas_summary, run_text, search_parts)
 
 PACKAGE = "vqvae2_tpu_torch"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -133,6 +133,9 @@ def compare_attention(other, this, gen: torch.Generator):
                 "dtype": str(dtype)[6:], "dropout_rate": rate,
                 **{name: in_turns(a[name], b[name], reps=10) for name in a}}
         if rate == 0.0:
+            mask = torch.ones(ATTENTION_N, ATTENTION_N, dtype=torch.bool, device="cuda").tril(-1)
+            mask[0, 0] = True
+            line["library_forward_ms"] = cuda_ms(lambda: library_attention(q, k, v, mask), reps=10)
             line["library_backward_ms"] = library_backward_ms(q, k, v, do)
         print(json.dumps(line), flush=True)
 

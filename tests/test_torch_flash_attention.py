@@ -362,8 +362,8 @@ def test_large_scores_need_the_plain_versions_rounding_of_the_scores():
 
 # ---------------------------------------------------------------------------
 # Head widths the kernels once refused (D = 6 is --channel 96; D = 72 is
-# above one 64-wide tile; D = 128 is one wide tile of the backward kernels,
-# D = 136 two), and what the tensor-core dq arithmetic does
+# above one 64-wide tile; D = 128 is one wide tile of the attention kernels,
+# D = 136 two), and what the tensor-core and wide kernels' arithmetic does
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("d", [6, 72, 128, 136])
@@ -497,6 +497,78 @@ def test_wide_backward_arithmetic_sums_dp_over_the_whole_head():
     for name, g, w, x in zip(("dq", "dk", "dv"), got, plain, exact):
         torch.testing.assert_close(g, w, **TOL, msg=name)
         torch.testing.assert_close(g.double(), x, **TOL, msg=name)
+
+
+def float64_forward(q, k, v, keep=None, rate=0.0):
+    """o of strictly-causal attention in float64, written out; ``keep`` and
+    ``rate`` drop probabilities as the kernels do."""
+    q, k, v = (t.double() for t in (q, k, v))
+    n, d = q.shape[-2:]
+    seen = torch.arange(n)[None, :] < torch.arange(n)[:, None]
+    s = torch.where(seen, q @ k.transpose(-1, -2) / np.sqrt(d), torch.tensor(-np.inf).double())
+    p = torch.nan_to_num(torch.softmax(s, dim=-1))          # row 0 attends nothing
+    if keep is not None:
+        p = p * keep.double() / (1.0 - rate)
+    return p @ v
+
+
+# keys of a ring stage of the wide forward kernel (FWDW_KT)
+WIDE_FORWARD_KEY_TILE = 64
+
+
+def wide_forward_arithmetic(q, k, v, keep=None, rate: float = 0.0,
+                            key_tile: int = WIDE_FORWARD_KEY_TILE, chunk: int = 128):
+    """o as the wide forward kernel forms it: each score one fp32 FMA chain
+    over d, continued over ``chunk``-wide feature chunks in order; then key
+    tiles of ``key_tile`` in turn, each with the online softmax's rescale
+    (the running maximum, ``alpha = exp(m_old - m_new)``, the normaliser
+    rescaled and the tile's undropped ``p`` added), ``p`` times ``keep`` and
+    the fp32 ``1 / (1 - rate)``, ``P·V`` over the tile in three TF32 passes
+    into a fresh truncating accumulator, added to the running ``o`` by one
+    rounded fp32 FMA; ``o`` divided by the normaliser at the end."""
+    n, d = q.shape[-2:]
+    s = torch.zeros(q.shape[:-1] + (n,), dtype=torch.float32)
+    for c0 in range(0, d, chunk):
+        for c in range(c0, min(c0 + chunk, d)):
+            s = (q[..., :, c, None].double() * k[..., None, :, c].double() + s.double()).float()
+    scale = np.float32(1.0 / np.sqrt(d))
+    inv_keep = np.float32(1.0 / (1.0 - rate))
+    rows = torch.arange(n)[:, None]
+    o = torch.zeros(q.shape, dtype=torch.float32)
+    m = torch.full(q.shape[:-1] + (1,), fa.NEG_INF, dtype=torch.float32)
+    norm = torch.zeros_like(m)
+    for k0 in range(0, n, key_tile):
+        keys = torch.arange(k0, min(k0 + key_tile, n))[None, :]
+        seen = keys < rows
+        tile = torch.where(seen, s[..., k0:k0 + key_tile] * scale, torch.tensor(fa.NEG_INF))
+        m_new = torch.maximum(m, tile.max(dim=-1, keepdim=True).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.where(seen, torch.exp(tile - m_new), torch.zeros_like(tile))
+        norm = norm * alpha + p.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., k0:k0 + key_tile], p * inv_keep, torch.zeros_like(p))
+        part = mma_product(p, v[..., k0:k0 + key_tile, :], key_tile, fresh=False)
+        o = (o.double() * alpha.double() + part.double()).float()
+        m = m_new
+    return o / torch.clamp(norm, min=1e-30)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [72, 128, 136])
+def test_wide_forward_arithmetic_stays_within_fa_tol(d, rate):
+    """The wide forward kernel's arithmetic at D = 72 (one 128-wide tile,
+    zero past 72), 128 (one tile) and 136 (two chunks, the chains continued
+    across them), without and with the kernel's dropout draw: 64-key tiles,
+    each with the online softmax's rescale and a fresh truncating
+    accumulator for P·V.  At B·H = 2, N = 512 o stays within FA_TOL of
+    float64 and of the plain fp32 version given the same mask."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(54 + d, 2, 512, d))
+    keep = fa.dropout_keep_reference(77, 2, 512, rate) if rate else None
+    got = wide_forward_arithmetic(q, k, v, keep, rate)
+    assert bool((got[:, 0] == 0).all())
+    torch.testing.assert_close(
+        got, fa.causal_attention_reference(q, k, v, keep=keep, dropout_rate=rate), **TOL)
+    torch.testing.assert_close(got.double(), float64_forward(q, k, v, keep, rate), **TOL)
 
 
 @pytest.mark.parametrize("d", [6, 1, 13])

@@ -357,7 +357,7 @@ def _on_card(t):
 def test_the_attention_launcher_refuses_what_the_kernel_does_not_take(make, error, match):
     """Shape and dtype checks of the CUDA wrapper, reached here by letting CPU
     tensors claim to be on the card.  Any head width is taken (D = 6 is
-    zero-padded to 8 for the kernels, D = 128 runs in 64-wide chunks), and so
+    zero-padded to 8 for the kernels, D = 128 runs in one 128-wide tile), and so
     are strided and misaligned inputs: the kernels get contiguous copies on a
     16-byte boundary."""
     from vqvae2_tpu_torch.ops import _build

@@ -5,6 +5,8 @@
 //   flash_fwd_kernel      <- _fwd_kernel   (launched by _flash_fwd; entry fa_forward)
 //   flash_bwd_dq_kernel   <- _dq_kernel    (launched by _flash_bwd; entry fa_backward_dq)
 //   flash_bwd_dkv_kernel  <- _dkv_kernel   (launched by _flash_bwd; entry fa_backward_dkv)
+// each with a variant for heads wider than 64 features (the *_wide_kernel
+// below) and K5 with a second narrow design (flash_bwd_dq_fma_kernel).
 //
 // What is computed, for q, k, v (BH, N, D) and each (bh, i):
 //   s[j]   = <q[i], k[j]> * (1 / sqrt(D))       in true fp32, keys j < i only
@@ -38,12 +40,12 @@
 // k-step of a TF32 wgmma, and a TF32 wgmma takes both operands K-major, which V
 // (and dO, Q in the backward's second products) is not.
 //
-// K4: a block of four warps owns 64 query rows, 16 a warp (the M of its mma
-// tiles), each thread two rows.  It walks tiles of 64 keys (32 at D = 64),
-// staged two deep in shared memory by cp.async, up to the diagonal; a warp
-// skips the key columns wholly above its rows.  The scores stay on the CUDA
-// cores: s[i, j] is an fp32 FMA chain over d in order, as the plain version's
-// product rounds it, in the layout of an mma accumulator.  Scores computed
+// K4 up to 64 features: a block of four warps owns 64 query rows, 16 a warp
+// (the M of its mma tiles), each thread two rows.  It walks tiles of 64 keys
+// (32 at D = 64), staged two deep in shared memory by cp.async, up to the
+// diagonal; a warp skips the key columns wholly above its rows.  The scores
+// stay on the CUDA cores: s[i, j] is an fp32 FMA chain over d in order, as the
+// plain version's product rounds it, in the layout of an mma accumulator.  Scores computed
 // more exactly leave o further from the plain version than FA_TOL once they
 // reach a few hundred (q * 50 in chip_smoke.py), because the plain version's
 // own rounding of them moves o that far.  The online softmax runs on those
@@ -56,13 +58,15 @@
 // Any head width.  D that is not a multiple of 4 is zero-padded to one by the
 // wrapper (an FMA of 0 * 0 onto a score leaves it bit for bit; the scale takes
 // the head's own D).  Up to 64 features a head is one tile wide (variants of
-// 16, 32 and 64 columns).  Above, K4 cuts it into 64-wide chunks (WIDE): each
-// block owns one 64-wide group of o's columns (a grid axis), and the scores
-// continue their FMA chains across the chunks in order, so they round as one
-// chain over d; the score work is repeated for every column group.  K5 and K6
-// take wide heads in variants of their own, one 128-wide tile up to 128
-// features, which compute S and dP once for all the columns they write
-// (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel below).
+// 16, 32 and 64 columns).  Above, all three take wide heads in kernels of
+// their own (flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel,
+// flash_bwd_dkv_wide_kernel below): one 128-wide tile up to 128 features,
+// with the block's own rows staged once in dynamic shared memory and the
+// other operand streamed through a cp.async ring, so that S (and dP) are
+// computed once for all the columns a block writes.  Above 128 the tile is
+// cut into 128-wide chunks and a block owns one 128-wide group of its
+// output's columns; the scores continue their FMA chains across the chunks
+// in order, so they round as one chain over d.
 //
 // Dropout is a counter-based draw: Philox-4x32-10 keyed on the seed, with the
 // absolute (bh, i, j / 4) as the counter and word j % 4 of the result as the
@@ -283,53 +287,6 @@ __device__ __forceinline__ void stage_rows(float (*dst)[LD], const T* __restrict
   }
 }
 
-// The scores of a key tile in the mma accumulator layout: s[j][c] += the
-// chain over this tile's DP columns for (row ra, key 8j + 2t + c), s[j][2 + c]
-// for (rb, the same key); kr(j, c) is that key's staged row.  Column tiles at
-// or beyond kmax (warp-uniform) are skipped.  Continued over the feature
-// chunks of a wide head in order, it is one fp32 FMA chain over d.
-template <int DP, int JN, typename KRow>
-__device__ __forceinline__ void score_chains(float (&s)[JN][4], const float (&qa)[DP],
-                                             const float (&qb)[DP], KRow kr, int kmax) {
-#pragma unroll
-  for (int j = 0; j < JN; ++j) {
-    if (j * 8 >= kmax) continue;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float* row = kr(j, c);
-      float sa = s[j][c], sb = s[j][2 + c];
-#pragma unroll
-      for (int dd = 0; dd < DP; dd += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(row + dd);
-        sa = fmaf(qa[dd + 0], kk.x, sa);
-        sa = fmaf(qa[dd + 1], kk.y, sa);
-        sa = fmaf(qa[dd + 2], kk.z, sa);
-        sa = fmaf(qa[dd + 3], kk.w, sa);
-        sb = fmaf(qb[dd + 0], kk.x, sb);
-        sb = fmaf(qb[dd + 1], kk.y, sb);
-        sb = fmaf(qb[dd + 2], kk.z, sb);
-        sb = fmaf(qb[dd + 3], kk.w, sb);
-      }
-      s[j][c] = sa;
-      s[j][2 + c] = sb;
-    }
-  }
-}
-
-// Columns c0 .. c0 + DP - 1 of query rows ra and rb, widened to fp32, zero
-// outside the matrix.
-template <typename T, int DP>
-__device__ __forceinline__ void load_query_rows(float (&qa)[DP], float (&qb)[DP],
-                                                const T* __restrict__ qbase, int ra, int rb, int n,
-                                                int d, int c0) {
-#pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    const bool in = c0 + c < d;
-    qa[c] = (ra < n && in) ? to_float(qbase[static_cast<long long>(ra) * d + c0 + c]) : 0.f;
-    qb[c] = (rb < n && in) ? to_float(qbase[static_cast<long long>(rb) * d + c0 + c]) : 0.f;
-  }
-}
-
 // The keep bits of a score fragment under K4's and K5's layout: keys
 // 8j + 2t, 8j + 2t + 1 of rows ra, rb are words 2(t & 1), 2(t & 1) + 1 of
 // the Philox quad key0 / 4 + t / 2 (key0 = the column tile's first key).  Of
@@ -376,19 +333,12 @@ __device__ __forceinline__ unsigned int keep_bits_keys(unsigned long long seed, 
          ((m3 >> w) & 1u) << 3;
 }
 
-// K4: o and lse.  One block of four warps owns 64 query rows, 16 a warp (the
-// rows of its mma tiles), each thread two rows (g and g + 8 of its warp's).
-// It walks KT-key tiles of K and V, staged two deep by cp.async, up to the
-// diagonal.  Blocks are ordered by the length of their key loop, longest
-// first, across all heads.
-//
-// WIDE (D > 64): the head is cut into 64-wide feature chunks.  A block owns
-// one 64-wide group of o's columns (blockIdx.y) and stages only that group of
-// V; the scores continue their FMA chains over the chunks of K in order (each
-// chunk staged in turn, q's chunk read from global memory), so they round as
-// one chain over d.  Every group's block computes the same scores, lse and
-// probabilities; group 0 writes lse.
-template <typename T, int DP, bool DROP, bool WIDE>
+// K4 up to 64 features: o and lse.  One block of four warps owns 64 query
+// rows, 16 a warp (the rows of its mma tiles), each thread two rows (g and g
+// + 8 of its warp's), with q in registers.  It walks KT-key tiles of K and V,
+// staged two deep by cp.async, up to the diagonal.  Blocks are ordered by the
+// length of their key loop, longest first, across all heads.
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, long long bh_count, int n, int d,
@@ -408,9 +358,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int t = lane & 3;
   const long long bh = blockIdx.x % bh_count;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
-  const int cg = WIDE ? static_cast<int>(blockIdx.y) : 0;   // o's column group
-  const int col0 = cg * DP;
-  const int chunks = WIDE ? (d + DP - 1) / DP : 1;
   const int row0 = qt * TC_ROWS + warp * 16;   // first row of this warp
   const int ra = row0 + g;                     // this thread's two rows
   const int rb = ra + 8;
@@ -419,12 +366,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + base;
 
   float qa[DP], qb[DP];
-  if (!WIDE) {
 #pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      qa[c] = (ra < n && c < d) ? to_float(q[base + static_cast<long long>(ra) * d + c]) : 0.f;
-      qb[c] = (rb < n && c < d) ? to_float(q[base + static_cast<long long>(rb) * d + c]) : 0.f;
-    }
+  for (int c = 0; c < DP; ++c) {
+    qa[c] = (ra < n && c < d) ? to_float(q[base + static_cast<long long>(ra) * d + c]) : 0.f;
+    qb[c] = (rb < n && c < d) ? to_float(q[base + static_cast<long long>(rb) * d + c]) : 0.f;
   }
   float acc[DS][4];   // O: rows ra (0, 1) and rb (2, 3), columns 8s + 2t and 8s + 2t + 1
 #pragma unroll
@@ -440,16 +385,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tiles = (key_end + KT - 1) / KT;
 
   if (tiles > 0) {
-    if (!WIDE) stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
-    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d, col0);
+    stage_rows<T, KT, DP, LD>(k_tile[0], kb, 0, n, d);
+    stage_rows<T, KT, DP, LD>(v_tile[0], vb, 0, n, d);
   }
   cp_async_commit();
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * KT;
     const int st = it & 1;
     if (it + 1 < tiles) {   // the next tile loads while this one is computed
-      if (!WIDE) stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
-      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d, col0);
+      stage_rows<T, KT, DP, LD>(k_tile[st ^ 1], kb, k0 + KT, n, d);
+      stage_rows<T, KT, DP, LD>(v_tile[st ^ 1], vb, k0 + KT, n, d);
     }
     cp_async_commit();
     cp_async_wait_one();
@@ -459,53 +404,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     // (warp-uniform); a warp with kmax <= 0 skips the tile.
     const int kmax = warp_last - k0;
     float s[JT][4];
-    if constexpr (WIDE) {
-      // K's chunks in turn through k_tile[0] (the block waits for each: a
-      // wide head is off the models' main path)
-#pragma unroll
-      for (int j = 0; j < JT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      for (int fc = 0; fc < chunks; ++fc) {
-        stage_rows<T, KT, DP, LD>(k_tile[0], kb, k0, n, d, fc * DP);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (kmax > 0) {
-          load_query_rows<T, DP>(qa, qb, q + base, ra, rb, n, d, fc * DP);
-          score_chains<DP, JT>(s, qa, qb,
-                               [&](int j, int c) { return &k_tile[0][j * 8 + 2 * t + c][0]; }, kmax);
-        }
-        __syncthreads();   // consumed before the next chunk overwrites it
-      }
-    }
     if (kmax > 0) {
       // S = Q.K^T: s[j][c] is (ra, key k0 + 8j + 2t + c), s[j][2 + c] is (rb,
       // the same key), each an fp32 FMA chain over d in order, as the plain
       // version's product rounds it.  (Scores on the tensor cores, even exact
       // ones, leave o further from the plain version than FA_TOL once the
       // scores reach a few hundred: tests/test_torch_flash_attention.py.)
-      if constexpr (!WIDE) {
 #pragma unroll
-        for (int j = 0; j < JT; ++j) {
-          if (j * 8 >= kmax) continue;
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float* kr = &k_tile[st][j * 8 + 2 * t + c][0];
-            float sa = 0.f, sb = 0.f;
+        for (int c = 0; c < 2; ++c) {
+          const float* kr = &k_tile[st][j * 8 + 2 * t + c][0];
+          float sa = 0.f, sb = 0.f;
 #pragma unroll
-            for (int dd = 0; dd < DP; dd += 4) {
-              const float4 kk = *reinterpret_cast<const float4*>(kr + dd);
-              sa = fmaf(qa[dd + 0], kk.x, sa);
-              sa = fmaf(qa[dd + 1], kk.y, sa);
-              sa = fmaf(qa[dd + 2], kk.z, sa);
-              sa = fmaf(qa[dd + 3], kk.w, sa);
-              sb = fmaf(qb[dd + 0], kk.x, sb);
-              sb = fmaf(qb[dd + 1], kk.y, sb);
-              sb = fmaf(qb[dd + 2], kk.z, sb);
-              sb = fmaf(qb[dd + 3], kk.w, sb);
-            }
-            s[j][c] = sa;
-            s[j][2 + c] = sb;
+          for (int dd = 0; dd < DP; dd += 4) {
+            const float4 kk = *reinterpret_cast<const float4*>(kr + dd);
+            sa = fmaf(qa[dd + 0], kk.x, sa);
+            sa = fmaf(qa[dd + 1], kk.y, sa);
+            sa = fmaf(qa[dd + 2], kk.z, sa);
+            sa = fmaf(qa[dd + 3], kk.w, sa);
+            sb = fmaf(qb[dd + 0], kk.x, sb);
+            sb = fmaf(qb[dd + 1], kk.y, sb);
+            sb = fmaf(qb[dd + 2], kk.z, sb);
+            sb = fmaf(qb[dd + 3], kk.w, sb);
           }
+          s[j][c] = sa;
+          s[j][2 + c] = sb;
         }
       }
 
@@ -618,10 +543,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float den_a = fmaxf(l_a, TINY);
   const float den_b = fmaxf(l_b, TINY);
   if (ra < n) {
-    if (t == 0 && cg == 0) lse[bh * n + ra] = m_a + logf(den_a);
+    if (t == 0) lse[bh * n + ra] = m_a + logf(den_a);
 #pragma unroll
     for (int ds = 0; ds < DS; ++ds) {
-      const int col = col0 + ds * 8 + 2 * t;
+      const int col = ds * 8 + 2 * t;
       if (col < d) {
         store2(o + base + static_cast<long long>(ra) * d + col, acc[ds][0] / den_a,
                acc[ds][1] / den_a);
@@ -629,10 +554,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
   if (rb < n) {
-    if (t == 0 && cg == 0) lse[bh * n + rb] = m_b + logf(den_b);
+    if (t == 0) lse[bh * n + rb] = m_b + logf(den_b);
 #pragma unroll
     for (int ds = 0; ds < DS; ++ds) {
-      const int col = col0 + ds * 8 + 2 * t;
+      const int col = ds * 8 + 2 * t;
       if (col < d) {
         store2(o + base + static_cast<long long>(rb) * d + col, acc[ds][2] / den_b,
                acc[ds][3] / den_b);
@@ -660,44 +585,33 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, long long bh_
   }
 }
 
-// The grid of a kernel: (heads x row tiles) along x, and along y the 64-wide
-// column groups of a wide head (1 otherwise).
-inline bool grid_of(long long bh, int n, int d, bool wide, dim3& grid) {
+// The grid of a narrow kernel: heads x row tiles of TC_ROWS, along x.
+inline bool grid_of(long long bh, int n, dim3& grid) {
   const long long blocks = bh * ((n + TC_ROWS - 1) / TC_ROWS);
   if (blocks > 2147483647LL) return false;
-  grid = dim3(static_cast<unsigned int>(blocks), wide ? static_cast<unsigned int>((d + 63) / 64) : 1u);
+  grid = dim3(static_cast<unsigned int>(blocks));
   return true;
 }
 
-template <typename T, int DP, bool WIDE>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long bh, int n,
            int d, float scale, unsigned int threshold, float inv_keep, unsigned long long seed,
            cudaStream_t stream) {
   const int nq = (n + TC_ROWS - 1) / TC_ROWS;
   dim3 grid;
-  if (!grid_of(bh, n, d, WIDE, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_of(bh, n, grid)) return static_cast<int>(cudaErrorInvalidValue);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (threshold > 0) {
-    flash_fwd_kernel<T, DP, true, WIDE><<<grid, TC_THREADS, 0, stream>>>(
+    flash_fwd_kernel<T, DP, true><<<grid, TC_THREADS, 0, stream>>>(
         qp, kp, vp, op, lse, bh, n, d, nq, scale, threshold, inv_keep, seed);
   } else {
-    flash_fwd_kernel<T, DP, false, WIDE><<<grid, TC_THREADS, 0, stream>>>(
+    flash_fwd_kernel<T, DP, false><<<grid, TC_THREADS, 0, stream>>>(
         qp, kp, vp, op, lse, bh, n, d, nq, scale, 0u, 1.0f, 0ull);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_by_depth(const void* q, const void* k, const void* v, void* o, float* lse,
-                    long long bh, int n, int d, float scale, unsigned int threshold,
-                    float inv_keep, unsigned long long seed, cudaStream_t stream) {
-  if (d <= 16) return launch<T, 16, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
-  if (d <= 32) return launch<T, 32, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
-  if (d <= 64) return launch<T, 64, false>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
-  return launch<T, 64, true>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
 }
 
 // The softmax scale of a head of head_dim features; the rows themselves may be
@@ -1389,7 +1303,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// K5 and K6 for heads wider than 64 features
+// K4, K5 and K6 for heads wider than 64 features
 // ---------------------------------------------------------------------------
 //
 // The head is one tile of CW = 128 features wide up to 128 (zero-padded past
@@ -1398,15 +1312,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // chunks: the scores continue their FMA chains over the chunks in order, dP
 // takes each chunk into a fresh accumulator added by a rounded fp32 add, and
 // a block owns one CW-wide group of its output's columns (blockIdx.y; one
-// group up to 128 features).  Each block computes S and dP once for all the
-// columns it writes.  Both kernels have eight warps and 1 block an SM, with
-// dynamic shared memory set once a variant above the 48 KB of static shared
-// memory:
+// group up to 128 features).  Each block computes S (and dP) once for all the
+// columns it writes.  The three kernels have eight warps and 1 block an SM,
+// with dynamic shared memory set once a variant above the 48 KB of static
+// shared memory:
+//   K4 (202,752 bytes): the block's 128 query rows of q, staged once (67.6
+//     KB), and a ring of two stages of 64 keys of K and V (67.6 KB a stage),
+//     loaded by cp.async while the previous stage is computed.  Each warp
+//     owns 16 rows as the narrow kernel does, with o (64 fp32 a thread) in
+//     registers; the scores' FMA chains read q and K from shared memory, and
+//     P.V takes P from the registers as the narrow kernel does.  On the card
+//     64-key stages ran faster than 32 or 48 (fewer waits a key, more chains
+//     in flight), and a third 32-key stage or four warps at two blocks an SM
+//     did not (PERF.md).
 //   K5 (203,264 bytes): the block's 128 query rows of q and do, staged once
 //     (two 67.6 KB tiles), and a ring of two stages of 32 keys of K and V
-//     (33.8 KB a stage), loaded by cp.async while the previous stage is
-//     computed.  Each warp owns 16 rows as the narrow kernel does, with dq (64
-//     fp32 a thread) in registers.
+//     (33.8 KB a stage).  Each warp owns 16 rows as the narrow kernel does,
+//     with dq (64 fp32 a thread) in registers.
 //   K6 (224,256 bytes): the block's 64 keys of k and v, staged once, a ring
 //     of two stages of 64 queries of Q, dO, lse and dsum (68.1 KB a stage),
 //     and a 20 KB tile through which the two warpgroups pass P^T.  Warpgroup
@@ -1418,22 +1340,262 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // Above one chunk (D > 128) the block's own rows are staged again, one chunk
 // at a time, as each ring stage of the same chunk comes (the block waits for
 // them), and the chunk of the block's column group that the last products
-// take is staged into their buffers.
+// take is staged into their buffers (K4: into the ring stage of the last
+// chunk, beside K's).
 
 constexpr int CW = 128;                 // feature tile of a wide head, and its column groups
 constexpr int CW_LD = CW + 4;           // row stride of a staged chunk in floats (kTcLd)
 constexpr int WIDE_WARPS = 8;
 constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+constexpr int FWDW_ROWS = 16 * WIDE_WARPS;  // query rows of a K4 block
+constexpr int FWDW_KT = 64;                 // keys of a stage of its ring
 constexpr int DQW_ROWS = 16 * WIDE_WARPS;   // query rows of a K5 block
 constexpr int DQW_KT = 32;                  // keys of a stage of its ring
 constexpr int DKVW_KEYS = 64;               // keys of a K6 block, 16 a warp of each warpgroup
 constexpr int DKVW_QT = 64;                 // queries of a stage of its ring
+constexpr int FWDW_SMEM = (FWDW_ROWS + 2 * 2 * FWDW_KT) * CW_LD * static_cast<int>(sizeof(float));
 constexpr int DQW_SMEM =
     (2 * DQW_ROWS * CW_LD + 2 * 2 * DQW_KT * CW_LD + DQW_ROWS) * static_cast<int>(sizeof(float));
 constexpr int DKVW_SMEM =
     (2 * DKVW_KEYS * CW_LD + 2 * (2 * DKVW_QT * CW_LD + 2 * DKVW_QT) + 4 * (DKVW_QT / 8) * 32 * 5) *
     static_cast<int>(sizeof(float));
-static_assert(DQW_SMEM <= 232448 && DKVW_SMEM <= 232448, "a block has at most 227 KB");
+static_assert(FWDW_SMEM <= 232448 && DQW_SMEM <= 232448 && DKVW_SMEM <= 232448,
+              "a block has at most 227 KB");
+
+// K4 for D > 64: o of one CW-wide column group, and lse (group 0).  Each warp
+// owns 16 query rows (ra, rb as in flash_fwd_kernel) and walks the ring's
+// 64-key stages up to its diagonal; the block's longest key loop first,
+// across all heads.  A stage: S's chains continued over its chunk of K; after
+// the last chunk the steps of flash_fwd_kernel's tile loop: the online
+// softmax, the dropout draw and O += P.V over the group's columns of V, the
+// tile's products into a fresh accumulator added by a rounded fp32 FMA.
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, long long bh_count, int n,
+                      int d, int nq, float scale, unsigned int threshold, float inv_keep,
+                      unsigned long long seed) {
+  constexpr int ROWS = FWDW_ROWS;
+  constexpr int KT = FWDW_KT;
+  constexpr int LD = CW_LD;
+  constexpr int JT = KT / 8;     // 8-key column tiles of S; k-steps of O += P.V
+  constexpr int DS = CW / 8;     // 8-wide column tiles of O
+  constexpr bool EXACT = ExactInTf32<T>::value;
+  extern __shared__ __align__(16) float smem[];
+  float (*q_rows)[LD] = reinterpret_cast<float (*)[LD]>(smem);
+  float (*ring)[LD] = q_rows + ROWS;   // stage s: K's KT rows at ring + 2 KT s, then V's
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long bh = blockIdx.x % bh_count;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int cg = static_cast<int>(blockIdx.y);   // o's column group
+  const int col0 = cg * CW;
+  const int chunks = (d + CW - 1) / CW;
+  const int qrow0 = qt * ROWS;
+  const int wrow = warp * 16;          // the warp's first row within the block
+  const int row0 = qrow0 + wrow;
+  const int ra = row0 + g;
+  const int rb = ra + 8;
+  const long long base = bh * n * d;
+  const T* qbase = q + base;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  const int key_end = min(n, qrow0 + ROWS) - 1;
+  const int tiles = (key_end + KT - 1) / KT;
+  const int items = tiles * chunks;   // ring stages: (key tile, chunk), the chunks innermost
+  // K's chunk of the item, and with the last chunk V's columns of the block's group
+  auto stage_item = [&](int u) {
+    const int it = u / chunks;
+    const int fc = u - it * chunks;
+    float (*kt)[LD] = ring + 2 * KT * (u & 1);
+    stage_rows<T, KT, CW, LD, WIDE_THREADS>(kt, kb, it * KT, n, d, fc * CW);
+    if (fc == chunks - 1) stage_rows<T, KT, CW, LD, WIDE_THREADS>(kt + KT, vb, it * KT, n, d, col0);
+  };
+
+  if (items > 0) {
+    stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(q_rows, qbase, qrow0, n, d);
+    stage_item(0);
+  }
+  cp_async_commit();
+  const float* qa_row = &q_rows[wrow + g][0];
+  const float* qb_row = &q_rows[wrow + g + 8][0];
+  const int warp_last = row0 < n ? min(n, row0 + 16) - 1 : 0;
+
+  float acc[DS][4];   // o: rows ra (0, 1) and rb (2, 3), columns col0 + 8s + 2t, + 1
+#pragma unroll
+  for (int s = 0; s < DS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+  // the running maximum, and this lane's part of the normaliser (its 2 columns
+  // of every 8), of rows ra and rb
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float s[JT][4];   // S of the key tile: rows ra (0, 1), rb (2, 3), keys 8j + 2t, + 1
+
+  for (int u = 0; u < items; ++u) {
+    const int it = u / chunks;
+    const int fc = u - it * chunks;
+    const int k0 = it * KT;
+    const int c0 = fc * CW;
+    if (u + 1 < items) stage_item(u + 1);   // the next stage loads while this one is computed
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (chunks > 1 && u > 0) {   // this chunk of the block's rows
+      stage_rows<T, ROWS, CW, LD, WIDE_THREADS>(q_rows, qbase, qrow0, n, d, c0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const float (*kt)[LD] = ring + 2 * KT * (u & 1);
+    const float (*vt)[LD] = kt + KT;
+    const int kmax = warp_last - k0;   // column tile j is seen when 8j < kmax (warp-uniform)
+    const int width = min(CW, d - c0);  // this chunk's features
+    if (fc == 0) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+    if (kmax > 0) {
+      // S = Q.K^T: s[j][c] is (ra, key k0 + 8j + 2t + c), s[j][2 + c] (rb, the
+      // same key), each an fp32 FMA chain over d in order, continued over
+      // this chunk's features
+#pragma unroll 1
+      for (int db = 0; db < width; db += 16) {
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const int dd = db + e;
+          const float4 xa = *reinterpret_cast<const float4*>(qa_row + dd);
+          const float4 xb = *reinterpret_cast<const float4*>(qb_row + dd);
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float4 kk = *reinterpret_cast<const float4*>(&kt[j * 8 + 2 * t + c][dd]);
+              s[j][c] = fmaf(xa.x, kk.x, s[j][c]);
+              s[j][c] = fmaf(xa.y, kk.y, s[j][c]);
+              s[j][c] = fmaf(xa.z, kk.z, s[j][c]);
+              s[j][c] = fmaf(xa.w, kk.w, s[j][c]);
+              s[j][2 + c] = fmaf(xb.x, kk.x, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.y, kk.y, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.z, kk.z, s[j][2 + c]);
+              s[j][2 + c] = fmaf(xb.w, kk.w, s[j][2 + c]);
+            }
+          }
+        }
+      }
+    }
+    if (fc == chunks - 1 && kmax > 0) {
+      // Online softmax on the fragments; a row's maximum is reduced over the
+      // four lanes of its quad.  Column tiles wholly above the warp's rows
+      // (8j >= kmax) are skipped.
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + j * 8 + 2 * t + c;
+          s[j][c] = key < ra ? s[j][c] * scale : NEG;
+          s[j][2 + c] = key < rb ? s[j][2 + c] * scale : NEG;
+          mx_a = fmaxf(mx_a, s[j][c]);
+          mx_b = fmaxf(mx_b, s[j][2 + c]);
+        }
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+      const float alpha_a = __expf(m_a - mx_a);
+      const float alpha_b = __expf(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+      // p = exp(s - m) * mask, the mask a factor (as in flash_fwd_kernel)
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + j * 8 + 2 * t + c;
+          const float pa = key < ra ? __expf(s[j][c] - mx_a) : 0.f;
+          const float pb = key < rb ? __expf(s[j][2 + c] - mx_b) : 0.f;
+          l_a += pa;   // the normaliser takes the undropped p
+          l_b += pb;
+          s[j][c] = pa;
+          s[j][2 + c] = pb;
+        }
+      }
+      if (DROP) {
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          if (j * 8 >= kmax) continue;
+          const unsigned int keep = keep_bits_rows(seed, bh, ra, rb, k0 + j * 8, t, threshold);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] = ((keep >> c) & 1u) ? s[j][c] * inv_keep : 0.f;
+        }
+      }
+      // O += P.V in three TF32 passes, P from the registers with its keys
+      // reordered as in flash_fwd_kernel; the group's 8-wide column tiles
+      // that lie past d are skipped
+      float part[DS][4];
+#pragma unroll
+      for (int ds = 0; ds < DS; ++ds) part[ds][0] = part[ds][1] = part[ds][2] = part[ds][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        if (j * 8 >= kmax) continue;
+        unsigned int ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const int r = j * 8 + 2 * t;
+#pragma unroll
+        for (int ds = 0; ds < DS; ++ds) {
+          if (col0 + ds * 8 >= d) break;
+          const int c = ds * 8 + g;
+          unsigned int vh[2], vl[2];
+          split_tf32(vt[r][c], vh[0], vl[0]);
+          split_tf32(vt[r + 1][c], vh[1], vl[1]);
+          mma_3xtf32<false, EXACT>(part[ds], ph, pl, vh, vl);
+        }
+      }
+#pragma unroll
+      for (int ds = 0; ds < DS; ++ds) {
+        acc[ds][0] = fmaf(acc[ds][0], alpha_a, part[ds][0]);
+        acc[ds][1] = fmaf(acc[ds][1], alpha_a, part[ds][1]);
+        acc[ds][2] = fmaf(acc[ds][2], alpha_b, part[ds][2]);
+        acc[ds][3] = fmaf(acc[ds][3], alpha_b, part[ds][3]);
+      }
+    }
+    __syncthreads();   // this stage is consumed before the ring overwrites it
+  }
+
+  l_a += __shfl_xor_sync(FULL, l_a, 1);
+  l_a += __shfl_xor_sync(FULL, l_a, 2);
+  l_b += __shfl_xor_sync(FULL, l_b, 1);
+  l_b += __shfl_xor_sync(FULL, l_b, 2);
+  const float den_a = fmaxf(l_a, TINY);
+  const float den_b = fmaxf(l_b, TINY);
+  if (cg == 0 && t == 0) {
+    if (ra < n) lse[bh * n + ra] = m_a + logf(den_a);
+    if (rb < n) lse[bh * n + rb] = m_b + logf(den_b);
+  }
+#pragma unroll
+  for (int ds = 0; ds < DS; ++ds) {
+    const int col = col0 + ds * 8 + 2 * t;
+    if (col >= d) continue;
+    if (ra < n) {
+      store2(o + base + static_cast<long long>(ra) * d + col, acc[ds][0] / den_a,
+             acc[ds][1] / den_a);
+    }
+    if (rb < n) {
+      store2(o + base + static_cast<long long>(rb) * d + col, acc[ds][2] / den_b,
+             acc[ds][3] / den_b);
+    }
+  }
+}
 
 // Named barrier `id` of `threads` threads: arrive without waiting, or wait.
 // Shared-memory writes made before the arrival are seen after the wait.
@@ -2020,7 +2182,7 @@ template <typename T, int DP, bool DROP>
 int launch_dq(const BwdArgs& a, cudaStream_t stream) {
   const int nq = (a.n + TC_ROWS - 1) / TC_ROWS;
   dim3 grid;
-  if (!grid_of(a.bh, a.n, a.d, false, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_of(a.bh, a.n, grid)) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_dq_kernel<T, DP, DROP><<<grid, TC_THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.dsum,
@@ -2031,7 +2193,7 @@ int launch_dq(const BwdArgs& a, cudaStream_t stream) {
 template <typename T, int DP, bool DROP>
 int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   dim3 grid;
-  if (!grid_of(a.bh, a.n, a.d, false, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_of(a.bh, a.n, grid)) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_dkv_kernel<T, DP, DROP><<<grid, TC_THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
@@ -2076,6 +2238,41 @@ int launch_dkv_wide(const BwdArgs& a, int groups, cudaStream_t stream) {
       static_cast<const T*>(a.dout), a.lse, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.bh, a.n, a.d, a.scale, a.threshold, a.inv_keep, a.seed);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DROP>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                    long long bh, int n, int d, float scale, unsigned int threshold,
+                    float inv_keep, unsigned long long seed, cudaStream_t stream) {
+  static const int allowed = static_cast<int>(cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<T, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWDW_SMEM));
+  if (allowed != 0) return allowed;
+  dim3 grid;
+  if (!wide_grid_of(bh, n, FWDW_ROWS, (d + CW - 1) / CW, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nq = (n + FWDW_ROWS - 1) / FWDW_ROWS;
+  flash_fwd_wide_kernel<T, DROP><<<grid, WIDE_THREADS, FWDW_SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, bh, n, d, nq, scale, threshold, inv_keep, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's variant for a head of d features: the narrowest of 16, 32 and 64 that
+// holds it, else the wide kernel with the 128-wide column groups that cover
+// d (the tiling ops/flash_attention.py's backward_tiling gives the backward).
+template <typename T>
+int launch_by_depth(const void* q, const void* k, const void* v, void* o, float* lse,
+                     long long bh, int n, int d, float scale, unsigned int threshold,
+                     float inv_keep, unsigned long long seed, cudaStream_t stream) {
+  if (d <= 16) return launch<T, 16>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed, stream);
+  if (threshold > 0) {
+    return launch_fwd_wide<T, true>(q, k, v, o, lse, bh, n, d, scale, threshold, inv_keep, seed,
+                                    stream);
+  }
+  return launch_fwd_wide<T, false>(q, k, v, o, lse, bh, n, d, scale, 0u, 1.0f, 0ull, stream);
 }
 
 // The backward launches: dq by the design chosen for the shape, or dk/dv.
@@ -2149,10 +2346,13 @@ int backward(const BwdArgs& a, int head_dim, int tile, int groups, int pass, int
 // o (BH, N, D) in the inputs' type and lse (BH, N) fp32 from q, k, v
 // (BH, N, D), all contiguous.  D is a multiple of 4 (the wrapper zero-pads the
 // feature axis to one); head_dim <= D is the head's own width, whose
-// 1 / sqrt(head_dim) scales the scores.  threshold is rate * 2^32 (0: no
-// dropout) and inv_keep is 1 / (1 - rate).  Returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for a shape the kernel
-// does not take.  Launches on the given stream and does not synchronise.
+// 1 / sqrt(head_dim) scales the scores.  Up to 64 features flash_fwd_kernel
+// runs at the narrowest of 16, 32 and 64 that holds D; above,
+// flash_fwd_wide_kernel with the 128-wide column groups that cover D.
+// threshold is rate * 2^32 (0: no dropout) and inv_keep is 1 / (1 - rate).
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a shape the kernel does not take.  Launches on the
+// given stream and does not synchronise.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                           long long bh, int n, int d, int head_dim, int is_bf16,
                           unsigned int threshold, float inv_keep, unsigned long long seed,

@@ -272,6 +272,7 @@ def _causal_flash_attention_cuda(
 
 # The backward kernels' feature tiles: one tile for a head up to 64 features,
 # and above that tiles of WIDE_TILE columns, each a column group of the output.
+# The forward kernel's entry picks the same tiling from D itself.
 NARROW_TILES = (16, 32, 64)
 WIDE_TILE = 128
 
